@@ -3,7 +3,7 @@
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 
-1. Prints the card's name and power limit, builds the three CUDA kernels
+1. Prints the card's name and power limit, builds the four CUDA kernels
    (one nvcc per source, in parallel) and prints the build time and ptxas's
    register / stack report.
 2. For each kernel, at the largest bucket (16,384 lanes) with a 50-key
@@ -20,8 +20,24 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    node's verifier (``_make_verifier("cuda-only")``); then one committee
    dispatch of 15,000 signatures (one 16,384-lane bucket) with a few
    unknown-key stragglers.
-   Verdicts must equal the oracle's, and every kernel must have launched.
-4. Prints a ``{"kernels": [...]}`` line, the end-to-end rate, and as its
+   Verdicts must equal the oracle's.
+4. Flat keyed upload: the 15,000-signature grouped chunk of step 2 as the
+   flat layout (96 B per signature plus one ok bit), through
+   ``verify_keyed_flat``; ``prologue_flat`` must equal its plain version on
+   every output, and the verdicts the 26-column keyed path's and the labels.
+   Times both layouts, host-to-device copy included.
+5. Sharded dispatch: the committee burst of step 3 through
+   ``sharded_verify_batch_indexed`` and ``sharded_verify_batch_fused`` on a
+   mesh of the distinct cards (with two or more), else of 4 shards on
+   ``cuda:0``; verdicts must equal the single-device dispatch, the labels
+   and an oracle sample, and the valid count their sum.
+6. Hybrid node kind: the blocks of step 3 through ``_make_verifier("cuda")``
+   (the CPU/GPU router); verdicts must equal the oracle's, at least one
+   batch must take the GPU route and the breaker must end closed.  Prints
+   the router's calibration and how many batches took each route.
+Each path of steps 3-6 runs with every launch count set to 0 just before it
+and read just after; every kernel must have launched on some path.
+7. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or when any
@@ -283,8 +299,9 @@ def kernel_phase(signers, table, rng, report):
                        nbytes(tile_keys, acomb, *outs[2:], E.base_comb(dev), got))
     report["verify_keyed"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                   bound_by=b_by, field_muls_per_lane=keyed_muls)
-    print(f"kernel phase: {BUCKET} lanes x {len(CLASSES)} classes, all three kernels "
-          f"equal their plain versions; {ORACLE_SAMPLE} lanes held to the oracle", flush=True)
+    print(f"kernel phase: {BUCKET} lanes x {len(CLASSES)} classes, prologue, generic and keyed "
+          f"kernels equal their plain versions; {ORACLE_SAMPLE} lanes held to the oracle", flush=True)
+    return grouped, tile_keys.cpu().numpy(), positions, expected[sel]
 
 
 def build_blocks(signers, rng):
@@ -315,7 +332,9 @@ def build_blocks(signers, rng):
 
 
 def main_path(signers, committee, rng, kernels):
-    """The node's verify path, then one committee dispatch of BUCKET lanes."""
+    """The node's verify path, then one committee dispatch of BUCKET lanes.
+    Returns the launch counts, the dispatch rate, the blocks with the
+    oracle's verdicts, and the committee burst's lanes."""
     import numpy as np
 
     from mysticeti_tpu_torch.types import StatementBlock
@@ -351,7 +370,7 @@ def main_path(signers, committee, rng, kernels):
     sample = rng.sample(range(KEYED_LANES), 100)
     check(all(oracle(pks[i], msgs[i], sigs[i]) == got[i] for i in sample),
           "committee dispatch disagrees with the oracle")
-    launches = {k.name: (k.launches, k.lanes) for k in kernels}
+    launches = {k.name: k.launches for k in kernels}
     runs = []
     for _ in range(3):
         t0 = time.monotonic()
@@ -360,7 +379,169 @@ def main_path(signers, committee, rng, kernels):
     rate = KEYED_LANES / statistics.median(runs)
     print(f"committee dispatch: {KEYED_LANES} signatures in one {BUCKET}-lane bucket ({STRAGGLERS} unknown-key stragglers), "
           f"end to end {rate:.0f} sig/s (median of 3, host pack included)", flush=True)
-    return launches, rate
+    return launches, rate, (raws, want), (pks, msgs, sigs, expected)
+
+
+def flat_phase(table, keyed_chunk, kernels, report):
+    """The 15,000-signature grouped chunk of the kernel phase as the flat
+    keyed upload: ``verify_keyed_flat`` against the 26-column keyed path."""
+    import numpy as np
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519 as E
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    grouped, tile_keys, positions, expected = keyed_chunk
+    dev = table.device
+    acomb, _ = table.neg_combs()
+    flat = E.pack_flat(grouped)
+    for k in kernels:
+        k.reset_counts()
+    got = K.verify_keyed_flat(E.to_device_words(flat, dev), table.words, acomb,
+                              torch.as_tensor(tile_keys, device=dev)).cpu().numpy()
+    launches = {k.name: k.launches for k in kernels}
+
+    flat_dev = E.to_device_words(flat, dev)
+    tk = torch.as_tensor(tile_keys, device=dev)
+    outs = K.prologue_flat(flat_dev, table.words, tk)
+    err = max_abs_err(outs, K._prologue_flat_plain(flat_dev, table.words, tk, K.KEYED_TILE))
+    check(err == 0, f"prologue_flat differs from its plain version (max abs err {err})")
+    grouped_dev = E.to_device_words(grouped, dev)
+    want = K.verify_keyed(tk, acomb, *K.prologue(grouped_dev, table.words)[2:]).cpu().numpy()
+    check(np.array_equal(got, want), "flat keyed verdicts differ from the 26-column keyed path")
+    check(np.array_equal(got[positions], expected), "flat keyed verdicts disagree with the labels")
+
+    ms = cuda_ms(lambda: K.prologue_flat(flat_dev, table.words, tk), 20)
+    plain_ms = cuda_ms(lambda: K._prologue_flat_plain(flat_dev, table.words, tk, K.KEYED_TILE), 1)
+    b_ms, b_by = bound(BUCKET * SHA512_INT_OPS, nbytes(flat_dev, table.words, tk, *outs))
+    report["prologue_flat"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                   bound_by=b_by)
+
+    # Host-to-device copy + prologue + keyed kernel, the two layouts in turns.
+    def flat_path():
+        K.verify_keyed_flat(E.to_device_words(flat, dev), table.words, acomb,
+                            torch.as_tensor(tile_keys, device=dev))
+
+    def col26_path():
+        tkd = torch.as_tensor(tile_keys, device=dev)
+        outs = K.prologue(E.to_device_words(grouped, dev), table.words)
+        K.verify_keyed(tkd, acomb, *outs[2:])
+
+    turns = [("flat", flat_path), ("26col", col26_path), ("26col", col26_path), ("flat", flat_path)]
+    times = {"flat": [], "26col": []}
+    for name, fn in turns:
+        times[name].append(cuda_ms(fn, 5))
+    layout = {
+        "signatures": int(len(positions)), "lanes": int(grouped.shape[0]),
+        "flat_bytes": int(flat.nbytes), "col26_bytes": int(grouped.nbytes),
+        "flat_ms": statistics.median(times["flat"]), "col26_ms": statistics.median(times["26col"]),
+        "flat_ms_runs": times["flat"], "col26_ms_runs": times["26col"],
+    }
+    print(f"flat keyed: {len(positions)} signatures in {grouped.shape[0]} lanes, prologue_flat "
+          f"equals its plain version, verdicts equal the 26-column keyed path and the labels; "
+          f"upload + kernels {layout['flat_ms']:.3f} ms flat ({flat.nbytes} B) vs "
+          f"{layout['col26_ms']:.3f} ms 26-column ({grouped.nbytes} B)", flush=True)
+    return launches, layout
+
+
+def sharded_phase(table, burst, rng, kernels):
+    """The committee burst through the sharded indexed and fused dispatch."""
+    import numpy as np
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519 as E
+    from mysticeti_tpu_torch.parallel import mesh as M
+
+    pks, msgs, sigs, expected = burst
+    cards = torch.cuda.device_count()
+    if cards >= 2:
+        mesh = M.make_mesh(1 << (cards.bit_length() - 1))
+    else:
+        mesh = M.make_mesh(devices=[table.device] * 4)  # 4 shards on the one card
+    # A card's first use (its context, the kernels' module, the comb and key
+    # uploads) is set-up: pay it before the timed run.
+    M.sharded_verify_batch_indexed(mesh, table, pks, msgs, sigs)
+    for k in kernels:
+        k.reset_counts()
+    t0 = time.monotonic()
+    got_i, total_i = M.sharded_verify_batch_indexed(mesh, table, pks, msgs, sigs)
+    indexed_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    got_f, total_f = M.sharded_verify_batch_fused(mesh, pks, msgs, sigs)
+    fused_s = time.monotonic() - t0
+    launches = {k.name: k.launches for k in kernels}
+
+    single = E.verify_batch_table(table, pks, msgs, sigs)
+    for name, got, total in (("indexed", got_i, total_i), ("fused", got_f, total_f)):
+        check(np.array_equal(got, single), f"sharded {name} verdicts differ from the single-device dispatch")
+        check(np.array_equal(got, expected), f"sharded {name} verdicts disagree with the labels")
+        check(total == int(got.sum()), f"sharded {name} valid count {total} != {int(got.sum())}")
+    sample = rng.sample(range(len(sigs)), 100)
+    check(all(oracle(pks[i], msgs[i], sigs[i]) == got_i[i] for i in sample),
+          "sharded verdicts disagree with the oracle")
+    if cards >= 2:  # the node's verifier shards over the same cards by itself
+        from mysticeti_tpu_torch.block_validator import TorchSignatureVerifier
+
+        node = TorchSignatureVerifier(committee_keys=table._keys)
+        check(node._resolve_mesh() == mesh, "mesh='auto' did not take the host's cards")
+        check(node.verify_signatures(pks, msgs, sigs) == got_i.tolist(),
+              "the node verifier's sharded verdicts differ")
+    devices = sorted({str(d) for d in mesh.devices})
+    reading = {"shards": mesh.size, "devices": devices, "signatures": len(sigs),
+               "indexed_s": indexed_s, "fused_s": fused_s, "valid": int(total_i)}
+    print(f"sharded: {len(sigs)} signatures over {mesh.size} shards on {devices}, indexed "
+          f"{indexed_s * 1e3:.1f} ms, fused {fused_s * 1e3:.1f} ms (host clock, packing "
+          f"included); verdicts equal the single-device dispatch, the labels and the oracle",
+          flush=True)
+    return launches, reading
+
+
+def hybrid_phase(committee, blocks_and_want, kernels):
+    """The node's block path through the hybrid ``cuda`` kind."""
+    import threading
+
+    from mysticeti_tpu_torch.types import StatementBlock
+    from mysticeti_tpu_torch.validator import HYBRID_KIND, _make_verifier
+
+    raws, want = blocks_and_want
+    verifier = _make_verifier(HYBRID_KIND, committee)
+    check(verifier.ready.wait(300), "hybrid verifier warmup did not finish")
+    hybrid = verifier.verifier
+    routes = {"gpu": 0, "cpu": 0}
+    lock = threading.Lock()
+
+    def counted(route, fn):
+        def call(*args):
+            with lock:
+                routes[route] += 1
+            return fn(*args)
+        return call
+
+    hybrid.tpu.verify_signatures_async = counted("gpu", hybrid.tpu.verify_signatures_async)
+    hybrid.cpu.verify_signatures = counted("cpu", hybrid.cpu.verify_signatures)
+    calibration = {"tpu_dispatch_s": hybrid.tpu_dispatch_s, "tpu_per_sig_s": hybrid.tpu_per_sig_s,
+                   "cpu_per_sig_s": hybrid.cpu_per_sig_s, "threshold": hybrid.threshold()}
+    blocks = [StatementBlock.from_bytes(r) for r in raws]
+    for k in kernels:
+        k.reset_counts()
+    t0 = time.monotonic()
+    verdicts = asyncio.run(verifier.verify_blocks(blocks))
+    block_s = time.monotonic() - t0
+    launches = {k.name: k.launches for k in kernels}
+    check(verdicts == want, "hybrid block verdicts differ from the oracle's")
+    check(routes["gpu"] > 0, "no batch took the GPU route")
+    check(sum(launches.values()) > 0, "the GPU route launched no kernel")
+    check(not hybrid.breaker_open, "the hybrid breaker is open")
+    reading = {"calibration": calibration, "batches": dict(routes),
+               "blocks": len(blocks), "blocks_per_s": len(blocks) / block_s,
+               "after": {"tpu_dispatch_s": hybrid.tpu_dispatch_s,
+                         "tpu_per_sig_s": hybrid.tpu_per_sig_s,
+                         "cpu_per_sig_s": hybrid.cpu_per_sig_s, "threshold": hybrid.threshold()}}
+    print(f"hybrid: {len(blocks)} blocks through the cuda kind, verdicts equal the oracle's; "
+          f"calibration {json.dumps(calibration)}; batches by route {json.dumps(routes)} "
+          f"(CPU-routed batches are the cost model's choice); {len(blocks) / block_s:.1f} "
+          f"blocks/s; breaker closed", flush=True)
+    return launches, reading
 
 
 def run() -> int:
@@ -385,7 +566,9 @@ def run() -> int:
     print(card_line(), flush=True)
     t0 = time.monotonic()
     K.build_all()
-    print(f"build: {time.monotonic() - t0:.1f} s for {len(K.KERNELS)} kernels in parallel", flush=True)
+    units = sorted({k.unit for k in K.KERNELS})
+    print(f"build: {time.monotonic() - t0:.1f} s for {len(K.KERNELS)} kernels in {len(units)} "
+          f"sources, one nvcc each in parallel", flush=True)
     for name, log in sorted(cuda_build.ptxas_reports.items()):
         for line in log.splitlines():
             if "Used" in line or "stack" in line or "spill" in line:
@@ -397,24 +580,33 @@ def run() -> int:
     dev = E.resolve_device(None)
     table = E.KeyTable(committee.public_key_bytes(), device=dev)
     report = {}
-    kernel_phase(signers, table, rng, report)
-    launches, rate = main_path(signers, committee, rng, K.KERNELS)
-    for k in K.KERNELS:
-        check(launches[k.name][0] > 0, f"{k.name} was not launched on the main path")
+    keyed_chunk = kernel_phase(signers, table, rng, report)
+    by_path = {}
+    by_path["main"], rate, blocks_and_want, burst = main_path(signers, committee, rng, K.KERNELS)
+    by_path["flat_keyed"], layout = flat_phase(table, keyed_chunk, K.KERNELS, report)
+    by_path["sharded"], sharded = sharded_phase(table, burst, rng, K.KERNELS)
+    by_path["hybrid"], hybrid = hybrid_phase(committee, blocks_and_want, K.KERNELS)
+    for name in ("prologue", "verify_generic", "verify_keyed"):
+        check(by_path["main"][name] > 0, f"{name} was not launched on the main path")
+    check(by_path["flat_keyed"]["prologue_flat"] > 0, "prologue_flat was not launched")
+    check(by_path["sharded"]["verify_generic"] > 0, "the sharded path launched no kernel")
 
     rows = []
     for k in K.KERNELS:
         r = report[k.name]
+        check(r["max_abs_err"] == 0, f"{k.name} differs from its plain version")
         rows.append({
             "name": k.name, "route": "cuda", "source": k.source, "replaces": k.replaces,
-            "launches": launches[k.name][0], "lanes": launches[k.name][1],
+            "launches": sum(counts[k.name] for counts in by_path.values()),
+            "launches_by_path": {path: counts[k.name] for path, counts in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             **{key: r[key] for key in ("field_muls_per_lane", "ms_at_256_lanes") if key in r},
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"e2e_sig_per_s": rate, "signatures": KEYED_LANES, "bucket": BUCKET,
-                      "committee": COMMITTEE}), flush=True)
+                      "committee": COMMITTEE, "flat_vs_26col": layout, "sharded": sharded,
+                      "hybrid": hybrid}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -422,9 +614,36 @@ def run() -> int:
     return 0
 
 
-def main() -> int:
+def sharded_only() -> int:
+    """The sharded phase alone, for a host with several cards (every other
+    phase needs only one): ``python3 -c 'import chip_smoke as c;
+    raise SystemExit(c.main(c.sharded_only))'``."""
+    import torch
+
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.ops import ed25519 as E
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    rng = random.Random(SEED)
+    committee = Committee.new_for_benchmarks(COMMITTEE)
+    signers = Committee.benchmark_signers(COMMITTEE)
+    table = E.KeyTable(committee.public_key_bytes(), device=E.resolve_device(None))
+    lanes = sign_cases(signers, KEYED_LANES, rng, stragglers=STRAGGLERS)
+    pks, msgs, sigs, labels = (list(x) for x in zip(*lanes))
+    launches, reading = sharded_phase(table, (pks, msgs, sigs, [c == "valid" for c in labels]),
+                                      rng, K.KERNELS)
+    print(json.dumps({"sharded": reading, "launches": launches}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main(entry=run) -> int:
     try:
-        return run()
+        return entry()
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1

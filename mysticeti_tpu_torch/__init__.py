@@ -8,10 +8,12 @@ counterpart there, and imports nothing of it: the host modules it needs
 
 Package layout:
   types / crypto / serde / committee / threshold_clock   — block model + keys
-  block_validator / verify_pipeline / validator          — the verifier seam
-  spans / tracing / runtime / utils                      — what the seam needs
+  block_validator / verify_pipeline / validator          — the verifier seam,
+                                                           hybrid router included
+  spans / tracing / runtime / utils / network            — what the seam needs
   ops/                 — field, scalar, SHA-512 and Ed25519 in torch, plus the
                          CUDA kernel wrappers (ops/ed25519_cuda.py)
+  parallel/            — the mesh of cards and the sharded dispatch
   csrc/                — the CUDA sources, built with nvcc at first use
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``; with

@@ -3,26 +3,30 @@
 The port's copy of ``mysticeti_tpu.block_validator``, trimmed to the node's
 accelerator path: ``BlockVerifier`` / ``AcceptAllBlockVerifier``, the
 ``SignatureVerifier`` backends (the CPU oracle and ``TorchSignatureVerifier``,
-the counterpart of ``TpuSignatureVerifier``), and the batching collector
-``BatchedSignatureVerifier`` without threshold aggregation.  The hybrid
-router and its circuit breaker, the aggregate verifier and the verifier
-service client are not carried over.
+the counterpart of ``TpuSignatureVerifier``, sharding over the host's cards
+through ``parallel.mesh``), the hybrid CPU/GPU router
+``HybridSignatureVerifier`` with its circuit breaker, and the batching
+collector ``BatchedSignatureVerifier`` without threshold aggregation.  The
+aggregate verifier and the verifier service client are not carried over.
 
 Split of responsibilities on the receive path:
   * consensus-rule checks (digest, epoch, author, includes, threshold clock) —
     host, cheap, per-block: ``StatementBlock.verify_structure``
   * Ed25519 signature — batched: ``BatchedSignatureVerifier`` over
-    ``TorchSignatureVerifier`` (CUDA kernels) or ``CpuSignatureVerifier``
+    ``HybridSignatureVerifier`` / ``TorchSignatureVerifier`` (CUDA kernels)
+    or ``CpuSignatureVerifier``
 """
 from __future__ import annotations
 
 import asyncio
+import random
 import threading
 import time
 from typing import List, Optional, Sequence, Tuple
 
 from . import spans
 from .committee import Committee
+from .network import jittered_backoff
 from .tracing import logger
 from .types import StatementBlock, VerificationError
 from .utils.tasks import spawn_logged
@@ -30,11 +34,20 @@ from .verify_pipeline import (
     STAGE_DEVICE,
     STAGE_FETCH,
     STAGE_PACK,
+    CompletedDispatch,
     DeferredDispatch,
     VerifyPipeline,
 )
 
 log = logger(__name__)
+
+
+class VerifierProtocolError(ConnectionError):
+    """A verifier backend answered but REJECTED the request (committee
+    mismatch, malformed frame).  Retrying cannot help and the circuit
+    breaker must NOT treat it as an outage: a misconfigured validator fails
+    fast instead of silently serving on the CPU oracle forever."""
+
 
 class BlockVerifier:
     """Application-content verification hook (block_validator.rs:10-14)."""
@@ -127,23 +140,41 @@ class CpuSignatureVerifier(SignatureVerifier):
 
 
 class TorchSignatureVerifier(SignatureVerifier):
-    """The CUDA kernels (ops/ed25519_cuda.py) behind the fused raw-bytes path,
-    on one device.
+    """The CUDA kernels (ops/ed25519_cuda.py) behind the fused raw-bytes path.
 
     With ``committee_keys`` the signer set is known: the keys and their
     combs live on the device in a ``KeyTable``, a signature rides as an
     index (26 words on the wire instead of 33), and chunks whose per-key
     grouping fits take the keyed kernel.  ``device`` defaults to ``cuda``
     and raises without a card; ``device="cpu"`` runs the kernels' plain
-    PyTorch versions."""
+    PyTorch versions.
 
-    def __init__(self, committee_keys=None, device=None) -> None:
+    ``mesh="auto"`` shards each batch over the host's cards (parallel/mesh.py)
+    when more than one is attached; one card, or ``device="cpu"``, dispatches
+    on that device alone.  Pass an explicit ``parallel.mesh.Mesh`` or
+    ``None`` to override."""
+
+    def __init__(self, mesh="auto", committee_keys=None, device=None) -> None:
         from .ops.ed25519 import KeyTable, resolve_device
 
+        self._mesh = mesh
         self.device = resolve_device(device)
         self._table = None
         if committee_keys:
             self._table = KeyTable(list(committee_keys), device=self.device)
+
+    def _resolve_mesh(self):
+        if self._mesh == "auto":
+            import torch
+
+            from .parallel.mesh import make_mesh
+
+            # The largest power-of-two prefix of the cards: the bucket shapes
+            # (256 ... 16,384) shard evenly only over power-of-two meshes.
+            n = torch.cuda.device_count() if self.device.type == "cuda" else 1
+            pow2 = 1 << (n.bit_length() - 1)
+            self._mesh = make_mesh(pow2) if pow2 > 1 else None
+        return self._mesh
 
     def warmup(self) -> None:
         """Pay one-time costs (the kernels' build, the comb upload, the key
@@ -169,7 +200,17 @@ class TorchSignatureVerifier(SignatureVerifier):
 
     def verify_signatures_async(self, public_keys, digests, signatures):
         """Pack on the calling thread and queue every bucket chunk's kernels
-        on the device's stream; ``result()`` pays the single copy back."""
+        on the device streams; ``result()`` pays one copy back per device."""
+        mesh = self._resolve_mesh()
+        # The sharded kernels take 32-byte messages (block digests); other
+        # lengths hash on the host on one device, so the result never
+        # depends on the device count.
+        if mesh is not None and all(len(d) == 32 for d in digests):
+            from .parallel import mesh as M
+
+            if self._table is not None:
+                return M.dispatch_sharded_indexed(mesh, self._table, public_keys, digests, signatures)
+            return M.dispatch_sharded_fused(mesh, public_keys, digests, signatures)
         from .ops import ed25519
 
         if self._table is not None:
@@ -188,6 +229,636 @@ def _update_ema(current: float, sample: float, outlier_s: float) -> float:
     return sample if current == 0.0 else 0.8 * current + 0.2 * sample
 
 
+class HybridSignatureVerifier(SignatureVerifier):
+    """Route each batch to the CPU oracle or the accelerator backend by
+    MEASURED cost.  The port's copy of the JAX package's router; the
+    accelerator route is ``TorchSignatureVerifier`` (the GPU), and the
+    attribute names keep the JAX package's ``tpu`` so one test drives both.
+
+    The accelerator's cost model has TWO measured parameters, not one:
+
+    * ``tpu_dispatch_s`` — the fixed per-dispatch cost, seeded by a
+      1-signature probe after warmup;
+    * ``tpu_per_sig_s`` — the marginal per-signature cost, learned from
+      live accelerator-routed dispatches (``max(0, (t - fixed) / n)``).
+
+    A fixed-only model routes saturation batches to "accelerators" that are
+    actually slower per signature than the oracle (a backend that runs on
+    the host, seconds per dispatch).  Routing per batch of size n:
+
+    1. ``tpu_time(n) <= cpu_time(n)``       -> TPU (genuinely faster);
+    2. ``cpu_time(n) > MAX_CPU_BUDGET_S``   -> TPU **iff**
+       ``tpu_time(n) <= MAX_OFFLOAD_LATENCY_S`` — offloading frees the
+       host core for the engine (worth paying bounded extra latency on an
+       engine-bound fleet), but never to a backend whose turnaround would
+       itself stall consensus;
+    3. otherwise                            -> CPU.
+    """
+
+    DEFAULT_THRESHOLD = 32  # n-based routing until both sides are seeded
+    MAX_CPU_BUDGET_S = 0.010  # max host time one CPU-routed batch may take
+    # Offload-to-free-the-core is only sane when the accelerator turnaround
+    # is itself consensus-compatible: a remote chip (~150 ms) qualifies, a
+    # backend running on the host (seconds per dispatch) must not.
+    MAX_OFFLOAD_LATENCY_S = 0.5
+    EMA_OUTLIER_S = 5.0  # ignore one-time kernel-build stalls
+    # Circuit breaker over the accelerator route: a dead backend (verifier
+    # service restart, tunnel outage) degrades to the CPU oracle instead of
+    # crashing the dispatch thread; re-probes use jittered exponential
+    # backoff so a fleet that lost ONE shared service never re-probes it in
+    # lockstep.  Only transport/timeout failures trip it — a
+    # VerificationError-shaped rejection is a verdict, not an outage, and a
+    # kernel that fails to build or load raises ops.cuda_build.CudaBuildError
+    # (a RuntimeError), which propagates.
+    BREAKER_EXCEPTIONS = (ConnectionError, TimeoutError, OSError)
+    BREAKER_BASE_BACKOFF_S = 1.0
+    BREAKER_MAX_BACKOFF_S = 30.0
+    # Advertised backends with no accelerator behind them (the verifier
+    # service's HELLO_OK, not yet ported): a service running on one of these
+    # has nothing to offload TO — routing pins to the in-process oracle until
+    # a re-HELLO probe sees an upgrade.  In-process backends advertise
+    # nothing, so the pin stays dormant.
+    CPU_ONLY_BACKENDS = frozenset({"cpu"})
+
+    def __init__(
+        self,
+        tpu: Optional[SignatureVerifier] = None,
+        cpu: Optional[SignatureVerifier] = None,
+        threshold: Optional[int] = None,
+        metrics=None,
+    ) -> None:
+        self.tpu = tpu or TorchSignatureVerifier()
+        self.cpu = cpu or CpuSignatureVerifier()
+        self._fixed_threshold = threshold
+        self.metrics = metrics
+        self.cpu_per_sig_s = 0.0
+        self.tpu_dispatch_s = 0.0  # fixed component
+        self.tpu_per_sig_s = 0.0  # marginal component
+        # EMA read-modify-writes happen from executor threads; serialize them.
+        self._ema_lock = threading.Lock()
+        # Breaker state shares _ema_lock (same writer threads, same cadence).
+        # backoff == 0.0 means closed; while open, dispatches fall back to
+        # the CPU oracle until the probe deadline passes.  _breaker_probing
+        # keeps the probe EXCLUSIVE even when it outlives the backoff
+        # interval (a hung service blocks the probe thread for the whole
+        # dispatch timeout; new windows must not admit more victims).
+        self._breaker_backoff_s = 0.0
+        self._breaker_open_until = 0.0
+        self._breaker_probing = False
+        # Trip generation: with several dispatches in flight, a PRE-outage
+        # success can surface at fetch AFTER a newer failure tripped the
+        # circuit — it must not re-close it (see result()).
+        self._breaker_gen = 0
+        self._breaker_rng = random.Random(0x0B7EA6E5)
+        self._breaker_clock = time.monotonic  # injectable for tests
+        # Backend pin (shares _ema_lock and the breaker's probe-exclusivity
+        # flag): while the remote side advertises a CPU-only backend, every
+        # batch short-circuits to the in-process oracle and a low-frequency
+        # re-HELLO probe (jittered exponential backoff, same schedule
+        # constants as the breaker) watches for an accelerator upgrade.
+        self._pinned_backend: Optional[str] = None
+        self._pin_backoff_s = 0.0
+        self._pin_next_probe_t = 0.0
+        # Routing label of the dispatch that ran in THIS thread: the batching
+        # collector reads it right after verify_signatures returns, in the
+        # same executor thread, so thread-local storage is exactly the
+        # lifetime needed — a concurrent flush routed the other way cannot
+        # overwrite it (it writes its own thread's slot).
+        self._tls = threading.local()
+
+    @property
+    def backend_label(self) -> str:
+        return getattr(self._tls, "label", "hybrid")
+
+    @property
+    def dispatch_padded(self) -> Optional[int]:
+        """Padded lane count of the dispatch that ran in THIS thread (same
+        thread-local lifetime as ``backend_label``).  Recorded at dispatch
+        time because re-deriving the route afterwards can disagree: the
+        dispatch itself updates the EMA cost model, so near the routing
+        crossover ``padded_batch`` would attribute the waste to the wrong
+        route — exactly the drift regime this telemetry exists to debug."""
+        return getattr(self._tls, "padded", None)
+
+    def _tpu_time(self, n: int) -> float:
+        return self.tpu_dispatch_s + n * self.tpu_per_sig_s
+
+    def _route_to_tpu(self, n: int) -> bool:
+        if self._fixed_threshold is not None:
+            return n >= self._fixed_threshold
+        if not (self.cpu_per_sig_s > 0.0 and self.tpu_dispatch_s > 0.0):
+            return n >= self.DEFAULT_THRESHOLD
+        cpu_t = n * self.cpu_per_sig_s
+        tpu_t = self._tpu_time(n)
+        if tpu_t <= cpu_t:
+            return True
+        return (
+            cpu_t > self.MAX_CPU_BUDGET_S
+            and tpu_t <= self.MAX_OFFLOAD_LATENCY_S
+        )
+
+    # threshold() sentinel: no batch size is currently routed to the
+    # accelerator (degraded backend).
+    NEVER = 1 << 32
+
+    def threshold(self) -> int:
+        """Smallest batch size currently routed to the accelerator
+        (introspection/logging; routing itself is per-batch).  Closed form
+        over the two linear cost models — routes agree with
+        ``_route_to_tpu`` by construction."""
+        import math
+
+        if self._pinned_backend is not None:
+            return self.NEVER  # CPU-only backend: nothing to offload to
+        if self._fixed_threshold is not None:
+            return self._fixed_threshold
+        if not (self.cpu_per_sig_s > 0.0 and self.tpu_dispatch_s > 0.0):
+            return self.DEFAULT_THRESHOLD
+        best = self.NEVER
+        # Rule 1: tpu genuinely faster from the speed crossover on.
+        denom = self.cpu_per_sig_s - self.tpu_per_sig_s
+        if denom > 0.0:
+            best = max(1, math.ceil(self.tpu_dispatch_s / denom))
+        # Rule 2: smallest over-budget batch, if the offload is sane there.
+        n_budget = int(self.MAX_CPU_BUDGET_S / self.cpu_per_sig_s) + 1
+        if self._tpu_time(n_budget) <= self.MAX_OFFLOAD_LATENCY_S:
+            best = min(best, n_budget)
+        return best
+
+    # -- circuit breaker --
+
+    @property
+    def breaker_open(self) -> bool:
+        return self._breaker_backoff_s > 0.0
+
+    def _admit_accelerator(self) -> Tuple[bool, bool]:
+        """(blocked, is_probe).  Blocked while the breaker holds the route
+        closed.  Once the probe deadline passes, exactly ONE dispatch gets
+        through as the probe — the ``_breaker_probing`` flag (not a pushed
+        deadline) keeps it exclusive even when the probe outlives the
+        backoff interval.  ``is_probe`` tells the admitted dispatch it OWNS
+        that flag: only the owner may release it on a non-verdict exit
+        (abandon, propagating non-breaker exception) — an unconditional
+        clear could release a DIFFERENT in-flight probe's exclusivity."""
+        with self._ema_lock:
+            if self._breaker_backoff_s == 0.0:
+                return False, False
+            now = self._breaker_clock()
+            if self._breaker_probing or now < self._breaker_open_until:
+                return True, False
+            self._breaker_probing = True
+            return False, True
+
+    def _trip_breaker(self, exc: BaseException,
+                      owns_probe: bool = False) -> None:
+        """Open (or widen) the circuit.  ``owns_probe`` mirrors the
+        ``is_probe`` admission flag: only the dispatch that OWNS the
+        exclusive probe slot may release it on failure — a pre-outage
+        straggler failing at fetch while a probe hangs must not readmit
+        victims behind the hung probe's back."""
+        now = self._breaker_clock()
+        with self._ema_lock:
+            self._breaker_gen += 1
+            if owns_probe:
+                self._breaker_probing = False
+            prev = self._breaker_backoff_s
+            backoff = (
+                self.BREAKER_BASE_BACKOFF_S
+                if prev == 0.0
+                else min(prev * 2.0, self.BREAKER_MAX_BACKOFF_S)
+            )
+            self._breaker_backoff_s = backoff
+            self._breaker_open_until = now + jittered_backoff(
+                backoff, self._breaker_rng
+            )
+        log.warning(
+            "accelerator verify path failed (%r): circuit open, degrading to "
+            "the CPU oracle; next probe in ~%.1f s", exc, backoff,
+        )
+
+    def _close_breaker(self, expected_gen: Optional[int] = None) -> bool:
+        """Close the circuit.  With ``expected_gen``, close only while the
+        breaker generation still matches — compared under the lock, so a
+        success surfacing at fetch can never erase a trip that raced it
+        between the caller's generation read and the close."""
+        with self._ema_lock:
+            if (expected_gen is not None
+                    and expected_gen != self._breaker_gen):
+                return False
+            was_open = self._breaker_backoff_s > 0.0
+            self._breaker_backoff_s = 0.0
+            self._breaker_probing = False
+        if was_open:
+            log.info("accelerator verify path recovered: circuit closed")
+        return True
+
+    def _clear_probe(self) -> None:
+        """Release probe exclusivity when the dispatch neither succeeded nor
+        counted as an outage (a propagating non-breaker exception) — a stuck
+        flag would otherwise hold the breaker open forever."""
+        with self._ema_lock:
+            self._breaker_probing = False
+
+    # -- backend pin (short-circuit routing) --
+
+    @property
+    def pinned_backend(self) -> Optional[str]:
+        """The CPU-only backend routing is currently pinned against, or
+        None when offload is open (introspection/tests)."""
+        return self._pinned_backend
+
+    def _sync_pin_with_advertisement(self) -> None:
+        """Cheap per-batch attr read: a mid-run reconnect (service restart)
+        can change the remote client's advertised backend between probes —
+        a CPU-only advertisement pins routing the moment any thread sees
+        it, not a probe interval later."""
+        adv = getattr(self.tpu, "advertised_backend", None)
+        if adv in self.CPU_ONLY_BACKENDS and self._pinned_backend is None:
+            self._pin_routing(adv)
+
+    def _pin_routing(self, backend: str) -> None:
+        now = self._breaker_clock()
+        with self._ema_lock:
+            if self._pinned_backend is not None:
+                return
+            self._pinned_backend = backend
+            self._pin_backoff_s = self.BREAKER_BASE_BACKOFF_S
+            self._pin_next_probe_t = now + jittered_backoff(
+                self._pin_backoff_s, self._breaker_rng
+            )
+        log.info(
+            "verifier backend %r has no accelerator: routing pinned to the "
+            "in-process oracle (re-HELLO upgrade probe in ~%.1f s)",
+            backend, self.BREAKER_BASE_BACKOFF_S,
+        )
+
+    def _admit_pin_probe(self) -> bool:
+        """At most one re-HELLO upgrade probe at a time, past the backoff
+        deadline — the ``_breaker_probing`` flag is shared with
+        ``_admit_accelerator`` so a hung HELLO admits no further probes and
+        never races a breaker probe for the same exclusivity."""
+        with self._ema_lock:
+            if self._pinned_backend is None:
+                return False
+            now = self._breaker_clock()
+            if self._breaker_probing or now < self._pin_next_probe_t:
+                return False
+            self._breaker_probing = True
+            return True
+
+    def _finish_pin_probe(self, backend: Optional[str], calibration,
+                          probed: bool = False) -> None:
+        """Probe outcome.  With ``probed`` (the re-HELLO round-trip actually
+        completed): any answer that is not a CPU-only advertisement unpins —
+        including NO advertisement (an older service replaced the one that
+        pinned us; its platform is unknown, and unknown must never stay
+        pinned — the same conservative default that refuses to pin in the
+        first place), and a fresh calibration reseeds the cost model.
+        Without ``probed`` (unreachable service, no rehello support, or an
+        abandoned probe) the pin stands and the backoff doubles, decaying
+        the steady-state probe cost to one HELLO per
+        ``BREAKER_MAX_BACKOFF_S``."""
+        now = self._breaker_clock()
+        upgraded = probed and backend not in self.CPU_ONLY_BACKENDS
+        with self._ema_lock:
+            self._breaker_probing = False
+            if upgraded:
+                self._pinned_backend = None
+                self._pin_backoff_s = 0.0
+                if calibration is not None:
+                    self.tpu_dispatch_s, self.tpu_per_sig_s = calibration
+            else:
+                self._pin_backoff_s = min(
+                    self._pin_backoff_s * 2.0, self.BREAKER_MAX_BACKOFF_S
+                )
+                self._pin_next_probe_t = now + jittered_backoff(
+                    self._pin_backoff_s, self._breaker_rng
+                )
+        if upgraded:
+            log.info(
+                "verifier service re-advertised backend %r: offload "
+                "re-opened", backend,
+            )
+
+    def _reprobe_pin_and_verify(self, public_keys, digests, signatures, n):
+        """Fetch-stage body of the probe-carrying batch: ONE re-HELLO round
+        trip (never a verify frame), then the batch verifies on the oracle
+        exactly as its window-mates did.  A service outage here is not an
+        outage of the route in use — the pin already avoids the socket — so
+        it only pushes the next probe out, never trips the breaker."""
+        backend = calibration = None
+        probed = False
+        try:
+            rehello = getattr(self.tpu, "rehello", None)
+            if rehello is not None:
+                backend, calibration = rehello()
+                probed = True
+        except VerifierProtocolError as exc:
+            log.warning(
+                "pin re-probe HELLO rejected (%r): staying on the oracle",
+                exc,
+            )
+        except self.BREAKER_EXCEPTIONS as exc:
+            log.debug(
+                "pin re-probe HELLO failed (%r): staying on the oracle", exc
+            )
+        finally:
+            self._finish_pin_probe(backend, calibration, probed=probed)
+        return self._verify_cpu(public_keys, digests, signatures, n)
+
+    def warmup(self) -> None:
+        from . import crypto
+
+        signer = crypto.Signer.dummy()
+        digest = crypto.blake2b_256(b"hybrid-warmup")
+        sig = signer.sign(digest)
+        pk = signer.public_key.bytes
+        # Accelerator cost model: prefer the BACKEND's own calibration (the
+        # verifier service measures its warmed dispatch once and shares it
+        # with every client over HELLO_OK) — N co-located validators each
+        # probing a shared service would serialize N dispatches behind boot
+        # contention.  A local backend without one gets the probe dispatch.
+        # An unreachable backend (service not yet up, tunnel down) must not
+        # kill the warmup thread: trip the breaker and boot on the oracle.
+        provided = None
+        try:
+            self.tpu.warmup()  # kernel build, comb uploads
+            calibrate = getattr(self.tpu, "dispatch_calibration", None)
+            provided = calibrate() if calibrate is not None else None
+            if provided is None:
+                started = time.monotonic()
+                self.tpu.verify_signatures([pk], [digest], [sig])
+                provided = (time.monotonic() - started, 0.0)
+        except self.BREAKER_EXCEPTIONS as exc:
+            if isinstance(exc, VerifierProtocolError):
+                raise  # misconfiguration, not an outage: fail fast
+            self._trip_breaker(exc)
+        # The warmup HELLO told us what actually answers behind the socket:
+        # a CPU-only backend pins routing before the first real batch, so
+        # even boot traffic never pays the socket round-trip for nothing.
+        self._sync_pin_with_advertisement()
+        started = time.monotonic()
+        reps = 32
+        self.cpu.verify_signatures([pk] * reps, [digest] * reps, [sig] * reps)
+        cpu_probe = (time.monotonic() - started) / reps
+        # Warmup runs on a background thread while live dispatches may
+        # already be updating the EMAs from executor threads — the
+        # calibration writes must join the same lock or a concurrent RMW
+        # that read the pre-warmup value could land after and discard them.
+        with self._ema_lock:
+            if provided is not None:
+                self.tpu_dispatch_s, self.tpu_per_sig_s = provided
+            self.cpu_per_sig_s = cpu_probe
+        log.info(
+            "hybrid verifier calibrated: tpu %.1f ms fixed + %.1f µs/sig, "
+            "cpu %.0f µs/sig -> tpu from batch %d",
+            1e3 * self.tpu_dispatch_s,
+            1e6 * self.tpu_per_sig_s,
+            1e6 * self.cpu_per_sig_s,
+            self.threshold(),
+        )
+
+    def _note_route(self, route: str, estimated_s: float, actual_s: float) -> None:
+        """Router decision telemetry: which way the batch went, and how far
+        the cost model's estimate was from the measured dispatch (a drifting
+        estimate is the precursor of a misroute)."""
+        if self.metrics is None:
+            return
+        self.metrics.verify_route_total.labels(route).inc()
+        if estimated_s > 0.0:
+            self.metrics.verify_route_estimate_error_s.observe(
+                abs(actual_s - estimated_s)
+            )
+
+    def verify_signatures_async(self, public_keys, digests, signatures):
+        """Staged routing: a TPU-routed batch submits through the backend's
+        own async queue (kernels queued on the device streams) and returns an
+        in-flight handle; a breaker failure AT FETCH degrades that one batch
+        to the oracle inside ``result()`` — zero lost futures.  CPU-routed
+        (and breaker-blocked) batches defer the oracle to the fetch stage
+        unchanged."""
+        n = len(signatures)
+        if n == 0:
+            return CompletedDispatch([])
+        self._sync_pin_with_advertisement()
+        if self._pinned_backend is not None:
+            # Short-circuit: the service advertised a CPU-only backend, so
+            # the batch completes wholly in-process — zero socket frames,
+            # zero collector serialization toward the wire.  At most one
+            # batch per backoff interval carries the re-HELLO upgrade probe
+            # into its fetch stage (a HELLO frame, never a verify).
+            if self.metrics is not None:
+                self.metrics.verify_shortcircuit_total.labels(
+                    "backend-cpu"
+                ).inc()
+            if self._admit_pin_probe():
+                return _PinProbeDispatch(
+                    self, public_keys, digests, signatures, n
+                )
+            return DeferredDispatch(
+                self._verify_cpu, public_keys, digests, signatures, n
+            )
+        degraded = False
+        breaker_blocked = False
+        if self._route_to_tpu(n):
+            blocked, is_probe = self._admit_accelerator()
+            if blocked:
+                # Circuit open: the route is held closed and the batch
+                # never touches the socket (unlike a mid-dispatch failure
+                # below, which may have sent frames before raising).
+                degraded = True
+                breaker_blocked = True
+            else:
+                # Captured BEFORE the submit: a trip racing the submission
+                # means this dispatch's eventual success is ambiguous
+                # evidence and must not close the circuit.
+                gen = self._breaker_gen
+                try:
+                    handle = self.tpu.verify_signatures_async(
+                        public_keys, digests, signatures
+                    )
+                except self.BREAKER_EXCEPTIONS as exc:
+                    if isinstance(exc, VerifierProtocolError):
+                        if is_probe:
+                            self._clear_probe()
+                        raise
+                    self._trip_breaker(exc, owns_probe=is_probe)
+                    degraded = True
+                except BaseException:
+                    if is_probe:
+                        self._clear_probe()
+                    raise
+                else:
+                    return _HybridTpuDispatch(
+                        self, handle, public_keys, digests, signatures, n,
+                        is_probe, gen,
+                    )
+        if self.metrics is not None:
+            if degraded:
+                self.metrics.verifier_fallback_total.inc()
+                if breaker_blocked:
+                    self.metrics.verify_shortcircuit_total.labels(
+                        "breaker"
+                    ).inc()
+            else:
+                # The cost-model router decided against offloading: the
+                # batch must never touch the socket — and doesn't (the
+                # oracle runs in-process at the fetch stage).
+                self.metrics.verify_shortcircuit_total.labels("router").inc()
+        return DeferredDispatch(
+            self._verify_cpu, public_keys, digests, signatures, n
+        )
+
+    def verify_signatures(self, public_keys, digests, signatures):
+        """One routing/breaker implementation for both call shapes: the
+        sync path is the async path fetched immediately (submit-time breaker
+        handling in ``verify_signatures_async``, fetch-time in
+        ``_HybridTpuDispatch.result`` — keeping a second copy in lockstep is
+        how probe-ownership bugs breed)."""
+        return self.verify_signatures_async(
+            public_keys, digests, signatures
+        ).result()
+
+    def _verify_cpu(self, public_keys, digests, signatures, n):
+        estimated = n * self.cpu_per_sig_s
+        started = time.monotonic()
+        out = self.cpu.verify_signatures(public_keys, digests, signatures)
+        elapsed = time.monotonic() - started
+        sample = elapsed / n
+        with self._ema_lock:
+            self.cpu_per_sig_s = _update_ema(
+                self.cpu_per_sig_s, sample, self.EMA_OUTLIER_S
+            )
+        self._note_route("cpu", estimated, elapsed)
+        self._tls.label = "hybrid-cpu"
+        self._tls.padded = n  # host oracle: no padding lanes
+        return out
+
+    def _absorb_tpu_sample(self, sample: float, n: int) -> None:
+        """Fold one measured TPU dispatch into the two-parameter cost model.
+
+        The residual against the CURRENT model is split 50/50 between the
+        fixed and marginal components: attributing the FULL
+        residual to both in the same update — each computed against the
+        other's pre-update value — let one slow dispatch inflate the summed
+        model by ~double the residual and wrongly veto the rule-2 saturation
+        offload until the EMAs decayed.  With the split, the summed model
+        moves by exactly the residual; observations at varied batch sizes
+        still disambiguate fixed from marginal over time, and the fixed
+        component can still rise (a tunnel settling slower than its warmup
+        probe is not misattributed wholesale to per-signature cost).
+        """
+        if sample >= self.EMA_OUTLIER_S:
+            return
+        with self._ema_lock:
+            residual = sample - (self.tpu_dispatch_s + n * self.tpu_per_sig_s)
+            implied_fixed = max(0.0, self.tpu_dispatch_s + 0.5 * residual)
+            implied_marginal = max(
+                0.0, self.tpu_per_sig_s + 0.5 * residual / n
+            )
+            self.tpu_dispatch_s = _update_ema(
+                self.tpu_dispatch_s, implied_fixed, self.EMA_OUTLIER_S
+            )
+            self.tpu_per_sig_s = _update_ema(
+                self.tpu_per_sig_s, implied_marginal, self.EMA_OUTLIER_S
+            )
+
+class _PinProbeDispatch:
+    """The pinned route's probe-carrying batch: ``result()`` runs the
+    re-HELLO + oracle verify on the fetch stage's executor thread.  The
+    handle OWNS the shared probe-exclusivity flag from admission, so a
+    flush cancelled between submit and fetch must release it via
+    ``abandon()`` — a bare DeferredDispatch here would strand the flag
+    forever (no further pin probes, and the breaker's own probes blocked),
+    the leak the abandon protocol exists to prevent."""
+
+    __slots__ = ("_hybrid", "_args")
+
+    def __init__(self, hybrid, public_keys, digests, signatures, n) -> None:
+        self._hybrid = hybrid
+        self._args = (public_keys, digests, signatures, n)
+
+    def result(self) -> List[bool]:
+        return self._hybrid._reprobe_pin_and_verify(*self._args)
+
+    def abandon(self) -> None:
+        """Released without fetching: not a completed probe (``probed``
+        stays False), so the pin stands and only the backoff advances."""
+        self._hybrid._finish_pin_probe(None, None)
+
+
+class _HybridTpuDispatch:
+    """An in-flight TPU-routed batch of the hybrid verifier.
+
+    ``result()`` runs on the fetch stage's executor thread, so the breaker
+    bookkeeping, cost-model update, and the thread-local backend label all
+    land exactly where the sync path put them — the collector reads
+    ``backend_label``/``dispatch_padded`` right after ``result()`` in the
+    same thread.  A transport/timeout failure surfacing at fetch trips the
+    breaker and verifies THIS batch on the oracle: a backend dying
+    mid-pipeline loses zero futures."""
+
+    __slots__ = ("_hybrid", "_handle", "_args", "_n", "_estimated",
+                 "_padded", "_started", "_is_probe", "_gen")
+
+    def __init__(self, hybrid, handle, public_keys, digests, signatures,
+                 n, is_probe: bool = False, gen: int = 0) -> None:
+        self._hybrid = hybrid
+        self._handle = handle
+        self._args = (public_keys, digests, signatures)
+        self._n = n
+        self._estimated = hybrid._tpu_time(n)
+        self._padded = hybrid.tpu.padded_batch(n)
+        self._started = time.monotonic()
+        self._is_probe = is_probe
+        self._gen = gen
+
+    def result(self) -> List[bool]:
+        h = self._hybrid
+        try:
+            out = self._handle.result()
+        except h.BREAKER_EXCEPTIONS as exc:
+            if isinstance(exc, VerifierProtocolError):
+                if self._is_probe:
+                    h._clear_probe()
+                raise
+            h._trip_breaker(exc, owns_probe=self._is_probe)
+            if h.metrics is not None:
+                h.metrics.verifier_fallback_total.inc()
+            return h._verify_cpu(*self._args, self._n)
+        except BaseException:
+            if self._is_probe:
+                h._clear_probe()
+            raise
+        # Submit-to-fetch wall time: under pipelining this is the batch's
+        # actual turnaround (what the router's model predicts), queueing
+        # included; the EMA's outlier gate still drops compile stalls.
+        sample = time.monotonic() - self._started
+        if not h._close_breaker(expected_gen=self._gen) and self._is_probe:
+            # A newer trip owns the circuit: this probe's success is stale
+            # evidence — its only remaining obligation is releasing the
+            # exclusive probe slot it still holds.
+            h._clear_probe()
+        h._note_route("tpu", self._estimated, sample)
+        h._absorb_tpu_sample(sample, self._n)
+        h._tls.label = "hybrid-tpu"
+        h._tls.padded = self._padded
+        return list(out)
+
+    def abandon(self) -> None:
+        """Release per-dispatch state without fetching (the flush was
+        cancelled): if THIS dispatch owns the breaker's exclusive probe
+        flag it must not stay stuck — only ``result()`` would otherwise
+        clear it — and the inner handle may hold its own releasable state.
+        A non-probe dispatch touches nothing (clearing unconditionally
+        could release a concurrent probe's exclusivity)."""
+        if self._is_probe:
+            self._hybrid._clear_probe()
+        inner = getattr(self._handle, "abandon", None)
+        if inner is not None:
+            inner()
+
+
 def _observe_orphan(fut) -> None:
     """Retrieve an orphaned executor future's exception so a backend crash
     after the awaiting flush was cancelled is logged, not swallowed into an
@@ -197,6 +868,24 @@ def _observe_orphan(fut) -> None:
     exc = fut.exception()
     if exc is not None:
         log.warning("orphaned verify dispatch failed after cancel: %r", exc)
+
+
+def _abandon_dispatch(fut) -> None:
+    """Dispose a submitted-but-never-fetched dispatch handle.
+
+    Handles that hold releasable state expose ``abandon()``; plain handles
+    (completed/deferred/device dispatches) need nothing.  A submit that
+    RAISED already cleaned up after itself (the hybrid clears its probe, the
+    remote client discards its connection)."""
+    if fut.cancelled() or fut.exception() is not None:
+        return
+    abandon = getattr(fut.result(), "abandon", None)
+    if abandon is None:
+        return
+    try:
+        abandon()
+    except Exception:  # noqa: BLE001 - best-effort cleanup on shutdown
+        log.exception("abandoning an in-flight verify dispatch failed")
 
 
 class BatchedSignatureVerifier(BlockVerifier):
@@ -260,8 +949,10 @@ class BatchedSignatureVerifier(BlockVerifier):
 
     def _pipeline_fixed_cost(self) -> float:
         """Fixed dispatch cost estimate for the adaptive pipeline depth: the
-        collector's own dispatch-latency EMA (an unlocked snapshot)."""
-        return self._dispatch_ema_s
+        hybrid router's measured fixed component when available, else the
+        collector's own dispatch-latency EMA (unlocked snapshots)."""
+        fixed = getattr(self.verifier, "tpu_dispatch_s", 0.0)
+        return fixed if fixed > 0.0 else self._dispatch_ema_s
 
     def _effective_delay_s(self) -> float:
         """Collection window: 20% of the dispatch-latency EMA clamped to
@@ -363,8 +1054,10 @@ class BatchedSignatureVerifier(BlockVerifier):
                 handle = await asyncio.shield(submit_fut)
             except asyncio.CancelledError:
                 # Cancelled mid-submit (node shutdown): the shielded job still
-                # runs; observe its outcome when it lands.
-                submit_fut.add_done_callback(_observe_orphan)
+                # runs, and its handle may hold per-dispatch backend state
+                # (the breaker's exclusive probe flag) that only the fetch
+                # normally releases — dispose it the moment it lands.
+                submit_fut.add_done_callback(_abandon_dispatch)
                 raise
             device_done = time.monotonic()
             self.pipeline.note_stage(STAGE_DEVICE, device_done - started)

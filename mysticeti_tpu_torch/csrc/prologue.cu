@@ -7,7 +7,11 @@
 // R and A with the canonicity checks s < L and y_A < p) and
 // mysticeti_tpu/ops/ed25519.py:indexed_to_msg_words (the key-table gather
 // that splices A between R and M).  Outputs are bit-identical to
-// prepare_fused.
+// prepare_fused.  A second kernel, prologue_flat, reads the flat keyed
+// upload of mysticeti_tpu/ops/ed25519_pallas.py:verify_keyed_flat (96 B per
+// signature, the key taken from the lane's tile, ok from a packed bitmask);
+// the three layouts differ only in how a lane assembles R || A || M, s and
+// its ok bit, and share prologue_core.
 //
 // What bounds it on Hopper: integer operations (one SHA-512 compression of
 // 80 rounds per lane, then a 260-step shift-and-subtract reduction mod L);
@@ -164,31 +168,11 @@ HD bool parse_point(const uint32_t be[8], int32_t* y_limbs, int32_t* sign) {
   return !geq4(y, P);
 }
 
-// One lane.  `row` is the lane's blob row: the indexed layout (26 words:
-// R[8] M[8] s[8] key ok) when `table` is given, else the raw layout
-// (33 words: R[8] A[8] M[8] s[8] ok).  Outputs as prepare_fused's.
-HD void prologue_lane(const uint32_t* row, const uint32_t* table, int num_keys,
-                          int32_t* a_y, int32_t* a_sign, int32_t* r_y,
-                          int32_t* r_sign, int32_t* s_w, int32_t* k_w,
-                          uint8_t* ok) {
-  uint32_t msg[24];
-  const uint32_t* s_le;
-  bool host_ok;
-  if (table != 0) {
-    int idx = (int)row[24];
-    idx = idx < 0 ? 0 : (idx >= num_keys ? num_keys - 1 : idx);
-    for (int j = 0; j < 8; j++) {
-      msg[j] = row[j];
-      msg[8 + j] = table[8 * idx + j];
-      msg[16 + j] = row[8 + j];
-    }
-    s_le = row + 16;
-    host_ok = row[25] != 0;
-  } else {
-    for (int j = 0; j < 24; j++) msg[j] = row[j];
-    s_le = row + 24;
-    host_ok = row[32] != 0;
-  }
+// The arithmetic every layout shares: `msg` is R || A || M as 24 big-endian
+// words, `s_le` the 8 little-endian words of s.  Outputs as prepare_fused's.
+HD void prologue_core(const uint32_t msg[24], const uint32_t* s_le, bool host_ok,
+                      int32_t* a_y, int32_t* a_sign, int32_t* r_y,
+                      int32_t* r_sign, int32_t* s_w, int32_t* k_w, uint8_t* ok) {
   uint64_t digest[8], k[4], s[4];
   sha512_96_le(msg, digest);
   mod_l_512(digest, k);
@@ -205,6 +189,48 @@ HD void prologue_lane(const uint32_t* row, const uint32_t* table, int num_keys,
   const bool s_ok = !geq4(s, L);
   to_windows4(s, s_w);
   *ok = (host_ok && a_canonical && s_ok) ? 1 : 0;
+}
+
+// R[8] and M[8] from a row, A[8] from the key table at index `key` (clipped
+// to [0, num_keys) as indexed_to_msg_words clips it).
+HD void splice_key(const uint32_t* rm, const uint32_t* table, int num_keys, int key,
+                   uint32_t msg[24]) {
+  key = key < 0 ? 0 : (key >= num_keys ? num_keys - 1 : key);
+  for (int j = 0; j < 8; j++) {
+    msg[j] = rm[j];
+    msg[8 + j] = table[8 * key + j];
+    msg[16 + j] = rm[8 + j];
+  }
+}
+
+// One lane.  `row` is the lane's blob row: the indexed layout (26 words:
+// R[8] M[8] s[8] key ok) when `table` is given, else the raw layout
+// (33 words: R[8] A[8] M[8] s[8] ok).
+HD void prologue_lane(const uint32_t* row, const uint32_t* table, int num_keys,
+                      int32_t* a_y, int32_t* a_sign, int32_t* r_y,
+                      int32_t* r_sign, int32_t* s_w, int32_t* k_w,
+                      uint8_t* ok) {
+  uint32_t msg[24];
+  if (table != 0) {
+    splice_key(row, table, num_keys, (int)row[24], msg);
+    prologue_core(msg, row + 16, row[25] != 0, a_y, a_sign, r_y, r_sign, s_w, k_w, ok);
+  } else {
+    for (int j = 0; j < 24; j++) msg[j] = row[j];
+    prologue_core(msg, row + 24, row[32] != 0, a_y, a_sign, r_y, r_sign, s_w, k_w, ok);
+  }
+}
+
+// One lane of the flat layout (replaces the XLA steps of
+// mysticeti_tpu/ops/ed25519_pallas.py:_verify_keyed_flat_jit): `row` is the
+// lane's 24 words R[8] M[8] s[8]; its key is its tile's, and its ok bit lane
+// i of the packed little-bit-order mask that follows the B rows.
+HD void prologue_flat_lane(const uint32_t* row, const uint32_t* table, int num_keys,
+                           int key, bool host_ok, int32_t* a_y, int32_t* a_sign,
+                           int32_t* r_y, int32_t* r_sign, int32_t* s_w, int32_t* k_w,
+                           uint8_t* ok) {
+  uint32_t msg[24];
+  splice_key(row, table, num_keys, key, msg);
+  prologue_core(msg, row + 16, host_ok, a_y, a_sign, r_y, r_sign, s_w, k_w, ok);
 }
 
 #ifdef __CUDACC__
@@ -231,6 +257,35 @@ extern "C" int prologue_launch(const void* blob, int ncols, const void* table,
   prologue_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)blob, ncols, (const uint32_t*)table, num_keys,
       (int32_t*)a_y, (int32_t*)a_sign, (int32_t*)r_y, (int32_t*)r_sign,
+      (int32_t*)s_w, (int32_t*)k_w, (uint8_t*)ok, n);
+  return (int)cudaGetLastError();
+}
+
+// flat: n * 24 row words, then n / 32 mask words.  Lane i's key is
+// tile_keys[i / tile].
+__global__ void prologue_flat_kernel(const uint32_t* __restrict__ flat,
+                                     const uint32_t* __restrict__ table, int num_keys,
+                                     const int32_t* __restrict__ tile_keys, int tile,
+                                     int32_t* a_y, int32_t* a_sign, int32_t* r_y,
+                                     int32_t* r_sign, int32_t* s_w, int32_t* k_w,
+                                     uint8_t* ok, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const bool host_ok = (flat[(size_t)24 * n + (i >> 5)] >> (i & 31)) & 1u;
+  prologue_flat_lane(flat + (size_t)24 * i, table, num_keys, tile_keys[i / tile], host_ok,
+                     a_y + 20 * i, a_sign + i, r_y + 20 * i, r_sign + i, s_w + 64 * i,
+                     k_w + 64 * i, ok + i);
+}
+
+extern "C" int prologue_flat_launch(const void* flat, const void* table, int num_keys,
+                                    const void* tile_keys, int tile, void* a_y,
+                                    void* a_sign, void* r_y, void* r_sign, void* s_w,
+                                    void* k_w, void* ok, int n, void* stream) {
+  const int threads = 128;
+  const int blocks = (n + threads - 1) / threads;
+  prologue_flat_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)flat, (const uint32_t*)table, num_keys, (const int32_t*)tile_keys,
+      tile, (int32_t*)a_y, (int32_t*)a_sign, (int32_t*)r_y, (int32_t*)r_sign,
       (int32_t*)s_w, (int32_t*)k_w, (uint8_t*)ok, n);
   return (int)cudaGetLastError();
 }

@@ -9,6 +9,12 @@ together (:func:`build`).
 
 Nothing here runs at import: the CPU tests import every module, and the
 machine they run on has no nvcc.
+
+Every failure to build or load raises :class:`CudaBuildError`, a
+``RuntimeError``.  The file-system and loader calls on this path raise
+``OSError``, which the hybrid router counts as an outage of its accelerator
+route; a kernel that cannot build is a broken installation, not an outage,
+and must never send the node quietly to the CPU oracle.
 """
 from __future__ import annotations
 
@@ -36,6 +42,10 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
+class CudaBuildError(RuntimeError):
+    """A CUDA source did not build, or its library did not load."""
+
+
 def nvcc() -> str:
     path = shutil.which("nvcc")
     if path is None:
@@ -44,7 +54,7 @@ def nvcc() -> str:
         if os.path.exists(candidate):
             path = candidate
     if path is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels build on a machine with the CUDA toolkit")
+        raise CudaBuildError("nvcc not found: the CUDA kernels build on a machine with the CUDA toolkit")
     return path
 
 
@@ -59,6 +69,13 @@ def library_path(name: str) -> Path:
 def build(names: Iterable[str]) -> None:
     """Compile every named source whose library is missing, one nvcc
     process per source, all in parallel; raise listing every failure."""
+    try:
+        _build(names)
+    except OSError as exc:
+        raise CudaBuildError(f"CUDA build failed: {exc!r}") from exc
+
+
+def _build(names: Iterable[str]) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name in names:
@@ -78,7 +95,7 @@ def build(names: Iterable[str]) -> None:
             continue
         os.replace(tmp, out)
     if failures:
-        raise RuntimeError("CUDA build failed:\n" + "\n".join(failures))
+        raise CudaBuildError("CUDA build failed:\n" + "\n".join(failures))
 
 
 def load(name: str) -> ctypes.CDLL:
@@ -87,6 +104,9 @@ def load(name: str) -> ctypes.CDLL:
         lib = _libs.get(name)
         if lib is None:
             build([name])
-            lib = ctypes.CDLL(str(library_path(name)))
+            try:
+                lib = ctypes.CDLL(str(library_path(name)))
+            except OSError as exc:
+                raise CudaBuildError(f"cannot load the {name} kernels: {exc}") from exc
             _libs[name] = lib
         return lib

@@ -60,6 +60,15 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def device_key(device) -> torch.device:
+    """``device`` in the form a per-device cache keys on: ``cuda`` and
+    ``cuda:0`` are one card, so a CUDA device always carries its index."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
 def _recover_x(y: int, sign: int) -> Optional[int]:
     x2 = (y * y - 1) * pow(_D * y * y + 1, P - 2, P) % P
     if x2 == 0:
@@ -314,6 +323,15 @@ def pack_blob(
     return np.concatenate([msg_words, s_words, host_ok[:, None].astype(np.uint32)], axis=1)
 
 
+def pack_flat(grouped: np.ndarray) -> np.ndarray:
+    """The flat keyed upload of a GROUPED indexed blob (group_blob_for_tiles
+    output, B a multiple of 32): its B x 24 R/M/s words, then the host_ok
+    column packed to B/32 words in little bit order.  The key column is
+    dropped: every lane of a tile has the tile's key."""
+    okmask = np.packbits(grouped[:, 25].astype(bool), bitorder="little").view(np.uint32)
+    return np.concatenate([grouped[:, :24].reshape(-1), okmask])
+
+
 def pk_table_words(public_keys: Sequence[bytes]) -> np.ndarray:
     """(K, 8) uint32 big-endian words of the raw 32-byte A encodings."""
     arr = np.frombuffer(b"".join(public_keys), np.uint8).reshape(len(public_keys), 32)
@@ -462,7 +480,7 @@ def base_comb(device) -> torch.Tensor:
     """The (64, 3, 20, 16) int32 Niels base comb on ``device`` (built once
     per process, uploaded once per device)."""
     global _base_comb_host
-    device = torch.device(device)
+    device = device_key(device)
     with _base_comb_lock:
         t = _base_combs.get(device)
         if t is None:
@@ -597,8 +615,10 @@ def to_device_words(arr: np.ndarray, device) -> torch.Tensor:
 class KeyTable:
     """A committee's keys resident on a device: upload once, verify by index.
 
-    ``words`` is the (K, 8) key table the prologue gathers from.
-    ``indices_for`` maps raw pk bytes to rows; unknown keys map to -1.
+    ``words`` is the (K, 8) key table the prologue gathers from, on the
+    table's device; ``words_on`` gives a copy on another device (a sharded
+    dispatch needs one on every card).  ``indices_for`` maps raw pk bytes to
+    rows; unknown keys map to -1.
     ``neg_combs`` lazily builds the per-key negated combs for the keyed
     kernel (see build_neg_key_combs)."""
 
@@ -609,6 +629,8 @@ class KeyTable:
             raise ValueError("key table entries must be 32-byte encodings")
         self.device = resolve_device(device)
         self.words = to_device_words(pk_table_words(public_keys), self.device)
+        self._words_on = {device_key(self.device): self.words}
+        self._words_lock = threading.Lock()
         self._index = {bytes(pk): i for i, pk in enumerate(public_keys)}
         self._keys = [bytes(pk) for pk in public_keys]
         self._neg_combs: Optional[Tuple[torch.Tensor, np.ndarray]] = None
@@ -634,6 +656,15 @@ class KeyTable:
 
     def __len__(self) -> int:
         return self.words.shape[0]
+
+    def words_on(self, device) -> torch.Tensor:
+        """The (K, 8) key table on ``device``, uploaded once per device."""
+        device = device_key(device)
+        with self._words_lock:
+            words = self._words_on.get(device)
+            if words is None:
+                words = self._words_on[device] = self.words.to(device)
+            return words
 
     def indices_for(self, public_keys: Sequence[bytes]) -> np.ndarray:
         return np.fromiter(
@@ -708,20 +739,37 @@ class VerifyDispatch:
         return out
 
 
+def _to_host(parts: Sequence[torch.Tensor]) -> np.ndarray:
+    """Concatenate 1-D tensors that may lie on several devices, with one
+    copy to the host per device."""
+    by_device: dict = {}
+    for t in parts:
+        by_device.setdefault(t.device, []).append(t)
+    host = {}
+    for device, ts in by_device.items():
+        whole = torch.cat(ts).cpu().numpy()
+        host[device] = iter(np.split(whole, np.cumsum([t.shape[0] for t in ts])[:-1]))
+    return np.concatenate([next(host[t.device]) for t in parts])
+
+
 def fetch_handles(handles) -> np.ndarray:
-    """Force ``(count, device bool tensor[, positions])`` chunk results with
-    one copy to the host; drop padding and un-permute grouped-order keyed
-    results (positions maps original row -> grouped row)."""
+    """Force ``(count, result[, positions])`` chunk entries with one copy to
+    the host per device; drop padding and un-permute grouped-order keyed
+    results (positions maps original row -> grouped row).  A result is a
+    bool tensor, or the list of a sharded chunk's per-shard tensors in
+    batch order."""
     if not handles:
         return np.zeros(0, bool)
-    flat = torch.cat([e[1] for e in handles]).cpu().numpy()
+    parts = [p for e in handles for p in (e[1] if isinstance(e[1], list) else [e[1]])]
+    flat = _to_host(parts)
     out = np.empty(sum(e[0] for e in handles), bool)
     src = dst = 0
     for entry in handles:
         count, h = entry[0], entry[1]
-        chunk = flat[src : src + h.shape[0]]
+        width = sum(t.shape[0] for t in h) if isinstance(h, list) else h.shape[0]
+        chunk = flat[src : src + width]
         out[dst : dst + count] = chunk[entry[2]] if len(entry) > 2 else chunk[:count]
-        src += h.shape[0]
+        src += width
         dst += count
     return out
 

@@ -1,20 +1,26 @@
-"""The three CUDA kernels of the verify path, their wrappers and plain versions.
+"""The CUDA kernels of the verify path, their wrappers and plain versions.
 
 The counterpart of ``mysticeti_tpu.ops.ed25519_pallas``:
 
-=================  =====================================  ==============================
-wrapper            CUDA source (csrc/)                    replaces
-=================  =====================================  ==============================
-``prologue``       prologue.cu                            ops/ed25519.py prepare_fused +
-                                                          indexed_to_msg_words (XLA)
-``verify_generic`` verify_generic.cu (+ fe51.cuh)         ed25519_pallas._verify_pallas_jit
-``verify_keyed``   verify_keyed.cu (+ fe51.cuh)           ed25519_pallas._verify_keyed_pallas_jit
-=================  =====================================  ==============================
+==================  =====================================  ==============================
+wrapper             CUDA source (csrc/)                    replaces
+==================  =====================================  ==============================
+``prologue``        prologue.cu                            ops/ed25519.py prepare_fused +
+                                                           indexed_to_msg_words (XLA)
+``prologue_flat``   prologue.cu                            the XLA steps of
+                                                           ed25519_pallas._verify_keyed_flat_jit
+``verify_generic``  verify_generic.cu (+ fe51.cuh)         ed25519_pallas._verify_pallas_jit
+``verify_keyed``    verify_keyed.cu (+ fe51.cuh)           ed25519_pallas._verify_keyed_pallas_jit
+==================  =====================================  ==============================
+
+``verify_keyed_flat`` (``prologue_flat`` + ``verify_keyed``) is the
+counterpart of ``ed25519_pallas.verify_keyed_flat``.
 
 Every wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for tensors on a CUDA device; there is no fallback from
-one to the other.  A launch goes to the current stream, allocates nothing
-inside the kernel (outputs come from ``torch.empty`` here), is checked with
+one to the other.  A launch runs with the tensors' device made current, goes
+to that device's current stream, allocates nothing inside the kernel
+(outputs come from ``torch.empty`` here), is checked with
 ``cudaGetLastError`` (a non-zero code raises), and adds one to its kernel's
 ``launches`` count.
 """
@@ -36,43 +42,46 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 class Kernel:
-    """One CUDA kernel: its source, what it replaces, its launch count."""
+    """One CUDA kernel: its source, what it replaces, its launch count.
+    ``source`` names the ``csrc/<source>.cu`` file that defines
+    ``<name>_launch`` (default: the kernel's own name)."""
 
-    def __init__(self, name: str, replaces: str, argtypes) -> None:
+    def __init__(self, name: str, replaces: str, argtypes, source: Optional[str] = None) -> None:
         self.name = name
-        self.source = f"mysticeti_tpu_torch/csrc/{name}.cu"
+        self.unit = source or name
+        self.source = f"mysticeti_tpu_torch/csrc/{self.unit}.cu"
         self.replaces = replaces
         self.launches = 0
-        self.lanes = 0
         self._argtypes = argtypes
         self._fn = None
         self._count_lock = threading.Lock()  # collector threads launch concurrently
 
     def _function(self):
         if self._fn is None:
-            fn = getattr(cuda_build.load(self.name), f"{self.name}_launch")
+            fn = getattr(cuda_build.load(self.unit), f"{self.name}_launch")
             fn.argtypes = self._argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
         return self._fn
 
     def launch(self, device: torch.device, lanes: int, *args) -> None:
-        """Launch on ``device``'s current stream; raise if the launch failed.
-        An empty batch launches nothing (a zero-block grid is an error)."""
+        """Launch on ``device``'s current stream with ``device`` made the
+        current device (the C launcher uses the calling thread's current
+        device); raise if the launch failed.  An empty batch launches
+        nothing (a zero-block grid is an error)."""
         if lanes == 0:
             return
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = self._function()(*args, stream)
+        fn = self._function()
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
         if err != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err}")
         with self._count_lock:
             self.launches += 1
-            self.lanes += lanes
 
     def reset_counts(self) -> None:
         with self._count_lock:
             self.launches = 0
-            self.lanes = 0
 
 
 PROLOGUE = Kernel(
@@ -87,12 +96,17 @@ VERIFY_KEYED = Kernel(
     "verify_keyed", "mysticeti_tpu/ops/ed25519_pallas.py:565",
     [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
 )
-KERNELS = (PROLOGUE, VERIFY_GENERIC, VERIFY_KEYED)
+PROLOGUE_FLAT = Kernel(
+    "prologue_flat", "mysticeti_tpu/ops/ed25519_pallas.py:606",
+    [_P, _P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    source="prologue",
+)
+KERNELS = (PROLOGUE, PROLOGUE_FLAT, VERIFY_GENERIC, VERIFY_KEYED)
 
 
 def build_all() -> None:
-    """Compile all three kernels at once (one nvcc per source, in parallel)."""
-    cuda_build.build(k.name for k in KERNELS)
+    """Compile every kernel source at once (one nvcc per source, in parallel)."""
+    cuda_build.build(dict.fromkeys(k.unit for k in KERNELS))
 
 
 def _on_cuda(*tensors: torch.Tensor) -> bool:
@@ -125,6 +139,14 @@ def _prologue_plain(blob: torch.Tensor, table: Optional[torch.Tensor]):
     return E.prepare_fused(*E.indexed_to_msg_words(blob, table))
 
 
+def _prologue_outputs(n: int, dev: torch.device):
+    """Empty (a_y, a_sign, r_y, r_sign, s_w, k_w, ok) for n lanes on dev."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    return (torch.empty((n, 20), **i32), torch.empty(n, **i32), torch.empty((n, 20), **i32),
+            torch.empty(n, **i32), torch.empty((n, 64), **i32), torch.empty((n, 64), **i32),
+            torch.empty(n, dtype=torch.bool, device=dev))
+
+
 def prologue(blob: torch.Tensor, table: Optional[torch.Tensor] = None):
     """Wire words -> (a_y, a_sign, r_y, r_sign, s_w, k_w, ok).
 
@@ -136,22 +158,14 @@ def prologue(blob: torch.Tensor, table: Optional[torch.Tensor] = None):
         _check(table, torch.int32, (table.shape[0], 8), "key table")
     if not _on_cuda(blob, *([] if table is None else [table])):
         return _prologue_plain(blob, table)
-    dev = blob.device
-    a_y = torch.empty((n, 20), dtype=torch.int32, device=dev)
-    a_sign = torch.empty(n, dtype=torch.int32, device=dev)
-    r_y = torch.empty((n, 20), dtype=torch.int32, device=dev)
-    r_sign = torch.empty(n, dtype=torch.int32, device=dev)
-    s_w = torch.empty((n, 64), dtype=torch.int32, device=dev)
-    k_w = torch.empty((n, 64), dtype=torch.int32, device=dev)
-    ok = torch.empty(n, dtype=torch.bool, device=dev)
+    outs = _prologue_outputs(n, blob.device)
     PROLOGUE.launch(
-        dev, n, blob.data_ptr(), blob.shape[1],
+        blob.device, n, blob.data_ptr(), blob.shape[1],
         None if table is None else table.data_ptr(),
         0 if table is None else table.shape[0],
-        a_y.data_ptr(), a_sign.data_ptr(), r_y.data_ptr(), r_sign.data_ptr(),
-        s_w.data_ptr(), k_w.data_ptr(), ok.data_ptr(), n,
+        *(t.data_ptr() for t in outs), n,
     )
-    return a_y, a_sign, r_y, r_sign, s_w, k_w, ok
+    return outs
 
 
 def _check_lanes(n, r_y, r_sign, s_w, k_w, ok) -> None:
@@ -231,3 +245,62 @@ def verify_keyed(tile_keys, acomb, r_y, r_sign, s_w, k_w, ok, tile: int = KEYED_
         out.data_ptr(), n, tile, acomb.shape[0],
     )
     return out
+
+
+# ---------------------------------------------------------------------------
+# Flat keyed upload
+
+
+def _prologue_flat_plain(flat, table, tile_keys, tile: int):
+    """The plain version of ``prologue_flat``: _verify_keyed_flat_jit's
+    steps in front of the keyed kernel, on tensors."""
+    b = tile_keys.shape[0] * tile
+    blob24 = flat[: b * 24].reshape(b, 24)
+    okmask = flat[b * 24 :]
+    idx = tile_keys.long().repeat_interleave(tile).clamp(0, table.shape[0] - 1)
+    msg_words = torch.cat([blob24[:, :8], table[idx], blob24[:, 8:16]], dim=-1)
+    lane = torch.arange(b, device=flat.device)
+    ok = ((okmask[lane // 32] >> (lane % 32)) & 1) != 0
+    return E.prepare_fused(msg_words, blob24[:, 16:24], ok)
+
+
+def _check_flat(flat, table, tile_keys, tile: int) -> int:
+    if tile <= 0:
+        raise ValueError(f"tile {tile} must be positive")
+    b = tile_keys.shape[0] * tile
+    if b % 32 != 0:
+        # The ok mask is read as packed 32-lane words; a ragged tail would
+        # read another lane's bit.
+        raise ValueError(f"batch {b} not a multiple of 32")
+    if flat.shape != (b * 24 + b // 32,):
+        raise ValueError(f"flat upload of {tuple(flat.shape)} words != {b}*24 + {b}//32")
+    _check(flat, torch.int32, (flat.shape[0],), "flat upload")
+    _check(table, torch.int32, (table.shape[0], 8), "key table")
+    _check(tile_keys, torch.int32, (tile_keys.shape[0],), "tile_keys")
+    return b
+
+
+def prologue_flat(flat, table, tile_keys, tile: int = KEYED_TILE):
+    """Flat keyed upload -> (a_y, a_sign, r_y, r_sign, s_w, k_w, ok), in
+    grouped order.
+
+    ``flat`` is int32 (uint32 bits): B rows of 24 words (R[8] M[8] s[8]) and
+    then B/32 words of the ok bits, lane i at bit i % 32 of word i // 32.
+    Lane i's key is ``tile_keys[i // tile]``, its A words ``table[key]``."""
+    n = _check_flat(flat, table, tile_keys, tile)
+    if not _on_cuda(flat, table, tile_keys):
+        return _prologue_flat_plain(flat, table, tile_keys, tile)
+    outs = _prologue_outputs(n, flat.device)
+    PROLOGUE_FLAT.launch(
+        flat.device, n, flat.data_ptr(), table.data_ptr(), table.shape[0],
+        tile_keys.data_ptr(), tile, *(t.data_ptr() for t in outs), n,
+    )
+    return outs
+
+
+def verify_keyed_flat(flat, table_words, acomb, tile_keys, tile: int = KEYED_TILE):
+    """Keyed-tile verification of a grouped flat upload (see
+    ``prologue_flat``); returns (B,) bool in GROUPED order (callers
+    un-permute on the host with the grouping's positions)."""
+    _a_y, _a_sign, r_y, r_sign, s_w, k_w, ok = prologue_flat(flat, table_words, tile_keys, tile)
+    return verify_keyed(tile_keys, acomb, r_y, r_sign, s_w, k_w, ok, tile)

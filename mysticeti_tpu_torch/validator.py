@@ -4,12 +4,16 @@ The port's counterpart of ``mysticeti_tpu.validator._make_verifier``.  The
 rest of the node (storage, core, network, metrics endpoint) is not carried
 over yet.  Kinds:
 
+* ``"cuda"``      — the hybrid router: each batch goes to the CPU oracle or
+  the CUDA kernels by measured cost, behind a circuit breaker (the
+  counterpart of ``"tpu"``);
 * ``"cuda-only"`` — every batch goes to the CUDA kernels through the
   batching collector (the counterpart of ``"tpu-only"``);
 * ``"cpu"``       — the batching collector over the CPU oracle;
 * ``"accept"``    — no signature checks (consensus-only escape hatch).
 
-The hybrid CPU/accelerator router (``"tpu"``), the aggregate kinds
+On a host with several cards both accelerator kinds shard each batch over
+them (``TorchSignatureVerifier(mesh="auto")``).  The aggregate kinds
 (``-agg``) and the shared verifier service are not carried over.
 """
 from __future__ import annotations
@@ -21,11 +25,13 @@ from .block_validator import (
     AcceptAllBlockVerifier,
     BatchedSignatureVerifier,
     CpuSignatureVerifier,
+    HybridSignatureVerifier,
     TorchSignatureVerifier,
 )
 from .committee import Committee
 
 ACCELERATOR_KIND = "cuda-only"
+HYBRID_KIND = "cuda"
 
 
 def _make_verifier(kind: str, committee: Committee, device=None):
@@ -44,14 +50,19 @@ def _make_verifier(kind: str, committee: Committee, device=None):
         max_delay_s=window_ms / 1e3,
         pipeline_depth=int(depth_env) if depth_env else None,
     )
-    if kind == ACCELERATOR_KIND:
+    if kind in (HYBRID_KIND, ACCELERATOR_KIND):
         backend = TorchSignatureVerifier(
             committee_keys=committee.public_key_bytes(), device=device
         )
+        if kind == HYBRID_KIND:
+            # Small batches take the CPU oracle, sparing them the dispatch
+            # latency; "cuda-only" pins every batch to the kernels.
+            backend = HybridSignatureVerifier(tpu=backend)
 
         def _warm() -> None:
-            # Build the kernels and upload the combs off the hot path: blocks
-            # arriving meanwhile queue in the batching collector.
+            # Build the kernels, upload the combs and (hybrid) calibrate both
+            # routes off the hot path: blocks arriving meanwhile queue in the
+            # batching collector.
             try:
                 backend.warmup()
             finally:

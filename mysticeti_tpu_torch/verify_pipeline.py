@@ -17,7 +17,7 @@ This module is the engine for that shape:
   a new flush window while prior dispatches are still in flight; the window
   bounds how many, so a flooding peer cannot queue unbounded device work.
   Depth adapts to the measured fixed dispatch cost (the hybrid router's
-  ``tpu_dispatch_s``, once ported): a co-located chip has little latency to hide (depth
+  ``tpu_dispatch_s``): a co-located chip has little latency to hide (depth
   2), a tunneled one wants more overlap (up to 4).
 * :class:`DeferredDispatch` / :class:`CompletedDispatch` — future-like
   handles for backends without a native async queue, so every

@@ -41,6 +41,17 @@ extern "C" void host_prologue(const uint32_t* blob, int ncols, const uint32_t* t
                   r_y + 20 * i, r_sign + i, s_w + 64 * i, k_w + 64 * i, ok + i);
 }
 
+extern "C" void host_prologue_flat(const uint32_t* flat, const uint32_t* table, int num_keys,
+                                   const int32_t* tile_keys, int tile, int32_t* a_y,
+                                   int32_t* a_sign, int32_t* r_y, int32_t* r_sign, int32_t* s_w,
+                                   int32_t* k_w, uint8_t* ok, int n) {
+  for (int i = 0; i < n; i++)
+    prologue_flat_lane(flat + (size_t)24 * i, table, num_keys, tile_keys[i / tile],
+                       (flat[(size_t)24 * n + (i >> 5)] >> (i & 31)) & 1u, a_y + 20 * i,
+                       a_sign + i, r_y + 20 * i, r_sign + i, s_w + 64 * i, k_w + 64 * i,
+                       ok + i);
+}
+
 extern "C" void host_generic(const int32_t* comb, const int32_t* a_y, const int32_t* a_sign,
                              const int32_t* r_y, const int32_t* r_sign, const int32_t* s_w,
                              const int32_t* k_w, const uint8_t* ok, uint8_t* out, int n) {
@@ -80,11 +91,15 @@ def _ptr(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.c_void_p)
 
 
-def _host_prologue(lib, blob: np.ndarray, table=None):
-    n = blob.shape[0]
-    outs = [np.zeros((n, 20), np.int32), np.zeros(n, np.int32), np.zeros((n, 20), np.int32),
+def _prologue_outputs(n: int):
+    return [np.zeros((n, 20), np.int32), np.zeros(n, np.int32), np.zeros((n, 20), np.int32),
             np.zeros(n, np.int32), np.zeros((n, 64), np.int32), np.zeros((n, 64), np.int32),
             np.zeros(n, np.uint8)]
+
+
+def _host_prologue(lib, blob: np.ndarray, table=None):
+    n = blob.shape[0]
+    outs = _prologue_outputs(n)
     lib.host_prologue(_ptr(blob), ctypes.c_int(blob.shape[1]),
                       None if table is None else _ptr(table),
                       ctypes.c_int(0 if table is None else table.shape[0]),
@@ -120,6 +135,27 @@ def test_prologue_lanes_equal_the_plain_prologue(lib):
     want = K.prologue(E.to_device_words(iblob, "cpu"), table.words)
     for got, w in zip(_host_prologue(lib, iblob, words), want):
         np.testing.assert_array_equal(got.astype(np.int64), w.numpy().astype(np.int64))
+
+
+def test_prologue_flat_lanes_equal_the_plain_flat_prologue(lib):
+    raw, pks, msgs, sigs, _ = _cases(24, 40, n_keys=3)
+    epks, emsgs, esigs = _edge_cases()
+    table = E.KeyTable(raw + epks[1:], device="cpu")  # edge keys as committee keys
+    pks, msgs, sigs = pks + epks[1:], msgs + emsgs[1:], sigs + esigs[1:]
+    blob = E.pack_blob_indexed(table.indices_for(pks), msgs, sigs, num_keys=len(table))
+    blob[::9, 25] = 0
+    grouped, tile_keys, _ = E.group_blob_for_tiles(blob, len(table), 8, 128)
+    tile_keys[-1] = 99  # an out-of-range key of an empty tile is clipped
+    flat = E.pack_flat(grouped)
+    want = K.prologue_flat(E.to_device_words(flat, "cpu"), table.words,
+                           torch.as_tensor(tile_keys), tile=8)
+    got = _prologue_outputs(grouped.shape[0])
+    lib.host_prologue_flat(_ptr(flat), _ptr(E.pk_table_words(table._keys)),
+                           ctypes.c_int(len(table)), _ptr(tile_keys), ctypes.c_int(8),
+                           *[_ptr(o) for o in got], ctypes.c_int(grouped.shape[0]))
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.astype(np.int64), w.numpy().astype(np.int64))
+    assert got[-1].any() and not got[-1].all()
 
 
 def test_generic_lanes_equal_the_plain_ladder_and_the_oracle(lib):
