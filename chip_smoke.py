@@ -12,8 +12,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    corrupt R, corrupt s, corrupt message, wrong key, non-canonical s,
    corrupt pk); checks the verdicts against the labels the cases were built
    with and a sample against the Ed25519 oracle; times kernel and plain
-   version with CUDA events.  The tolerance is zero: every output is an
-   integer or a bit, so "equal" means equal on every element.
+   version with CUDA events.  The generic kernel is also held to its plain
+   version and timed on 256 lanes (the collector's flush) and on one lane.
+   The tolerance is zero: every output is an integer or a bit, so "equal"
+   means equal on every element.
 3. Drives the main path with every launch count at 0: the signed blocks of a
    50-authority committee over 20 rounds (some tampered) are serialized,
    decoded, checked with ``verify_structure`` and verified through the
@@ -42,6 +44,10 @@ and read just after; every kernel must have launched on some path.
 
 Exits non-zero, printing no result, when there is no CUDA device or when any
 phase fails.
+
+``python3 chip_smoke.py --generic-only [CHECKOUT]`` runs only the generic
+kernel's part of step 2, optionally on the port of CHECKOUT, a directory
+inside this checkout (see ``generic_only``).
 """
 from __future__ import annotations
 
@@ -78,8 +84,10 @@ P = (1 << 255) - 19
 # peak), over 132 SMs; device memory moves 3.35 TB/s.
 INT_OPS_PER_S = 132 * 64 * 1.98e9
 BYTES_PER_S = 3.35e12
-# A 255-bit field multiply needs at least 8 x 8 32-bit limb products.
+# A 255-bit field multiply needs at least 8 x 8 32-bit limb products, a
+# squaring 8 squares and 28 cross products (each doubled by a shift).
 INT_MULS_PER_FIELD_MUL = 64
+INT_MULS_PER_FIELD_SQ = 36
 # One SHA-512 compression in 32-bit integer instructions with funnel shifts
 # and three-input logic: 80 rounds x 36 + 64 schedule steps x 22.
 SHA512_INT_OPS = 80 * 36 + 64 * 22
@@ -181,13 +189,20 @@ def bound(ops: float, moved: int):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def field_muls_per_lane():
-    """Field multiplies one lane of each verify does, counted on the plain
-    versions (the kernels run the same formulas) on the CPU."""
+def int_products(lane_ops) -> int:
+    """32-bit limb products of the (B, 2) field squarings and multiplies
+    ``lane_ops`` (ed25519_cuda.generic_lane_ops / keyed_lane_ops)."""
+    sq, mul = (int(x) for x in lane_ops.sum(axis=0))
+    return sq * INT_MULS_PER_FIELD_SQ + mul * INT_MULS_PER_FIELD_MUL
+
+
+def plain_generic_muls_per_lane() -> int:
+    """Field multiplies (squarings among them) of one lane of the generic
+    verify's plain version, counted on the CPU: a yardstick that stays the
+    same whatever the kernel's design."""
     import torch
 
     from mysticeti_tpu_torch.ops import ed25519 as E
-    from mysticeti_tpu_torch.ops import ed25519_cuda as K
     from mysticeti_tpu_torch.ops import field as F
 
     count = [0]
@@ -202,14 +217,9 @@ def field_muls_per_lane():
     F.mul = counting
     try:
         E.verify_impl(z(1, 20), z(1), z(1, 20), z(1), z(1, 64), z(1, 64), ok)
-        generic = count[0]
-        count[0] = 0
-        combs = torch.as_tensor(E.build_neg_key_combs([bytes(32)])[0])
-        K.verify_keyed_plain(z(1), combs, z(1, 20), z(1), z(1, 64), z(1, 64), ok, 1)
-        keyed = count[0]
     finally:
         F.mul = mul
-    return generic, keyed
+    return count[0]
 
 
 def oracle(pk: bytes, msg: bytes, sig: bytes) -> bool:
@@ -219,6 +229,35 @@ def oracle(pk: bytes, msg: bytes, sig: bytes) -> bool:
         return crypto.PublicKey(pk).verify(sig, msg)
     except ValueError:
         return False
+
+
+def generic_readings(k_raw, expected):
+    """The generic kernel against its plain version on the prologue outputs
+    ``k_raw`` (BUCKET lanes), on their first 256 lanes and on one live lane;
+    its times at those three sizes."""
+    import numpy as np
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519 as E
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    got = K.verify_generic(*k_raw)
+    err = max_abs_err([got], [E.verify_impl(*k_raw)])
+    check(np.array_equal(got.cpu().numpy(), expected), "generic kernel disagrees with the labels")
+    # The collector's flush size (256 signatures), and one lane: every lane
+    # runs the whole ladder serially, so one lane is the latency floor.
+    head = [t[:256] for t in k_raw]
+    lane = int(torch.nonzero(k_raw[-1])[0])
+    one = [t[lane : lane + 1] for t in k_raw]
+    for part in (head, one):
+        err = max(err, max_abs_err([K.verify_generic(*part)], [E.verify_impl(*part)]))
+    check(err == 0, "generic kernel differs from its plain version")
+    ms = cuda_ms(lambda: K.verify_generic(*k_raw), 5)
+    ms_256 = cuda_ms(lambda: K.verify_generic(*head), 5)
+    ms_1 = cuda_ms(lambda: K.verify_generic(*one), 10)
+    plain_ms = cuda_ms(lambda: E.verify_impl(*k_raw), 1)
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_at_256_lanes=ms_256,
+                ms_at_1_lane=ms_1)
 
 
 def kernel_phase(signers, table, rng, report):
@@ -252,26 +291,22 @@ def kernel_phase(signers, table, rng, report):
     b_ms, b_by = bound(BUCKET * SHA512_INT_OPS, nbytes(indexed, table.words) + out_bytes)
     report["prologue"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
 
-    generic_muls, keyed_muls = field_muls_per_lane()
-
-    # Generic ladder on the raw prologue outputs.
-    got = K.verify_generic(*k_raw)
-    want = E.verify_impl(*k_raw)
-    err = max_abs_err([got], [want])
-    check(err == 0, "generic kernel differs from its plain version")
-    check(np.array_equal(got.cpu().numpy(), expected), "generic kernel disagrees with the labels")
-    ms = cuda_ms(lambda: K.verify_generic(*k_raw), 5)
-    # The collector's flush size (256 signatures): the generic kernel's
-    # latency floor, since every lane runs the whole ladder serially.
-    head = [t[:256] for t in k_raw]
-    ms_256 = cuda_ms(lambda: K.verify_generic(*head), 5)
-    plain_ms = cuda_ms(lambda: E.verify_impl(*k_raw), 1)
-    live = int(k_raw[-1].sum())
-    b_ms, b_by = bound(live * generic_muls * INT_MULS_PER_FIELD_MUL,
-                       nbytes(*k_raw, E.base_comb(dev), got))
-    report["verify_generic"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                    bound_by=b_by, field_muls_per_lane=generic_muls,
-                                    ms_at_256_lanes=ms_256)
+    # The generic bound: the squarings and multiplies its lanes do on this
+    # run's k (a zero digit adds nothing), and the 51-bit comb it reads.
+    # Beside it, the yardstick of the plain version's formulas (every
+    # squaring a multiply, the 16-entry table, T everywhere) and 13-bit comb.
+    r = report["verify_generic"] = generic_readings(k_raw, expected)
+    verdict_bytes = BUCKET  # one byte a lane
+    lane_ops = K.generic_lane_ops(k_raw[5], k_raw[6])
+    live = int(k_raw[6].sum())
+    r["bound_ms"], r["bound_by"] = bound(int_products(lane_ops),
+                                         nbytes(*k_raw, E.base_comb51(dev)) + verdict_bytes)
+    plain_muls = plain_generic_muls_per_lane()
+    r["bound_ms_plain_formulas"] = bound(live * plain_muls * INT_MULS_PER_FIELD_MUL,
+                                         nbytes(*k_raw, E.base_comb(dev)) + verdict_bytes)[0]
+    r["field_ops_per_lane"] = dict(zip(("squarings", "multiplies"), (lane_ops.sum(axis=0) / live).tolist()))
+    r["plain_field_muls_per_lane"] = plain_muls
+    r["block_threads"], r["dynamic_smem_bytes"] = K.generic_launch_shape()
 
     # Keyed tiles: every lane of a tile shares one of the 50 keys.
     # The keyed kernel serves committee keys: its chunk holds the known-key
@@ -294,11 +329,13 @@ def kernel_phase(signers, table, rng, report):
           "keyed kernel disagrees with the labels")
     ms = cuda_ms(lambda: K.verify_keyed(*args), 10)
     plain_ms = cuda_ms(lambda: K.verify_keyed_plain(*args, tile=K.KEYED_TILE), 1)
-    live = int(outs[-1].sum())
-    b_ms, b_by = bound(live * keyed_muls * INT_MULS_PER_FIELD_MUL,
+    lane_ops = K.keyed_lane_ops(outs[-1])
+    b_ms, b_by = bound(int_products(lane_ops),
                        nbytes(tile_keys, acomb, *outs[2:], E.base_comb(dev), got))
-    report["verify_keyed"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                  bound_by=b_by, field_muls_per_lane=keyed_muls)
+    live = int(outs[-1].sum())
+    report["verify_keyed"] = dict(
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+        field_ops_per_lane=dict(zip(("squarings", "multiplies"), (lane_ops.sum(axis=0) / live).tolist())))
     print(f"kernel phase: {BUCKET} lanes x {len(CLASSES)} classes, prologue, generic and keyed "
           f"kernels equal their plain versions; {ORACLE_SAMPLE} lanes held to the oracle", flush=True)
     return grouped, tile_keys.cpu().numpy(), positions, expected[sel]
@@ -601,7 +638,9 @@ def run() -> int:
             "launches_by_path": {path: counts[k.name] for path, counts in by_path.items()},
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
-            **{key: r[key] for key in ("field_muls_per_lane", "ms_at_256_lanes") if key in r},
+            **{key: r[key] for key in ("field_ops_per_lane", "ms_at_256_lanes", "ms_at_1_lane",
+                                       "bound_ms_plain_formulas", "plain_field_muls_per_lane",
+                                       "block_threads", "dynamic_smem_bytes") if key in r},
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"e2e_sig_per_s": rate, "signatures": KEYED_LANES, "bucket": BUCKET,
@@ -641,13 +680,54 @@ def sharded_only() -> int:
     return 0
 
 
-def main(entry=run) -> int:
+def generic_only(root=None) -> int:
+    """The generic kernel alone, against its plain version and timed at
+    BUCKET, 256 and 1 lanes: ``python3 chip_smoke.py --generic-only [ROOT]``.
+    ROOT, a directory inside this checkout (an unpacked earlier commit),
+    holds a port that is imported instead of this one's, so two versions of
+    the kernel can be timed in turns in one call."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    here = os.path.realpath(os.path.dirname(os.path.abspath(__file__)))
+    root = os.path.realpath(root or here)
+    if os.path.commonpath([root, here]) != here:
+        print(f"chip_smoke: {root} is not inside {here}", file=sys.stderr)
+        return 2
+    sys.path.insert(0, root)
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.ops import cuda_build
+    from mysticeti_tpu_torch.ops import ed25519 as E
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    for line in cuda_build.ptxas_reports.get(K.VERIFY_GENERIC.unit, "").splitlines():
+        if "Used" in line or "stack" in line or "spill" in line:
+            print(f"ptxas {K.VERIFY_GENERIC.unit}: {line.split(':', 1)[-1].strip()}", flush=True)
+    rng = random.Random(SEED)
+    signers = Committee.benchmark_signers(COMMITTEE)
+    lanes = sign_cases(signers, BUCKET, rng)
+    pks, msgs, sigs, labels = (list(x) for x in zip(*lanes))
+    k_raw = K.prologue(E.to_device_words(E.pack_blob(pks, msgs, sigs), E.resolve_device(None)))
+    reading = generic_readings(k_raw, np.array([c == "valid" for c in labels]))
+    print(json.dumps({"verify_generic": reading, "package": os.path.dirname(E.__file__)}),
+          flush=True)
+    return 0
+
+
+def main(entry=run, *args) -> int:
     try:
-        return entry()
+        return entry(*args)
     except SmokeFailure as exc:
         print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
         return 1
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--generic-only"]:
+        sys.exit(main(generic_only, *sys.argv[2:3]))
     sys.exit(main())

@@ -6,6 +6,8 @@
 // and 64-bit adds, so a field multiply here is 25 wide products instead of
 // 400 narrow ones.  The kernels' inputs and outputs stay in the 13-bit limb
 // layout of the port's public functions; fe_from13 converts at the boundary.
+// The generic kernel's base comb comes in 51-bit limbs (gn_load51), the
+// keyed kernel's combs in 13-bit limbs (gn_load).
 //
 // Invariant ("carried"): every fe handed to a public function below has limbs
 // < 2^52.  fe_add/fe_sub/fe_mul return carried values.
@@ -20,6 +22,16 @@
 #define HD __device__ __forceinline__
 #endif
 
+// Hooks a host build may define to count the field squarings and multiplies
+// a lane does (ops/ed25519_cuda.py reckons the kernels' bounds on the same
+// count); empty otherwise.
+#ifndef FE_COUNT_SQ
+#define FE_COUNT_SQ()
+#endif
+#ifndef FE_COUNT_MUL
+#define FE_COUNT_MUL()
+#endif
+
 typedef unsigned __int128 u128;
 
 #define FE_MASK51 ((1ULL << 51) - 1)
@@ -27,6 +39,7 @@ typedef unsigned __int128 u128;
 struct fe { uint64_t v[5]; };
 struct ge { fe X, Y, Z, T; };     // extended coordinates: x = X/Z, y = Y/Z, xy = T/Z
 struct gn { fe ymx, ypx, t2d; };  // Niels form of an affine point: (y-x, y+x, 2d*x*y)
+struct gc { fe ymx, ypx, z2, t2d; };  // cached form of a ge: (Y-X, Y+X, 2Z, 2d*T)
 
 HD fe fe_const(uint64_t a, uint64_t b, uint64_t c, uint64_t d, uint64_t e) {
   fe r; r.v[0] = a; r.v[1] = b; r.v[2] = c; r.v[3] = d; r.v[4] = e; return r;
@@ -74,7 +87,7 @@ HD fe fe_sub(const fe& a, const fe& b) {
 
 HD fe fe_neg(const fe& a) { return fe_sub(fe_zero(), a); }
 
-HD fe fe_mul(const fe& a, const fe& b) {
+HD fe fe_product(const fe& a, const fe& b) {
   const uint64_t a0 = a.v[0], a1 = a.v[1], a2 = a.v[2], a3 = a.v[3], a4 = a.v[4];
   const uint64_t b0 = b.v[0], b1 = b.v[1], b2 = b.v[2], b3 = b.v[3], b4 = b.v[4];
   const uint64_t b1_19 = 19 * b1, b2_19 = 19 * b2, b3_19 = 19 * b3, b4_19 = 19 * b4;
@@ -96,7 +109,15 @@ HD fe fe_mul(const fe& a, const fe& b) {
   return r;
 }
 
-HD fe fe_sq(const fe& a) { return fe_mul(a, a); }
+HD fe fe_mul(const fe& a, const fe& b) {
+  FE_COUNT_MUL();
+  return fe_product(a, b);
+}
+
+HD fe fe_sq(const fe& a) {
+  FE_COUNT_SQ();
+  return fe_product(a, a);
+}
 
 HD fe fe_pow2k(fe a, int k) {
   for (int i = 0; i < k; i++) a = fe_sq(a);
@@ -194,16 +215,30 @@ HD ge ge_identity() {
   ge p; p.X = fe_zero(); p.Y = fe_one(); p.Z = fe_one(); p.T = fe_zero(); return p;
 }
 
-// Unified addition add-2008-hwcd-3 (complete for a = -1).
-HD ge ge_add(const ge& p, const ge& q) {
-  fe a = fe_mul(fe_sub(p.Y, p.X), fe_sub(q.Y, q.X));
-  fe b = fe_mul(fe_add(p.Y, p.X), fe_add(q.Y, q.X));
-  fe c = fe_mul(fe_mul(p.T, fe_d2()), q.T);
-  fe d = fe_mul(fe_add(p.Z, p.Z), q.Z);
+HD gc ge_to_cached(const ge& p) {
+  gc q;
+  q.ymx = fe_sub(p.Y, p.X);
+  q.ypx = fe_add(p.Y, p.X);
+  q.z2 = fe_add(p.Z, p.Z);
+  q.t2d = fe_mul(p.T, fe_d2());
+  return q;
+}
+
+// p + q with q in cached form: unified addition add-2008-hwcd-3 (complete for
+// a = -1), 8 multiplies, 7 when the caller needs no T (the next operation is
+// a doubling, which never reads it; T is then left zero).
+HD ge ge_add_cached(const ge& p, const gc& q, bool want_t = true) {
+  fe a = fe_mul(fe_sub(p.Y, p.X), q.ymx);
+  fe b = fe_mul(fe_add(p.Y, p.X), q.ypx);
+  fe c = fe_mul(p.T, q.t2d);
+  fe d = fe_mul(p.Z, q.z2);
   fe e = fe_sub(b, a), f = fe_sub(d, c), g = fe_add(d, c), h = fe_add(b, a);
-  ge r; r.X = fe_mul(e, f); r.Y = fe_mul(g, h); r.Z = fe_mul(f, g); r.T = fe_mul(e, h);
+  ge r; r.X = fe_mul(e, f); r.Y = fe_mul(g, h); r.Z = fe_mul(f, g);
+  r.T = want_t ? fe_mul(e, h) : fe_zero();
   return r;
 }
+
+HD ge ge_add(const ge& p, const ge& q) { return ge_add_cached(p, ge_to_cached(q)); }
 
 // Mixed addition with a Niels-form point (madd-2008-hwcd).
 HD ge ge_madd(const ge& p, const gn& q) {
@@ -216,8 +251,9 @@ HD ge ge_madd(const ge& p, const gn& q) {
   return r;
 }
 
-// Doubling dbl-2008-hwcd (never reads T).
-HD ge ge_double(const ge& p) {
+// Doubling dbl-2008-hwcd: never reads T, and emits it only when asked (as
+// ge_add_cached; the TPU kernel's point_double(want_t=...)).
+HD ge ge_double(const ge& p, bool want_t = true) {
   fe a = fe_sq(p.X);
   fe b = fe_sq(p.Y);
   fe zz = fe_sq(p.Z);
@@ -226,7 +262,8 @@ HD ge ge_double(const ge& p) {
   fe e = fe_sub(h, fe_sq(fe_add(p.X, p.Y)));
   fe g = fe_sub(a, b);
   fe f = fe_add(c, g);
-  ge r; r.X = fe_mul(e, f); r.Y = fe_mul(g, h); r.Z = fe_mul(f, g); r.T = fe_mul(e, h);
+  ge r; r.X = fe_mul(e, f); r.Y = fe_mul(g, h); r.Z = fe_mul(f, g);
+  r.T = want_t ? fe_mul(e, h) : fe_zero();
   return r;
 }
 
@@ -237,6 +274,30 @@ HD gn gn_load(const int32_t* base, int v) {
   q.ymx = fe_from13(base + v, 16);
   q.ypx = fe_from13(base + 20 * 16 + v, 16);
   q.t2d = fe_from13(base + 2 * 20 * 16 + v, 16);
+  return q;
+}
+
+// One Niels entry of a 51-bit comb: 16 uint64 (ymx[5] ypx[5] t2d[5], one pad
+// limb), one 128-byte line, read on the device as eight 16-byte loads through
+// the read-only path.
+HD gn gn_load51(const uint64_t* entry) {
+  uint64_t w[16];
+#ifdef __CUDA_ARCH__
+  const ulonglong2* line = reinterpret_cast<const ulonglong2*>(entry);
+  for (int i = 0; i < 8; i++) {
+    const ulonglong2 v = __ldg(line + i);
+    w[2 * i] = v.x;
+    w[2 * i + 1] = v.y;
+  }
+#else
+  for (int i = 0; i < 16; i++) w[i] = entry[i];
+#endif
+  gn q;
+  for (int l = 0; l < 5; l++) {
+    q.ymx.v[l] = w[l];
+    q.ypx.v[l] = w[5 + l];
+    q.t2d.v[l] = w[10 + l];
+  }
   return q;
 }
 

@@ -22,6 +22,7 @@ the caller passes ``device="cpu"``.
 """
 from __future__ import annotations
 
+import functools
 import hashlib
 import os
 import threading
@@ -471,23 +472,53 @@ def _build_niels_comb() -> np.ndarray:
     return out
 
 
-_base_comb_host: Optional[np.ndarray] = None
-_base_combs: dict = {}  # torch.device -> the base comb tensor there
+def _build_comb51(comb13: np.ndarray) -> np.ndarray:
+    """(64, 16, 16) int64 (uint64 bits): the Niels comb ``comb13`` (64, 3, 20,
+    16) in 5 x 51-bit limbs, one 128-byte line per (window, entry): ymx[5]
+    ypx[5] t2d[5] and a zero pad limb.  An exact conversion of the values."""
+    out = np.zeros((_WINDOWS, 16, 16), np.int64)
+    for w in range(_WINDOWS):
+        for v in range(16):
+            for c in range(3):
+                x = F.limbs_to_int(comb13[w, c, :, v])
+                out[w, v, 5 * c : 5 * c + 5] = [(x >> (51 * l)) & ((1 << 51) - 1) for l in range(5)]
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def _niels_comb_host() -> np.ndarray:
+    return _build_niels_comb()
+
+
+@functools.lru_cache(maxsize=None)
+def _comb51_host() -> np.ndarray:
+    return _build_comb51(_niels_comb_host())
+
+
+_base_combs: dict = {}  # (host comb function, torch.device) -> the comb tensor there
 _base_comb_lock = threading.Lock()
 
 
-def base_comb(device) -> torch.Tensor:
-    """The (64, 3, 20, 16) int32 Niels base comb on ``device`` (built once
-    per process, uploaded once per device)."""
-    global _base_comb_host
+def _comb_on(host, device) -> torch.Tensor:
+    """The comb ``host()`` returns, on ``device``: built once per process,
+    uploaded once per device."""
     device = device_key(device)
     with _base_comb_lock:
-        t = _base_combs.get(device)
+        t = _base_combs.get((host, device))
         if t is None:
-            if _base_comb_host is None:
-                _base_comb_host = _build_niels_comb()
-            t = _base_combs[device] = torch.as_tensor(_base_comb_host, device=device)
+            t = _base_combs[(host, device)] = torch.as_tensor(host(), device=device)
         return t
+
+
+def base_comb(device) -> torch.Tensor:
+    """The (64, 3, 20, 16) int32 Niels base comb on ``device``."""
+    return _comb_on(_niels_comb_host, device)
+
+
+def base_comb51(device) -> torch.Tensor:
+    """The (64, 16, 16) int64 base comb of the generic kernel on ``device``
+    (see _build_comb51)."""
+    return _comb_on(_comb51_host, device)
 
 
 def _ext_add(p, q):

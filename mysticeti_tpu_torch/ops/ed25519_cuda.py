@@ -30,6 +30,7 @@ import ctypes
 import threading
 from typing import Optional
 
+import numpy as np
 import torch
 
 from . import cuda_build
@@ -182,14 +183,15 @@ def _check_lanes(n, r_y, r_sign, s_w, k_w, ok) -> None:
 
 def verify_generic(a_y, a_sign, r_y, r_sign, s_w, k_w, ok) -> torch.Tensor:
     """(B,) bool verdicts of the generic ladder (decompress A, [s]B + [k](-A),
-    compare with R).  Inputs as ``prologue`` returns them."""
+    compare with R).  Inputs as ``prologue`` returns them; ``s_w`` and
+    ``k_w`` are 4-bit windows (0..15), any such k and s."""
     n = a_y.shape[0]
     _check(a_y, torch.int32, (n, 20), "a_y")
     _check(a_sign, torch.int32, (n,), "a_sign")
     _check_lanes(n, r_y, r_sign, s_w, k_w, ok)
     if not _on_cuda(a_y, a_sign, r_y, r_sign, s_w, k_w, ok):
         return E.verify_impl(a_y, a_sign, r_y, r_sign, s_w, k_w, ok)
-    comb = E.base_comb(a_y.device)
+    comb = E.base_comb51(a_y.device)
     out = torch.empty(n, dtype=torch.bool, device=a_y.device)
     VERIFY_GENERIC.launch(
         a_y.device, n, comb.data_ptr(), a_y.data_ptr(), a_sign.data_ptr(), r_y.data_ptr(),
@@ -197,6 +199,53 @@ def verify_generic(a_y, a_sign, r_y, r_sign, s_w, k_w, ok) -> torch.Tensor:
         out.data_ptr(), n,
     )
     return out
+
+
+def generic_launch_shape():
+    """(threads a block, dynamic shared-memory bytes a block) with which the
+    generic kernel's launcher launches it (builds the kernel if needed)."""
+    fn = cuda_build.load(VERIFY_GENERIC.unit).verify_generic_shape
+    fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+    fn.restype = None
+    threads, smem = ctypes.c_int(), ctypes.c_int()
+    fn(ctypes.byref(threads), ctypes.byref(smem))
+    return threads.value, smem.value
+
+
+# Field (squarings, multiplies) of the formulas in fe51.cuh that every lane
+# runs: ge_decompress (without the multiply by sqrt(-1) that about half of
+# all keys take), ge_matches (the inversion and the affine x, y).
+_DECOMPRESS_OPS = (255, 19)
+_MATCH_OPS = (254, 13)
+
+
+def signed_digits(k_w: np.ndarray) -> np.ndarray:
+    """(B, 64) digits in [-8, 8] of the generic kernel's signed recoding of
+    the 4-bit windows ``k_w`` (recode_carries / recode_digit); the carry out
+    of the top window is dropped."""
+    w = np.asarray(k_w, np.int64) & 15
+    digits = np.empty_like(w)
+    carry = np.zeros(w.shape[0], np.int64)
+    for j in range(w.shape[1]):
+        t = w[:, j] + carry
+        carry = (t > 8).astype(np.int64)
+        digits[:, j] = t - 16 * carry
+    return digits
+
+
+def generic_lane_ops(k_w: torch.Tensor, ok: torch.Tensor) -> np.ndarray:
+    """(B, 2) field squarings and multiplies each lane of the generic kernel
+    does on these inputs (none where ok is clear): decompress A, 8-entry
+    table (one cached conversion, then 7 adds of 8 and 7 conversions of 1
+    multiply), 64 windows of 4 doublings (4 squarings and 3 multiplies, +1
+    for T in the fourth when a non-zero digit or the combine reads it), an add
+    of 7 multiplies (+1 in the last window) for each non-zero digit and a
+    Niels add of 7; the combine (9) and the compare."""
+    nonzero = (signed_digits(k_w.cpu().numpy()) != 0).sum(axis=1)
+    sq = _DECOMPRESS_OPS[0] + 64 * 16 + _MATCH_OPS[0]
+    mul = _DECOMPRESS_OPS[1] + 1 + 7 * 9 + 64 * (9 + 3 + 7) + 8 * nonzero + 1 + 9 + _MATCH_OPS[1]
+    live = ok.cpu().numpy().astype(np.int64)
+    return np.stack([sq * live, mul * live], axis=1)
 
 
 # ---------------------------------------------------------------------------
@@ -221,6 +270,14 @@ def verify_keyed_plain(tile_keys, acomb, r_y, r_sign, s_w, k_w, ok, tile: int):
         acc = E.point_madd(acc, (sel[:, 0], sel[:, 1], sel[:, 2]))
     out[live] = E._matches_r(acc, r_y, r_sign)
     return out
+
+
+def keyed_lane_ops(ok: torch.Tensor) -> np.ndarray:
+    """(B, 2) field squarings and multiplies each lane of the keyed kernel
+    does (none where ok is clear): 128 Niels adds of 7 multiplies and the
+    compare."""
+    live = ok.cpu().numpy().astype(np.int64)
+    return np.stack([_MATCH_OPS[0] * live, (128 * 7 + _MATCH_OPS[1]) * live], axis=1)
 
 
 def verify_keyed(tile_keys, acomb, r_y, r_sign, s_w, k_w, ok, tile: int = KEYED_TILE):
