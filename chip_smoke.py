@@ -10,19 +10,27 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    committee (BASELINE config 4), holds the kernel against its plain PyTorch
    version on the card, lane for lane, over the seven case classes (valid,
    corrupt R, corrupt s, corrupt message, wrong key, non-canonical s,
-   corrupt pk); checks the verdicts against the labels the cases were built
-   with and a sample against the Ed25519 oracle; times kernel and plain
-   version with CUDA events.  The generic kernel is also held to its plain
-   version and timed on 256 lanes (the collector's flush) and on one lane.
-   The tolerance is zero: every output is an integer or a bit, so "equal"
-   means equal on every element.
-3. Drives the main path with every launch count at 0: the signed blocks of a
-   50-authority committee over 20 rounds (some tampered) are serialized,
-   decoded, checked with ``verify_structure`` and verified through the
-   node's verifier (``_make_verifier("cuda-only")``); then one committee
-   dispatch of 15,000 signatures (one 16,384-lane bucket) with a few
-   unknown-key stragglers.
-   Verdicts must equal the oracle's.
+   corrupt pk) with the keys in random order; checks the verdicts against
+   the labels the cases were built with and a sample against the Ed25519
+   oracle; times kernel and plain version with CUDA events (each timed run
+   queued behind a spin of the card, so a time is the device's alone).  The
+   prologue, the generic kernel and the keyed kernel's lane form (one key
+   per lane, as the committee dispatch runs it) are also held to their plain
+   versions and timed on 256 lanes (the collector's flush) and on one lane;
+   the keyed kernel's tile form (lanes grouped 32 to a key) at 16,384.  The
+   keyed plain version reads the 13-bit key combs, the kernel the 51-bit
+   lines converted from them.  Then the device time of one 256-signature
+   flush of the committee: the prologue and the keyed lane form.  The
+   tolerance is zero: every output is an integer or a bit, so "equal" means
+   equal on every element.
+3. Drives the main path: the signed blocks of a 50-authority committee over
+   20 rounds (some tampered) are serialized, decoded, checked with
+   ``verify_structure`` and verified through the node's verifier
+   (``_make_verifier("cuda-only")``); then one committee dispatch of 15,000
+   signatures (one 16,384-lane bucket) with a few unknown-key stragglers.
+   Verdicts must equal the oracle's.  The block path must launch the keyed
+   kernel and never the generic one; the committee dispatch the keyed
+   kernel once and the generic one once (the stragglers).
 4. Flat keyed upload: the 15,000-signature grouped chunk of step 2 as the
    flat layout (96 B per signature plus one ok bit), through
    ``verify_keyed_flat``; ``prologue_flat`` must equal its plain version on
@@ -37,17 +45,19 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (the CPU/GPU router); verdicts must equal the oracle's, at least one
    batch must take the GPU route and the breaker must end closed.  Prints
    the router's calibration and how many batches took each route.
-Each path of steps 3-6 runs with every launch count set to 0 just before it
-and read just after; every kernel must have launched on some path.
+Each path of steps 3-6 (the block path and the committee dispatch of step 3
+apart) runs with every launch count set to 0 just before it and read just
+after; every kernel must have launched on some path.
 7. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or when any
 phase fails.
 
-``python3 chip_smoke.py --generic-only [CHECKOUT]`` runs only the generic
-kernel's part of step 2, optionally on the port of CHECKOUT, a directory
-inside this checkout (see ``generic_only``).
+``python3 chip_smoke.py --times NAMES [CHECKOUT]`` runs only the readings of
+step 2 that NAMES lists (``all``, or some of prologue, verify_generic,
+verify_keyed, verify_keyed_lanes, flush), optionally on the port of
+CHECKOUT, a directory inside this checkout (see ``kernel_times``).
 """
 from __future__ import annotations
 
@@ -91,6 +101,21 @@ INT_MULS_PER_FIELD_SQ = 36
 # One SHA-512 compression in 32-bit integer instructions with funnel shifts
 # and three-input logic: 80 rounds x 36 + 64 schedule steps x 22.
 SHA512_INT_OPS = 80 * 36 + 64 * 22
+# A reduction of the 512-bit digest mod L (2^252 < L < 2^253) needs at least
+# the folds by 2^252 = -c (mod L), c < 2^125 (four 32-bit words): the top 260
+# bits times c (9 x 4 32-bit products), the top 133 bits of what is left
+# times c (5 x 4), then the last 7 bits (1 x 4).  Charged whichever design
+# the kernel runs.
+MOD_L_INT_OPS = 9 * 4 + 5 * 4 + 1 * 4
+PROLOGUE_INT_OPS = SHA512_INT_OPS + MOD_L_INT_OPS
+# The collector's flush (block_validator.BatchedSignatureVerifier).
+FLUSH = 256
+# Cycles the card spins before a timed run, so the host has enqueued the run
+# before the start event executes: a time is then the device's alone, with
+# no host gap inside it (about 2 ms at the card's clock).
+BUSY_CYCLES = 4_000_000
+# What `--times` measures.
+TIMED = ("prologue", "verify_generic", "verify_keyed", "verify_keyed_lanes", "flush")
 
 
 class SmokeFailure(Exception):
@@ -152,7 +177,9 @@ def sign_cases(signers, n_lanes: int, rng: random.Random, classes=CLASSES, strag
 
 
 def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events."""
+    """Median milliseconds of ``fn`` over ``reps`` runs, CUDA events, each
+    run enqueued behind BUSY_CYCLES of spinning (a run that waits for the
+    host, as an upload does, still counts the host's time)."""
     import torch
 
     fn()
@@ -161,6 +188,7 @@ def cuda_ms(fn, reps: int) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(BUSY_CYCLES)
         start.record()
         fn()
         end.record()
@@ -231,10 +259,47 @@ def oracle(pk: bytes, msg: bytes, sig: bytes) -> bool:
         return False
 
 
+def readings(kernel, plain, args_at, reps: int = 10):
+    """``kernel`` against ``plain`` on ``args_at`` ({lanes: args} at BUCKET,
+    FLUSH and 1 lanes): the largest difference over the three, the kernel's
+    time at each and the plain version's at BUCKET."""
+    err = 0
+    for args in args_at.values():
+        got, want = kernel(*args), plain(*args)
+        err = max(err, max_abs_err(*([x] if hasattr(x, "shape") else list(x) for x in (got, want))))
+    return dict(max_abs_err=err, ms=cuda_ms(lambda: kernel(*args_at[BUCKET]), reps),
+                plain_ms=cuda_ms(lambda: plain(*args_at[BUCKET]), 1),
+                ms_at_256_lanes=cuda_ms(lambda: kernel(*args_at[FLUSH]), reps),
+                ms_at_1_lane=cuda_ms(lambda: kernel(*args_at[1]), reps))
+
+
+def lane_sizes(args, lane: int, keep=()):
+    """{BUCKET: args, FLUSH: their first FLUSH lanes, 1: lane ``lane``};
+    the arguments at the positions ``keep`` stay whole."""
+    def cut(sl):
+        return tuple(a if i in keep else a[sl] for i, a in enumerate(args))
+    return {BUCKET: tuple(args), FLUSH: cut(slice(0, FLUSH)), 1: cut(slice(lane, lane + 1))}
+
+
+def key_combs(table):
+    """The key combs the keyed kernel of the imported port reads: the 51-bit
+    lines, or the 13-bit combs of a port from before they existed."""
+    return table.neg_combs51() if hasattr(table, "neg_combs51") else table.neg_combs()[0]
+
+
+def prologue_readings(indexed, words):
+    """The prologue on the indexed blob ``indexed`` (BUCKET lanes) and its
+    first FLUSH lanes and one lane, against its plain version."""
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    return readings(K.prologue, K._prologue_plain, lane_sizes((indexed, words), 0, keep=(1,)),
+                    reps=20)
+
+
 def generic_readings(k_raw, expected):
     """The generic kernel against its plain version on the prologue outputs
-    ``k_raw`` (BUCKET lanes), on their first 256 lanes and on one live lane;
-    its times at those three sizes."""
+    ``k_raw`` (BUCKET lanes), on their first FLUSH lanes and on one live
+    lane; its times at those three sizes."""
     import numpy as np
     import torch
 
@@ -242,26 +307,18 @@ def generic_readings(k_raw, expected):
     from mysticeti_tpu_torch.ops import ed25519_cuda as K
 
     got = K.verify_generic(*k_raw)
-    err = max_abs_err([got], [E.verify_impl(*k_raw)])
     check(np.array_equal(got.cpu().numpy(), expected), "generic kernel disagrees with the labels")
-    # The collector's flush size (256 signatures), and one lane: every lane
-    # runs the whole ladder serially, so one lane is the latency floor.
-    head = [t[:256] for t in k_raw]
+    # Every lane runs the whole ladder serially, so one lane is the latency floor.
     lane = int(torch.nonzero(k_raw[-1])[0])
-    one = [t[lane : lane + 1] for t in k_raw]
-    for part in (head, one):
-        err = max(err, max_abs_err([K.verify_generic(*part)], [E.verify_impl(*part)]))
-    check(err == 0, "generic kernel differs from its plain version")
-    ms = cuda_ms(lambda: K.verify_generic(*k_raw), 5)
-    ms_256 = cuda_ms(lambda: K.verify_generic(*head), 5)
-    ms_1 = cuda_ms(lambda: K.verify_generic(*one), 10)
-    plain_ms = cuda_ms(lambda: E.verify_impl(*k_raw), 1)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, ms_at_256_lanes=ms_256,
-                ms_at_1_lane=ms_1)
+    r = readings(K.verify_generic, E.verify_impl, lane_sizes(k_raw, lane), reps=5)
+    check(r["max_abs_err"] == 0, "generic kernel differs from its plain version")
+    return r
 
 
-def kernel_phase(signers, table, rng, report):
-    """Each kernel against its plain version at BUCKET lanes, on the card."""
+def keyed_tile_readings(table, pks, msgs, sigs, expected):
+    """The tile form of the keyed kernel on the known-key lanes grouped into
+    32-lane tiles (the JAX package's layout), against its plain version on
+    the 13-bit combs.  Returns the reading and the grouped chunk."""
     import numpy as np
     import torch
 
@@ -269,8 +326,101 @@ def kernel_phase(signers, table, rng, report):
     from mysticeti_tpu_torch.ops import ed25519_cuda as K
 
     dev = table.device
+    idx = table.indices_for(pks)
+    sel = np.flatnonzero(idx >= 0)[:KEYED_LANES]
+    blob = E.pack_blob_indexed(idx[sel], [msgs[i] for i in sel], [sigs[i] for i in sel],
+                               num_keys=len(table))
+    grouping = E.group_blob_for_tiles(blob, len(table), K.KEYED_TILE, BUCKET)
+    check(grouping is not None, "keyed lanes do not fit the bucket")
+    grouped, tile_keys, positions = grouping
+    outs = K.prologue(E.to_device_words(grouped, dev), table.words)
+    tile_keys = torch.as_tensor(tile_keys, device=dev)
+    args = (tile_keys, key_combs(table), *outs[2:])
+    got = K.verify_keyed(*args)
+    err = max_abs_err([got], [K.verify_keyed_plain(tile_keys, table.neg_combs()[0], *outs[2:],
+                                                   tile=K.KEYED_TILE)])
+    check(err == 0, "keyed kernel (tile form) differs from its plain version")
+    check(np.array_equal(got.cpu().numpy()[positions], expected[sel]),
+          "keyed kernel (tile form) disagrees with the labels")
+    r = dict(max_abs_err=err, ms=cuda_ms(lambda: K.verify_keyed(*args), 10),
+             plain_ms=cuda_ms(lambda: K.verify_keyed_plain(*args, tile=K.KEYED_TILE), 1))
+    return r, (grouped, tile_keys.cpu().numpy(), positions, expected[sel]), (args, outs)
+
+
+def keyed_lane_readings(table, indexed, expected):
+    """The lane form of the keyed kernel on the prologue of the indexed blob
+    ``indexed`` (BUCKET lanes, keys in random order), against its plain
+    version on the 13-bit combs, at BUCKET, FLUSH and 1 lanes."""
+    import numpy as np
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    outs = K.prologue(indexed, table.words)
+    keys = indexed[:, 24].contiguous()
+    acomb13 = table.neg_combs()[0]
+    got = K.verify_keyed_lanes(keys, table.neg_combs51(), *outs[2:])
+    check(np.array_equal(got.cpu().numpy(), expected), "keyed kernel (lane form) disagrees with the labels")
+    lane = int(torch.nonzero(outs[-1])[0])
+    return readings(lambda k, *rest: K.verify_keyed_lanes(k, table.neg_combs51(), *rest),
+                    lambda k, *rest: K.verify_keyed_plain(k, acomb13, *rest, tile=1),
+                    lane_sizes((keys, *outs[2:]), lane))
+
+
+def flush_reading(table, pks, msgs, sigs, expected, kernels):
+    """Device time of the work the committee dispatch launches for one
+    FLUSH-signature chunk of committee keys, uploaded beforehand: the
+    prologue and the keyed lane form (the generic kernel in a port from
+    before the lane form).  The launches must be the dispatch's own."""
+    import numpy as np
+
+    from mysticeti_tpu_torch.ops import ed25519 as E
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    idx = table.indices_for(pks)
+    sel = np.flatnonzero(idx >= 0)[:FLUSH]
+    chunk = E.pack_blob_indexed(idx[sel], [msgs[i] for i in sel], [sigs[i] for i in sel],
+                                num_keys=len(table))
+    padded = E.to_device_words(chunk, table.device)
+    if hasattr(E, "keyed_chunk_on_device"):
+        def device_work():
+            return E.keyed_chunk_on_device(padded, table)
+    else:  # the generic branch of dispatch_indexed_chunks
+        def device_work():
+            return K.verify_generic(*K.prologue(padded, table.words))
+
+    def launched(fn):
+        for k in kernels:
+            k.reset_counts()
+        out = fn()
+        return {k.name: k.launches for k in kernels if k.launches}, out
+
+    by_dispatch, handles = launched(lambda: E.dispatch_indexed_chunks(chunk, table))
+    timed, out = launched(device_work)
+    check(timed == by_dispatch, f"the timed flush launches {timed}, the dispatch {by_dispatch}")
+    check(np.array_equal(E.fetch_handles(handles), expected[sel]), "flush verdicts disagree with the labels")
+    check(np.array_equal(out.cpu().numpy(), expected[sel]), "timed flush disagrees with the labels")
+    return dict(signatures=len(sel), keys=len(set(idx[sel].tolist())), launches=timed,
+                ms=cuda_ms(device_work, 10))
+
+
+def shuffled_lanes(signers, rng):
+    """BUCKET lanes of the seven case classes with the keys in random order."""
     lanes = sign_cases(signers, BUCKET, rng)
+    rng.shuffle(lanes)
     pks, msgs, sigs, labels = (list(x) for x in zip(*lanes))
+    return pks, msgs, sigs, labels
+
+
+def kernel_phase(signers, table, rng, report):
+    """Each kernel against its plain version at BUCKET lanes, on the card."""
+    import numpy as np
+
+    from mysticeti_tpu_torch.ops import ed25519 as E
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    dev = table.device
+    pks, msgs, sigs, labels = shuffled_lanes(signers, rng)
     expected = np.array([c == "valid" for c in labels])
     sample = rng.sample(range(BUCKET), ORACLE_SAMPLE)
     check(all(oracle(pks[i], msgs[i], sigs[i]) == expected[i] for i in sample),
@@ -282,14 +432,12 @@ def kernel_phase(signers, table, rng, report):
     indexed = E.to_device_words(E.pack_blob_indexed(idx, msgs, sigs, num_keys=len(table)), dev)
     k_raw = K.prologue(raw)
     err = max_abs_err(k_raw, K._prologue_plain(raw, None))
-    err = max(err, max_abs_err(K.prologue(indexed, table.words),
-                               K._prologue_plain(indexed, table.words)))
+    r = report["prologue"] = prologue_readings(indexed, table.words)
+    r["max_abs_err"] = err = max(err, r["max_abs_err"])
     check(err == 0, f"prologue differs from its plain version (max abs err {err})")
-    ms = cuda_ms(lambda: K.prologue(indexed, table.words), 20)
-    plain_ms = cuda_ms(lambda: K._prologue_plain(indexed, table.words), 2)
     out_bytes = nbytes(*K.prologue(indexed, table.words))
-    b_ms, b_by = bound(BUCKET * SHA512_INT_OPS, nbytes(indexed, table.words) + out_bytes)
-    report["prologue"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by)
+    r["bound_ms"], r["bound_by"] = bound(BUCKET * PROLOGUE_INT_OPS,
+                                         nbytes(indexed, table.words) + out_bytes)
 
     # The generic bound: the squarings and multiplies its lanes do on this
     # run's k (a zero digit adds nothing), and the 51-bit comb it reads.
@@ -308,37 +456,30 @@ def kernel_phase(signers, table, rng, report):
     r["plain_field_muls_per_lane"] = plain_muls
     r["block_threads"], r["dynamic_smem_bytes"] = K.generic_launch_shape()
 
-    # Keyed tiles: every lane of a tile shares one of the 50 keys.
-    # The keyed kernel serves committee keys: its chunk holds the known-key
-    # lanes (unknown keys ride the generic kernel).
-    sel = np.flatnonzero(idx >= 0)[:KEYED_LANES]
-    blob = E.pack_blob_indexed(idx[sel], [msgs[i] for i in sel], [sigs[i] for i in sel],
-                               num_keys=len(table))
-    grouping = E.group_blob_for_tiles(blob, len(table), K.KEYED_TILE, BUCKET)
-    check(grouping is not None, "keyed lanes do not fit the bucket")
-    grouped, tile_keys, positions = grouping
-    outs = K.prologue(E.to_device_words(grouped, dev), table.words)
-    tile_keys = torch.as_tensor(tile_keys, device=dev)
-    acomb, _ = table.neg_combs()
-    args = (tile_keys, acomb, *outs[2:])
-    got = K.verify_keyed(*args)
-    want = K.verify_keyed_plain(*args, tile=K.KEYED_TILE)
-    err = max_abs_err([got], [want])
-    check(err == 0, "keyed kernel differs from its plain version")
-    check(np.array_equal(got.cpu().numpy()[positions], expected[sel]),
-          "keyed kernel disagrees with the labels")
-    ms = cuda_ms(lambda: K.verify_keyed(*args), 10)
-    plain_ms = cuda_ms(lambda: K.verify_keyed_plain(*args, tile=K.KEYED_TILE), 1)
+    # Keyed, tile form: the known-key lanes grouped, every 32-lane tile under
+    # one of the 50 keys (unknown keys ride the generic kernel).  Then the
+    # lane form, as the committee dispatch runs it: every lane in random key
+    # order under its own key (unknown keys with ok clear).  Its bound: the
+    # lanes' field operations and the 51-bit combs it reads.
+    r, keyed_chunk, (args, outs) = keyed_tile_readings(table, pks, msgs, sigs, expected)
+    lanes = keyed_lane_readings(table, indexed, expected)
+    check(lanes["max_abs_err"] == 0, "keyed kernel (lane form) differs from its plain version")
+    r["max_abs_err"] = max(r["max_abs_err"], lanes["max_abs_err"])
+    r["lane_form_ms"], r["lane_form_plain_ms"] = lanes["ms"], lanes["plain_ms"]
+    r["ms_at_256_lanes"], r["ms_at_1_lane"] = lanes["ms_at_256_lanes"], lanes["ms_at_1_lane"]
     lane_ops = K.keyed_lane_ops(outs[-1])
-    b_ms, b_by = bound(int_products(lane_ops),
-                       nbytes(tile_keys, acomb, *outs[2:], E.base_comb(dev), got))
+    r["bound_ms"], r["bound_by"] = bound(
+        int_products(lane_ops),
+        nbytes(args[0], table.neg_combs51(), *outs[2:], E.base_comb51(dev)) + verdict_bytes)
     live = int(outs[-1].sum())
-    report["verify_keyed"] = dict(
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        field_ops_per_lane=dict(zip(("squarings", "multiplies"), (lane_ops.sum(axis=0) / live).tolist())))
-    print(f"kernel phase: {BUCKET} lanes x {len(CLASSES)} classes, prologue, generic and keyed "
-          f"kernels equal their plain versions; {ORACLE_SAMPLE} lanes held to the oracle", flush=True)
-    return grouped, tile_keys.cpu().numpy(), positions, expected[sel]
+    r["field_ops_per_lane"] = dict(zip(("squarings", "multiplies"), (lane_ops.sum(axis=0) / live).tolist()))
+    report["verify_keyed"] = r
+    report["flush"] = flush_reading(table, pks, msgs, sigs, expected, K.KERNELS)
+    print(f"kernel phase: {BUCKET} lanes x {len(CLASSES)} classes in random key order, prologue, "
+          f"generic and keyed (tile and lane forms) kernels equal their plain versions; "
+          f"{ORACLE_SAMPLE} lanes held to the oracle; a {FLUSH}-signature flush takes "
+          f"{report['flush']['ms']:.3f} ms of device time", flush=True)
+    return keyed_chunk
 
 
 def build_blocks(signers, rng):
@@ -370,8 +511,9 @@ def build_blocks(signers, rng):
 
 def main_path(signers, committee, rng, kernels):
     """The node's verify path, then one committee dispatch of BUCKET lanes.
-    Returns the launch counts, the dispatch rate, the blocks with the
-    oracle's verdicts, and the committee burst's lanes."""
+    Returns the launch counts of each ({"block": ..., "committee": ...}),
+    the dispatch rate, the blocks with the oracle's verdicts, and the
+    committee burst's lanes."""
     import numpy as np
 
     from mysticeti_tpu_torch.types import StatementBlock
@@ -388,6 +530,7 @@ def main_path(signers, committee, rng, kernels):
     t0 = time.monotonic()
     verdicts = asyncio.run(verifier.verify_blocks(blocks))
     block_s = time.monotonic() - t0
+    launches = {"block": {k.name: k.launches for k in kernels}}
     want = [oracle(committee.get_public_key(b.author()).bytes, b.signed_digest(), b.signature)
             for b in blocks]
     check(verdicts == want, "block verdicts differ from the oracle's")
@@ -402,12 +545,14 @@ def main_path(signers, committee, rng, kernels):
     backend = verifier.verifier  # TorchSignatureVerifier: dispatch_batch_table
     check(sum(pk not in set(committee.public_key_bytes()) for pk in pks) == STRAGGLERS,
           "straggler count")
+    for k in kernels:
+        k.reset_counts()
     got = np.asarray(backend.verify_signatures_async(pks, msgs, sigs).result())
+    launches["committee"] = {k.name: k.launches for k in kernels}
     check(np.array_equal(got, expected), "committee dispatch disagrees with the labels")
     sample = rng.sample(range(KEYED_LANES), 100)
     check(all(oracle(pks[i], msgs[i], sigs[i]) == got[i] for i in sample),
           "committee dispatch disagrees with the oracle")
-    launches = {k.name: k.launches for k in kernels}
     runs = []
     for _ in range(3):
         t0 = time.monotonic()
@@ -430,7 +575,7 @@ def flat_phase(table, keyed_chunk, kernels, report):
 
     grouped, tile_keys, positions, expected = keyed_chunk
     dev = table.device
-    acomb, _ = table.neg_combs()
+    acomb = table.neg_combs51()
     flat = E.pack_flat(grouped)
     for k in kernels:
         k.reset_counts()
@@ -450,9 +595,17 @@ def flat_phase(table, keyed_chunk, kernels, report):
 
     ms = cuda_ms(lambda: K.prologue_flat(flat_dev, table.words, tk), 20)
     plain_ms = cuda_ms(lambda: K._prologue_flat_plain(flat_dev, table.words, tk, K.KEYED_TILE), 1)
-    b_ms, b_by = bound(BUCKET * SHA512_INT_OPS, nbytes(flat_dev, table.words, tk, *outs))
+    # At the flush's size and at one lane: the first FLUSH lanes are whole
+    # tiles, and their ok bits the first words of the mask.
+    head = torch.cat([flat_dev[: FLUSH * 24], flat_dev[BUCKET * 24 : BUCKET * 24 + FLUSH // 32]])
+    tk_head = tk[: FLUSH // K.KEYED_TILE].contiguous()
+    ms_256 = cuda_ms(lambda: K.prologue_flat(head, table.words, tk_head), 20)
+    b_ms, b_by = bound(BUCKET * PROLOGUE_INT_OPS, nbytes(flat_dev, table.words, tk, *outs))
+    err = max(err, max_abs_err(K.prologue_flat(head, table.words, tk_head),
+                               K._prologue_flat_plain(head, table.words, tk_head, K.KEYED_TILE)))
+    check(err == 0, f"prologue_flat differs from its plain version at {FLUSH} lanes")
     report["prologue_flat"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                                   bound_by=b_by)
+                                   bound_by=b_by, ms_at_256_lanes=ms_256)
 
     # Host-to-device copy + prologue + keyed kernel, the two layouts in turns.
     def flat_path():
@@ -581,6 +734,20 @@ def hybrid_phase(committee, blocks_and_want, kernels):
     return launches, reading
 
 
+def build_and_report(K, cuda_build) -> None:
+    """Build every kernel source (one nvcc each, in parallel); print the
+    build time and ptxas's register, stack and spill lines."""
+    t0 = time.monotonic()
+    K.build_all()
+    units = sorted({k.unit for k in K.KERNELS})
+    print(f"build: {time.monotonic() - t0:.1f} s for {len(K.KERNELS)} kernels in {len(units)} "
+          f"sources, one nvcc each in parallel", flush=True)
+    for name, log in sorted(cuda_build.ptxas_reports.items()):
+        for line in log.splitlines():
+            if "Used" in line or "stack" in line or "spill" in line or "Compiling" in line:
+                print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}", flush=True)
+
+
 def run() -> int:
     try:
         import torch
@@ -601,15 +768,7 @@ def run() -> int:
         return 2
 
     print(card_line(), flush=True)
-    t0 = time.monotonic()
-    K.build_all()
-    units = sorted({k.unit for k in K.KERNELS})
-    print(f"build: {time.monotonic() - t0:.1f} s for {len(K.KERNELS)} kernels in {len(units)} "
-          f"sources, one nvcc each in parallel", flush=True)
-    for name, log in sorted(cuda_build.ptxas_reports.items()):
-        for line in log.splitlines():
-            if "Used" in line or "stack" in line or "spill" in line:
-                print(f"ptxas {name}: {line.split(':', 1)[-1].strip()}", flush=True)
+    build_and_report(K, cuda_build)
 
     rng = random.Random(SEED)
     committee = Committee.new_for_benchmarks(COMMITTEE)
@@ -618,15 +777,22 @@ def run() -> int:
     table = E.KeyTable(committee.public_key_bytes(), device=dev)
     report = {}
     keyed_chunk = kernel_phase(signers, table, rng, report)
-    by_path = {}
-    by_path["main"], rate, blocks_and_want, burst = main_path(signers, committee, rng, K.KERNELS)
+    by_path, rate, blocks_and_want, burst = main_path(signers, committee, rng, K.KERNELS)
     by_path["flat_keyed"], layout = flat_phase(table, keyed_chunk, K.KERNELS, report)
     by_path["sharded"], sharded = sharded_phase(table, burst, rng, K.KERNELS)
     by_path["hybrid"], hybrid = hybrid_phase(committee, blocks_and_want, K.KERNELS)
-    for name in ("prologue", "verify_generic", "verify_keyed"):
-        check(by_path["main"][name] > 0, f"{name} was not launched on the main path")
+    # The block path's flushes take the keyed kernel, one key per lane, and
+    # never the generic one; the committee dispatch's 8 stragglers take the
+    # generic kernel once.
+    block, burst_counts = by_path["block"], by_path["committee"]
+    check(block["prologue"] > 0 and block["verify_keyed"] > 0,
+          f"the block path did not take the prologue and the keyed kernel: {block}")
+    check(block["verify_generic"] == 0, f"the block path launched the generic kernel: {block}")
+    check(burst_counts["verify_keyed"] == 1 and burst_counts["verify_generic"] == 1,
+          f"the committee dispatch did not take one keyed and one generic launch: {burst_counts}")
     check(by_path["flat_keyed"]["prologue_flat"] > 0, "prologue_flat was not launched")
     check(by_path["sharded"]["verify_generic"] > 0, "the sharded path launched no kernel")
+    check(by_path["hybrid"]["verify_generic"] == 0, "the hybrid block path launched the generic kernel")
 
     rows = []
     for k in K.KERNELS:
@@ -639,13 +805,14 @@ def run() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": None,
             **{key: r[key] for key in ("field_ops_per_lane", "ms_at_256_lanes", "ms_at_1_lane",
+                                       "lane_form_ms", "lane_form_plain_ms",
                                        "bound_ms_plain_formulas", "plain_field_muls_per_lane",
                                        "block_threads", "dynamic_smem_bytes") if key in r},
         })
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"e2e_sig_per_s": rate, "signatures": KEYED_LANES, "bucket": BUCKET,
-                      "committee": COMMITTEE, "flat_vs_26col": layout, "sharded": sharded,
-                      "hybrid": hybrid}), flush=True)
+                      "committee": COMMITTEE, "flush": report["flush"], "flat_vs_26col": layout,
+                      "sharded": sharded, "hybrid": hybrid}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -680,15 +847,21 @@ def sharded_only() -> int:
     return 0
 
 
-def generic_only(root=None) -> int:
-    """The generic kernel alone, against its plain version and timed at
-    BUCKET, 256 and 1 lanes: ``python3 chip_smoke.py --generic-only [ROOT]``.
-    ROOT, a directory inside this checkout (an unpacked earlier commit),
-    holds a port that is imported instead of this one's, so two versions of
-    the kernel can be timed in turns in one call."""
+def kernel_times(which: str = "all", root=None) -> int:
+    """Kernels alone, each held to its plain version and timed at BUCKET,
+    FLUSH and 1 lanes, and the device time of one FLUSH-signature committee
+    flush: ``python3 chip_smoke.py --times NAMES [ROOT]``, NAMES ``all`` or
+    a comma-separated list of TIMED.  ROOT, a directory inside this checkout
+    (an unpacked earlier commit), holds a port that is imported instead of
+    this one's, so two versions can be timed in turns in one call; a part
+    that port lacks (the keyed lane form before it existed) is null."""
     import numpy as np
     import torch
 
+    names = TIMED if which == "all" else tuple(which.split(","))
+    if not set(names) <= set(TIMED):
+        print(f"chip_smoke: --times takes 'all' or names from {TIMED}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -704,18 +877,33 @@ def generic_only(root=None) -> int:
     from mysticeti_tpu_torch.ops import ed25519_cuda as K
 
     print(card_line(), flush=True)
-    K.build_all()
-    for line in cuda_build.ptxas_reports.get(K.VERIFY_GENERIC.unit, "").splitlines():
-        if "Used" in line or "stack" in line or "spill" in line:
-            print(f"ptxas {K.VERIFY_GENERIC.unit}: {line.split(':', 1)[-1].strip()}", flush=True)
+    build_and_report(K, cuda_build)
     rng = random.Random(SEED)
+    committee = Committee.new_for_benchmarks(COMMITTEE)
     signers = Committee.benchmark_signers(COMMITTEE)
-    lanes = sign_cases(signers, BUCKET, rng)
-    pks, msgs, sigs, labels = (list(x) for x in zip(*lanes))
-    k_raw = K.prologue(E.to_device_words(E.pack_blob(pks, msgs, sigs), E.resolve_device(None)))
-    reading = generic_readings(k_raw, np.array([c == "valid" for c in labels]))
-    print(json.dumps({"verify_generic": reading, "package": os.path.dirname(E.__file__)}),
-          flush=True)
+    dev = E.resolve_device(None)
+    table = E.KeyTable(committee.public_key_bytes(), device=dev)
+    pks, msgs, sigs, labels = shuffled_lanes(signers, rng)
+    expected = np.array([c == "valid" for c in labels])
+    indexed = E.to_device_words(
+        E.pack_blob_indexed(table.indices_for(pks), msgs, sigs, num_keys=len(table)), dev)
+    times = {}
+    if "prologue" in names:
+        times["prologue"] = prologue_readings(indexed, table.words)
+    if "verify_generic" in names:
+        k_raw = K.prologue(E.to_device_words(E.pack_blob(pks, msgs, sigs), dev))
+        times["verify_generic"] = generic_readings(k_raw, expected)
+    if "verify_keyed" in names:
+        times["verify_keyed"] = keyed_tile_readings(table, pks, msgs, sigs, expected)[0]
+    if "verify_keyed_lanes" in names:
+        times["verify_keyed_lanes"] = (keyed_lane_readings(table, indexed, expected)
+                                       if hasattr(K, "verify_keyed_lanes") else None)
+    if "flush" in names:
+        times["flush"] = flush_reading(table, pks, msgs, sigs, expected, K.KERNELS)
+    for name, r in times.items():
+        check(r is None or r.get("max_abs_err", 0) == 0, f"{name} differs from its plain version")
+    print(json.dumps({"times": times, "package": os.path.dirname(E.__file__),
+                      "card": card_line()}), flush=True)
     return 0
 
 
@@ -728,6 +916,6 @@ def main(entry=run, *args) -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--generic-only"]:
-        sys.exit(main(generic_only, *sys.argv[2:3]))
+    if sys.argv[1:2] == ["--times"]:
+        sys.exit(main(kernel_times, *sys.argv[2:4]))
     sys.exit(main())

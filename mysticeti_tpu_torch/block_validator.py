@@ -183,7 +183,7 @@ class TorchSignatureVerifier(SignatureVerifier):
         dummy = bytes(32)
         self.verify_signatures([dummy], [dummy], [bytes(64)])
         if self._table is not None:
-            self._table.neg_combs()
+            self._table.neg_combs51()
             if len(self._table) > 1:
                 pks = list(self._table._keys)
                 self.verify_signatures(pks, [dummy] * len(pks), [bytes(64)] * len(pks))

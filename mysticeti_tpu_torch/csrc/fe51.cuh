@@ -6,8 +6,8 @@
 // and 64-bit adds, so a field multiply here is 25 wide products instead of
 // 400 narrow ones.  The kernels' inputs and outputs stay in the 13-bit limb
 // layout of the port's public functions; fe_from13 converts at the boundary.
-// The generic kernel's base comb comes in 51-bit limbs (gn_load51), the
-// keyed kernel's combs in 13-bit limbs (gn_load).
+// The combs the kernels read (the base comb, the keyed kernel's key combs)
+// come in 51-bit limbs, one 128-byte line per entry (gn_load51).
 //
 // Invariant ("carried"): every fe handed to a public function below has limbs
 // < 2^52.  fe_add/fe_sub/fe_mul return carried values.
@@ -265,16 +265,6 @@ HD ge ge_double(const ge& p, bool want_t = true) {
   ge r; r.X = fe_mul(e, f); r.Y = fe_mul(g, h); r.Z = fe_mul(f, g);
   r.T = want_t ? fe_mul(e, h) : fe_zero();
   return r;
-}
-
-// One Niels entry of a comb laid out (..., 3, 20, 16) int32: coordinate c,
-// limb l, entry v at base[(c * 20 + l) * 16 + v].
-HD gn gn_load(const int32_t* base, int v) {
-  gn q;
-  q.ymx = fe_from13(base + v, 16);
-  q.ypx = fe_from13(base + 20 * 16 + v, 16);
-  q.t2d = fe_from13(base + 2 * 20 * 16 + v, 16);
-  return q;
 }
 
 // One Niels entry of a 51-bit comb: 16 uint64 (ymx[5] ypx[5] t2d[5], one pad

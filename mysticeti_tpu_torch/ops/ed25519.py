@@ -472,17 +472,23 @@ def _build_niels_comb() -> np.ndarray:
     return out
 
 
-def _build_comb51(comb13: np.ndarray) -> np.ndarray:
-    """(64, 16, 16) int64 (uint64 bits): the Niels comb ``comb13`` (64, 3, 20,
-    16) in 5 x 51-bit limbs, one 128-byte line per (window, entry): ymx[5]
-    ypx[5] t2d[5] and a zero pad limb.  An exact conversion of the values."""
-    out = np.zeros((_WINDOWS, 16, 16), np.int64)
-    for w in range(_WINDOWS):
-        for v in range(16):
-            for c in range(3):
-                x = F.limbs_to_int(comb13[w, c, :, v])
-                out[w, v, 5 * c : 5 * c + 5] = [(x >> (51 * l)) & ((1 << 51) - 1) for l in range(5)]
-    return out
+def comb51_from13(comb13: np.ndarray) -> np.ndarray:
+    """(..., 16, 16) int64 (uint64 bits): Niels combs ``comb13`` (..., 3, 20,
+    16) in 5 x 51-bit limbs, one 128-byte line per entry: ymx[5] ypx[5]
+    t2d[5] and a zero pad limb.  An exact conversion of values below 2^255
+    in 13-bit limbs (every comb entry is canonical, below p); the kernels
+    read this layout with fe51.cuh's gn_load51."""
+    limbs = np.asarray(comb13, np.int64)
+    lines = np.zeros(limbs.shape[:-3] + (16, 16), np.int64)
+    mask = (1 << 51) - 1
+    for c in range(3):
+        for i in range(F.NLIMBS):
+            x = limbs[..., c, i, :]  # (..., 16): limb i of every entry
+            q, sh = divmod(13 * i, 51)
+            lines[..., 5 * c + q] |= (x << sh) & mask
+            if sh + 13 > 51 and q + 1 < 5:
+                lines[..., 5 * c + q + 1] |= x >> (51 - sh)
+    return lines
 
 
 @functools.lru_cache(maxsize=None)
@@ -492,7 +498,7 @@ def _niels_comb_host() -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _comb51_host() -> np.ndarray:
-    return _build_comb51(_niels_comb_host())
+    return comb51_from13(_niels_comb_host())
 
 
 _base_combs: dict = {}  # (host comb function, torch.device) -> the comb tensor there
@@ -516,8 +522,8 @@ def base_comb(device) -> torch.Tensor:
 
 
 def base_comb51(device) -> torch.Tensor:
-    """The (64, 16, 16) int64 base comb of the generic kernel on ``device``
-    (see _build_comb51)."""
+    """The (64, 16, 16) int64 base comb of the verify kernels on ``device``
+    (see comb51_from13)."""
     return _comb_on(_comb51_host, device)
 
 
@@ -650,8 +656,10 @@ class KeyTable:
     table's device; ``words_on`` gives a copy on another device (a sharded
     dispatch needs one on every card).  ``indices_for`` maps raw pk bytes to
     rows; unknown keys map to -1.
-    ``neg_combs`` lazily builds the per-key negated combs for the keyed
-    kernel (see build_neg_key_combs)."""
+    ``neg_combs`` lazily builds the per-key negated combs (see
+    build_neg_key_combs) in 13-bit limbs, the JAX package's layout that
+    ``from_arrays`` carries across; ``neg_combs51`` converts them once to the
+    51-bit lines the keyed kernel reads."""
 
     def __init__(self, public_keys: Sequence[bytes], device=None) -> None:
         if not public_keys:
@@ -665,7 +673,8 @@ class KeyTable:
         self._index = {bytes(pk): i for i, pk in enumerate(public_keys)}
         self._keys = [bytes(pk) for pk in public_keys]
         self._neg_combs: Optional[Tuple[torch.Tensor, np.ndarray]] = None
-        self._combs_lock = threading.Lock()  # the build takes seconds: once
+        self._neg_combs51: Optional[torch.Tensor] = None
+        self._combs_lock = threading.RLock()  # the build takes seconds: once
 
     @classmethod
     def from_arrays(cls, words: np.ndarray, combs: np.ndarray, valid: np.ndarray,
@@ -712,6 +721,15 @@ class KeyTable:
                 self._neg_combs = (torch.as_tensor(arr, device=self.device), valid)
             return self._neg_combs
 
+    def neg_combs51(self) -> torch.Tensor:
+        """The device (K, 64, 16, 16) int64 combs of ``neg_combs`` in 51-bit
+        lines (comb51_from13), built on first use."""
+        with self._combs_lock:
+            if self._neg_combs51 is None:
+                comb13 = self.neg_combs()[0].cpu().numpy()
+                self._neg_combs51 = torch.as_tensor(comb51_from13(comb13), device=self.device)
+            return self._neg_combs51
+
 
 # ---------------------------------------------------------------------------
 # Bucketed dispatch
@@ -752,7 +770,7 @@ class VerifyDispatch:
     """Future-like handle over one batch's in-flight bucket dispatches.
 
     The kernels were queued on the device's stream when this was built;
-    ``result()`` pays ONE copy back to the host (``fetch_handles``).
+    ``result()`` pays ONE copy back to the host per device (``fetch_handles``).
     ``patches`` carries straggler sub-dispatches (unknown-key items through
     the generic kernel): ``(row indices, VerifyDispatch)`` pairs whose
     results overwrite those rows."""
@@ -784,22 +802,18 @@ def _to_host(parts: Sequence[torch.Tensor]) -> np.ndarray:
 
 
 def fetch_handles(handles) -> np.ndarray:
-    """Force ``(count, result[, positions])`` chunk entries with one copy to
-    the host per device; drop padding and un-permute grouped-order keyed
-    results (positions maps original row -> grouped row).  A result is a
-    bool tensor, or the list of a sharded chunk's per-shard tensors in
-    batch order."""
+    """Force ``(count, result)`` chunk entries with one copy to the host per
+    device and drop the padding.  A result is a bool tensor, or the list of
+    a sharded chunk's per-shard tensors in batch order."""
     if not handles:
         return np.zeros(0, bool)
-    parts = [p for e in handles for p in (e[1] if isinstance(e[1], list) else [e[1]])]
+    parts = [p for _, h in handles for p in (h if isinstance(h, list) else [h])]
     flat = _to_host(parts)
-    out = np.empty(sum(e[0] for e in handles), bool)
+    out = np.empty(sum(count for count, _ in handles), bool)
     src = dst = 0
-    for entry in handles:
-        count, h = entry[0], entry[1]
+    for count, h in handles:
         width = sum(t.shape[0] for t in h) if isinstance(h, list) else h.shape[0]
-        chunk = flat[src : src + width]
-        out[dst : dst + count] = chunk[entry[2]] if len(entry) > 2 else chunk[:count]
+        out[dst : dst + count] = flat[src : src + count]
         src += width
         dst += count
     return out
@@ -842,50 +856,40 @@ def dispatch_batch(
     return VerifyDispatch(handles)
 
 
-def _dispatch_indexed_keyed(chunk: np.ndarray, table: KeyTable, bucket: int):
-    """Keyed-tile dispatch (no doublings, no A decompression); returns None
-    when the per-key tile padding does not fit the bucket (callers take the
-    generic kernel)."""
+def keyed_chunk_on_device(padded: torch.Tensor, table: KeyTable) -> torch.Tensor:
+    """The device work of one keyed chunk: ``padded`` is an uploaded indexed
+    blob (pack_blob_indexed layout, a bucket's rows); its key column is the
+    lanes' keys, in natural order.  Lanes under an off-curve committee key
+    must arrive with ok cleared (``dispatch_indexed_chunks`` clears them)."""
     from . import ed25519_cuda as K
 
-    tile = min(K.KEYED_TILE, bucket)
-    acomb, valid = table.neg_combs()
-    if not valid.all():
-        # Lanes under an off-curve committee key must reject exactly like the
-        # generic kernel's decompression failure.
-        chunk = chunk.copy()
-        keyv = np.clip(chunk[:, 24].astype(np.int64), 0, len(valid) - 1)
-        chunk[:, 25] &= valid[keyv]
-    g = group_blob_for_tiles(chunk, len(table), tile, bucket)
-    if g is None:
-        return None
-    grouped, tile_keys, positions = g
-    _a_y, _a_sign, r_y, r_sign, s_w, k_w, ok = K.prologue(
-        to_device_words(grouped, table.device), table.words
-    )
-    tile_keys = torch.as_tensor(tile_keys, device=table.device)
-    return K.verify_keyed(tile_keys, acomb, r_y, r_sign, s_w, k_w, ok, tile), positions
+    _a_y, _a_sign, r_y, r_sign, s_w, k_w, ok = K.prologue(padded, table.words)
+    keys = padded[:, 24].contiguous()
+    return K.verify_keyed_lanes(keys, table.neg_combs51(), r_y, r_sign, s_w, k_w, ok)
 
 
 def dispatch_indexed_chunks(blob: np.ndarray, table: KeyTable) -> list:
     """Bucket-shaped dispatch of an indexed blob (pack_blob_indexed layout);
-    returns fetch_handles entries — ``(count, out)`` for generic chunks,
-    ``(count, out, positions)`` for keyed-tile chunks, whose results come
-    back in GROUPED order.  Each chunk takes the keyed kernel when its
-    per-key grouping fits the bucket, else the generic one.
-    MYSTICETI_KEYED=0 disables the keyed path."""
+    returns fetch_handles entries.  Every chunk takes the prologue and the
+    keyed kernel with one key per lane (the blob's key column, no grouping);
+    MYSTICETI_KEYED=0 sends them to the generic kernel instead."""
     from . import ed25519_cuda as K
 
     keyed = os.environ.get("MYSTICETI_KEYED") != "0"
+    valid = table.neg_combs()[1] if keyed else None
     handles = []
     for start, count, b in iter_buckets(blob.shape[0]):
         chunk = blob[start : start + count]
-        hp = _dispatch_indexed_keyed(chunk, table, b) if keyed else None
-        if hp is None:
-            padded = to_device_words(_pad_to(chunk, b), table.device)
-            handles.append((count, K.verify_generic(*K.prologue(padded, table.words))))
+        if keyed and not valid.all():
+            # Lanes under an off-curve committee key must reject exactly like
+            # the generic kernel's decompression failure.
+            chunk = chunk.copy()
+            chunk[:, 25] &= valid[np.clip(chunk[:, 24].astype(np.int64), 0, len(valid) - 1)]
+        padded = to_device_words(_pad_to(chunk, b), table.device)
+        if keyed:
+            handles.append((count, keyed_chunk_on_device(padded, table)))
         else:
-            handles.append((count, *hp))
+            handles.append((count, K.verify_generic(*K.prologue(padded, table.words))))
     return handles
 
 

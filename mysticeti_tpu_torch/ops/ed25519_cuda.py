@@ -13,8 +13,12 @@ wrapper             CUDA source (csrc/)                    replaces
 ``verify_keyed``    verify_keyed.cu (+ fe51.cuh)           ed25519_pallas._verify_keyed_pallas_jit
 ==================  =====================================  ==============================
 
-``verify_keyed_flat`` (``prologue_flat`` + ``verify_keyed``) is the
-counterpart of ``ed25519_pallas.verify_keyed_flat``.
+``verify_keyed`` (the tile form: lanes grouped by key, ``tile`` lanes a
+key) is the counterpart of the TPU kernel; ``verify_keyed_lanes`` (one key
+per lane, in natural order) runs the same kernel with a tile of one lane,
+and is what the committee dispatch launches.  ``verify_keyed_flat``
+(``prologue_flat`` + ``verify_keyed``) is the counterpart of
+``ed25519_pallas.verify_keyed_flat``.
 
 Every wrapper takes its plain PyTorch version for tensors on the CPU and
 launches its kernel for tensors on a CUDA device; there is no fallback from
@@ -36,7 +40,7 @@ import torch
 from . import cuda_build
 from . import ed25519 as E
 
-# Lanes per keyed tile: one warp, one CUDA block per committee key tile.
+# Lanes per key in the tile form (the TPU kernel's tile).
 KEYED_TILE = 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -249,25 +253,49 @@ def generic_lane_ops(k_w: torch.Tensor, ok: torch.Tensor) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
-# Keyed-tile verify
+# Keyed verify
 
 
-def verify_keyed_plain(tile_keys, acomb, r_y, r_sign, s_w, k_w, ok, tile: int):
+def _limbs13_from51(w5: torch.Tensor) -> torch.Tensor:
+    """(B, 5) 51-bit limbs -> (B, 20) int32 13-bit limbs of the same value
+    (below 2^255)."""
+    limbs = []
+    for i in range(20):
+        q, sh = divmod(13 * i, 51)
+        x = w5[:, q] >> sh
+        if sh + 13 > 51 and q + 1 < 5:
+            x = x | (w5[:, q + 1] << (51 - sh))
+        limbs.append(x & 0x1FFF)
+    return torch.stack(limbs, dim=1).to(torch.int32)
+
+
+def _comb_entries(acomb, key, i: int, v):
+    """Niels entries (ymx, ypx, t2d) of comb window ``i`` at entries ``v``
+    of the keys ``key``, each (B, 20) limbs; ``acomb`` in either layout."""
+    if acomb.dim() == 5:  # 13-bit limbs (K, 64, 3, 20, 16)
+        sel = acomb[key, i, :, :, v.long()]  # (B, 3, 20)
+        return sel[:, 0], sel[:, 1], sel[:, 2]
+    line = acomb[key, i, v.long()]  # (B, 16): ymx[5] ypx[5] t2d[5] pad
+    return tuple(_limbs13_from51(line[:, 5 * c : 5 * c + 5]) for c in range(3))
+
+
+def verify_keyed_plain(keys, acomb, r_y, r_sign, s_w, k_w, ok, tile: int):
     """The plain version of the keyed kernel: 128 Niels mixed adds per lane,
-    64 from the base comb and 64 from the lane's key comb.  Only lanes with
-    ok set are computed."""
+    64 from the base comb and 64 from its key's comb, lane i's key
+    ``keys[i // tile]`` (clipped to [0, K)).  ``acomb`` is the 13-bit
+    (K, 64, 3, 20, 16) comb or the kernel's 51-bit (K, 64, 16, 16) one.
+    Only lanes with ok set are computed."""
     out = torch.zeros_like(ok)
     live = torch.nonzero(ok).flatten()
     if live.numel() == 0:
         return out
-    key = tile_keys.long().clamp(0, acomb.shape[0] - 1).repeat_interleave(tile)[live]
+    key = keys.long().clamp(0, acomb.shape[0] - 1).repeat_interleave(tile)[live]
     r_y, r_sign, s_w, k_w = (t[live] for t in (r_y, r_sign, s_w, k_w))
     comb = E.base_comb(r_y.device)
     acc = E._identity_like(r_y)
     for i in range(64):
         acc = E.point_madd(acc, E._gather_comb(comb[i], s_w[:, i]))
-        sel = acomb[key, i, :, :, k_w[:, i].long()]  # (B, 3, 20)
-        acc = E.point_madd(acc, (sel[:, 0], sel[:, 1], sel[:, 2]))
+        acc = E.point_madd(acc, _comb_entries(acomb, key, i, k_w[:, i]))
     out[live] = E._matches_r(acc, r_y, r_sign)
     return out
 
@@ -280,28 +308,44 @@ def keyed_lane_ops(ok: torch.Tensor) -> np.ndarray:
     return np.stack([_MATCH_OPS[0] * live, (128 * 7 + _MATCH_OPS[1]) * live], axis=1)
 
 
-def verify_keyed(tile_keys, acomb, r_y, r_sign, s_w, k_w, ok, tile: int = KEYED_TILE):
-    """(B,) bool verdicts in GROUPED order: lanes [t*tile, (t+1)*tile) are
-    verified against key ``tile_keys[t]``'s negated comb ``acomb`` (K, 64, 3,
-    20, 16).  Lanes under an invalid key must arrive with ok cleared."""
+def _verify_keyed(keys, acomb, r_y, r_sign, s_w, k_w, ok, tile: int):
     n = r_y.shape[0]
-    if tile <= 0 or n % tile != 0:
-        raise ValueError(f"batch {n} not a multiple of tile {tile}")
-    _check(tile_keys, torch.int32, (n // tile,), "tile_keys")
-    _check(acomb, torch.int32, (acomb.shape[0], 64, 3, 20, 16), "key combs")
     _check_lanes(n, r_y, r_sign, s_w, k_w, ok)
-    if not _on_cuda(tile_keys, acomb, r_y, r_sign, s_w, k_w, ok):
-        return verify_keyed_plain(tile_keys, acomb, r_y, r_sign, s_w, k_w, ok, tile)
-    if tile > 1024:
-        raise ValueError(f"tile {tile} exceeds a CUDA block")
-    comb = E.base_comb(r_y.device)
+    if acomb.dim() == 5:
+        _check(acomb, torch.int32, (acomb.shape[0], 64, 3, 20, 16), "key combs")
+    else:
+        _check(acomb, torch.int64, (acomb.shape[0], 64, 16, 16), "key combs")
+    if not _on_cuda(keys, acomb, r_y, r_sign, s_w, k_w, ok):
+        return verify_keyed_plain(keys, acomb, r_y, r_sign, s_w, k_w, ok, tile)
+    if acomb.dim() == 5:
+        raise ValueError("the keyed kernel reads 51-bit combs (KeyTable.neg_combs51)")
+    comb = E.base_comb51(r_y.device)
     out = torch.empty(n, dtype=torch.bool, device=r_y.device)
     VERIFY_KEYED.launch(
-        r_y.device, n, comb.data_ptr(), acomb.data_ptr(), tile_keys.data_ptr(), r_y.data_ptr(),
+        r_y.device, n, comb.data_ptr(), acomb.data_ptr(), keys.data_ptr(), r_y.data_ptr(),
         r_sign.data_ptr(), s_w.data_ptr(), k_w.data_ptr(), ok.data_ptr(),
         out.data_ptr(), n, tile, acomb.shape[0],
     )
     return out
+
+
+def verify_keyed(tile_keys, acomb, r_y, r_sign, s_w, k_w, ok, tile: int = KEYED_TILE):
+    """(B,) bool verdicts in GROUPED order: lanes [t*tile, (t+1)*tile) are
+    verified against key ``tile_keys[t]``'s negated comb ``acomb``
+    (``KeyTable.neg_combs51``; the plain version also takes the 13-bit
+    ``neg_combs``).  Lanes under an invalid key must arrive with ok cleared."""
+    n = r_y.shape[0]
+    if tile <= 0 or n % tile != 0:
+        raise ValueError(f"batch {n} not a multiple of tile {tile}")
+    _check(tile_keys, torch.int32, (n // tile,), "tile_keys")
+    return _verify_keyed(tile_keys, acomb, r_y, r_sign, s_w, k_w, ok, tile)
+
+
+def verify_keyed_lanes(keys, acomb, r_y, r_sign, s_w, k_w, ok):
+    """(B,) bool verdicts in natural order: lane i is verified against key
+    ``keys[i]`` (int32, clipped to [0, K)); otherwise as ``verify_keyed``."""
+    _check(keys, torch.int32, (r_y.shape[0],), "keys")
+    return _verify_keyed(keys, acomb, r_y, r_sign, s_w, k_w, ok, 1)
 
 
 # ---------------------------------------------------------------------------
@@ -357,7 +401,8 @@ def prologue_flat(flat, table, tile_keys, tile: int = KEYED_TILE):
 
 def verify_keyed_flat(flat, table_words, acomb, tile_keys, tile: int = KEYED_TILE):
     """Keyed-tile verification of a grouped flat upload (see
-    ``prologue_flat``); returns (B,) bool in GROUPED order (callers
-    un-permute on the host with the grouping's positions)."""
+    ``prologue_flat``; ``acomb`` as ``verify_keyed`` takes it); returns (B,)
+    bool in GROUPED order (callers un-permute on the host with the
+    grouping's positions)."""
     _a_y, _a_sign, r_y, r_sign, s_w, k_w, ok = prologue_flat(flat, table_words, tile_keys, tile)
     return verify_keyed(tile_keys, acomb, r_y, r_sign, s_w, k_w, ok, tile)

@@ -66,11 +66,18 @@ def test_generic_and_keyed_match_oracle_on_case_classes():
 
 def test_keyed_rejects_lanes_under_an_invalid_committee_key():
     raw, pks, msgs, sigs, _ = _cases(8, 4, n_keys=2)
-    bad = (E.P + 2).to_bytes(32, "little")
-    table = E.KeyTable(raw + [bad], device="cpu")
-    blob = E.pack_blob_indexed(np.array([0, 1, 2, 2]), msgs, sigs, num_keys=3)
+    bad = (E.P + 2).to_bytes(32, "little")  # non-canonical: the prologue rejects it
+    # Canonical but off the curve: only the dispatch's valid mask rejects it.
+    # Its comb holds zero entries; a mixed add of one takes any sum to
+    # (0 : 0 : Z : 0), which every later add keeps, so a signature with the
+    # all-zero R (y = 0, x = 0) would verify under it.
+    off_curve = next(y for y in range(2, 100) if E._recover_x(y, 0) is None)
+    table = E.KeyTable(raw + [bad, off_curve.to_bytes(32, "little")], device="cpu")
+    forged = bytes(64)
+    blob = E.pack_blob_indexed(np.array([0, 1, 2, 2, 3]), msgs + [msgs[0]], sigs + [forged],
+                               num_keys=4)
     got = E.fetch_handles(E.dispatch_indexed_chunks(blob, table))
-    assert got[2:].tolist() == [False, False]
+    assert got[2:].tolist() == [False, False, False]
     assert got[0] == _oracle(pks[:1], msgs[:1], sigs[:1])[0]
 
 
@@ -87,14 +94,31 @@ def test_carried_key_table_verifies_like_a_built_one():
     )
 
 
+def count_calls(monkeypatch, *names):
+    """Wrap the ``ed25519_cuda`` functions ``names``; returns the live
+    {name: calls} counts."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        fn = getattr(K, name)
+
+        def counted(*args, _fn=fn, _name=name, **kwargs):
+            calls[_name] += 1
+            return _fn(*args, **kwargs)
+
+        monkeypatch.setattr(K, name, counted)
+    return calls
+
+
 def test_keyed_switch_off_takes_the_generic_kernel(monkeypatch):
     raw, pks, msgs, sigs, _ = _cases(10, 3, n_keys=3)
     table = E.KeyTable(raw, device="cpu")
     blob = E.pack_blob_indexed(table.indices_for(pks), msgs, sigs, num_keys=3)
+    calls = count_calls(monkeypatch, "verify_keyed_lanes", "verify_generic")
     keyed = E.dispatch_indexed_chunks(blob, table)
+    assert calls == {"verify_keyed_lanes": 1, "verify_generic": 0}
     monkeypatch.setenv("MYSTICETI_KEYED", "0")
     generic = E.dispatch_indexed_chunks(blob, table)
-    assert len(keyed[0]) == 3 and len(generic[0]) == 2  # positions only when keyed
+    assert calls == {"verify_keyed_lanes": 1, "verify_generic": 1}
     np.testing.assert_array_equal(E.fetch_handles(keyed), E.fetch_handles(generic))
 
 
@@ -152,5 +176,5 @@ def test_plain_keyed_equals_pallas_keyed():
     want = np.asarray(JP.verify_keyed_blob(
         grouped, JE.pk_table_words(raw), combs, tile_keys, None, tile=8, interpret=True))
     outs = K.prologue(E.to_device_words(grouped, "cpu"), table.words)
-    got = K.verify_keyed(torch.as_tensor(tile_keys), table.neg_combs()[0], *outs[2:], tile=8)
+    got = K.verify_keyed(torch.as_tensor(tile_keys), table.neg_combs51(), *outs[2:], tile=8)
     np.testing.assert_array_equal(got.numpy(), want)

@@ -89,17 +89,24 @@ extern "C" void host_recode(const int32_t* k_w, int32_t* digits, int32_t* top, i
   }
 }
 
-extern "C" void host_keyed(const int32_t* comb, const int32_t* acomb, const int32_t* tile_keys,
+// Lane i's key is keys[i / tile] (tile = 1: one key per lane), clipped as
+// the kernel clips it.
+extern "C" void host_keyed(const uint64_t* comb51, const uint64_t* acomb51, const int32_t* keys,
                            const int32_t* r_y, const int32_t* r_sign, const int32_t* s_w,
                            const int32_t* k_w, const uint8_t* ok, uint8_t* out, int n,
-                           int tile, int64_t* ops) {
+                           int tile, int num_keys, int64_t* ops) {
   for (int i = 0; i < n; i++) {
     const long long sqs = fe_sqs, muls = fe_muls;
-    out[i] = ok[i] && verify_keyed_lane(comb, acomb + (size_t)tile_keys[i / tile] * 64 * 3 * 20 * 16,
+    out[i] = ok[i] && verify_keyed_lane(comb51, keyed_lane_comb(acomb51, keys, tile, num_keys, i),
                                         r_y + 20 * i, r_sign[i], s_w + 64 * i, k_w + 64 * i);
     ops[2 * i] = fe_sqs - sqs;
     ops[2 * i + 1] = fe_muls - muls;
   }
+}
+
+// x (n, 8) little-endian u64 words of 512-bit values -> r (n, 4) = x mod L.
+extern "C" void host_mod_l(const uint64_t* x, uint64_t* r, int n) {
+  for (int i = 0; i < n; i++) mod_l_512(x + 8 * i, r + 4 * i);
 }
 """
 
@@ -176,6 +183,37 @@ def _digit_cases():
         msgs.append(msg)
         sigs.append(sig)
     return pks, msgs, sigs
+
+
+def _mod_l_cases():
+    """Edge values of a reduction mod L, then random 512-bit values."""
+    L, c = E.L, E.L - (1 << 252)
+    xs = [0, 1, L - 1, L, L + 1, 2 * L - 1, 2 * L, 3 * L - 1, (1 << 252) - 1, 1 << 252,
+          (1 << 253) - 1, (1 << 256) - 1, 1 << 256, (1 << 512) - 1, (1 << 511),
+          ((1 << 512) - 1) // L * L, ((1 << 512) - 1) // L * L - 1, (1 << 448) * L]
+    # Around 2^252 k for k up to 2^260: x = 2^252 k is congruent to -c k.
+    for k in (1, 2, (1 << 128) - 1, (1 << 259) + 12345, (1 << 260) - 1):
+        xs += [(k << 252) - 1, k << 252, (k << 252) + c * k % L, (k << 252) + L - c * k % L]
+    xs += [m * L + r for m in (1, 1 << 100, (1 << 259) - 1) for r in (0, 1, L - 1)]
+    rng = np.random.default_rng(28)
+    xs += [int.from_bytes(rng.bytes(64), "little") for _ in range(400)]
+    xs += [int.from_bytes(rng.bytes(64), "little") >> int(rng.integers(0, 512)) for _ in range(100)]
+    return [x for x in xs if 0 <= x < 1 << 512]
+
+
+def test_mod_l_reduction_equals_python_modulo(lib):
+    xs = _mod_l_cases()
+    # The Barrett quotient of mod_l_512 is exact or one below floor(x / L);
+    # both kinds must be among the cases (the second takes the subtract).
+    mu = (1 << 512) // E.L
+    low = [x // E.L - ((x >> 192) * mu >> 320) for x in xs]
+    assert set(low) == {0, 1}
+    words = np.array([[(x >> (64 * j)) & ((1 << 64) - 1) for j in range(8)] for x in xs],
+                     dtype=np.uint64)
+    got = np.zeros((len(xs), 4), np.uint64)
+    lib.host_mod_l(_ptr(words), _ptr(got), ctypes.c_int(len(xs)))
+    for x, row in zip(xs, got):
+        assert sum(int(w) << (64 * j) for j, w in enumerate(row)) == x % E.L, hex(x)
 
 
 def test_prologue_lanes_equal_the_plain_prologue(lib):
@@ -332,6 +370,9 @@ def test_lane_op_counts_are_the_bound_model(lib):
     outs = K.prologue(E.to_device_words(grouped, "cpu"), table.words)
     _, ops = _host_keyed(lib, table, tile_keys, outs)
     np.testing.assert_array_equal(ops, K.keyed_lane_ops(outs[6]))
+    outs = K.prologue(E.to_device_words(blob, "cpu"), table.words)
+    _, ops = _host_keyed(lib, table, blob[:, 24].astype(np.int32), outs, tile=1)
+    np.testing.assert_array_equal(ops, K.keyed_lane_ops(outs[6]))
 
 
 def test_comb51_holds_the_13_bit_comb_entry_by_entry():
@@ -348,17 +389,18 @@ def test_comb51_holds_the_13_bit_comb_entry_by_entry():
                 assert got % E.P == want % E.P
 
 
-def _host_keyed(lib, table, tile_keys, outs, tile=8):
-    """The keyed lane on the host: (verdicts, (n, 2) field squarings and
-    multiplies of each lane)."""
-    acomb, _ = table.neg_combs()
+def _host_keyed(lib, table, keys, outs, tile=8):
+    """The keyed lane on the 51-bit combs on the host, lane i under key
+    ``keys[i // tile]``: (verdicts, (n, 2) field squarings and multiplies
+    of each lane)."""
+    keys = np.ascontiguousarray(keys, np.int32)
     arrays = [t.numpy().astype(np.uint8) if t.dtype == torch.bool else t.numpy() for t in outs[2:]]
     n = arrays[0].shape[0]
     got = np.zeros(n, np.uint8)
     ops = np.zeros((n, 2), np.int64)
-    lib.host_keyed(_ptr(E.base_comb("cpu").numpy()), _ptr(acomb.numpy()), _ptr(tile_keys),
-                   *[_ptr(a) for a in arrays], _ptr(got), ctypes.c_int(n), ctypes.c_int(tile),
-                   _ptr(ops))
+    lib.host_keyed(_ptr(E.base_comb51("cpu").numpy()), _ptr(table.neg_combs51().numpy()),
+                   _ptr(keys), *[_ptr(a) for a in arrays], _ptr(got), ctypes.c_int(n),
+                   ctypes.c_int(tile), ctypes.c_int(len(table)), _ptr(ops))
     return got.astype(bool), ops
 
 
@@ -370,7 +412,40 @@ def test_keyed_lanes_equal_the_plain_keyed_verify(lib):
     blob = E.pack_blob_indexed(idx, msgs, sigs, num_keys=len(table))
     grouped, tile_keys, _ = E.group_blob_for_tiles(blob, len(table), 8, 64)
     outs = K.prologue(E.to_device_words(grouped, "cpu"), table.words)
-    acomb, _ = table.neg_combs()
-    want = K.verify_keyed(torch.as_tensor(tile_keys), acomb, *outs[2:], tile=8).numpy()
+    want = K.verify_keyed(torch.as_tensor(tile_keys), table.neg_combs51(), *outs[2:],
+                          tile=8).numpy()
+    np.testing.assert_array_equal(
+        want, K.verify_keyed(torch.as_tensor(tile_keys), table.neg_combs()[0], *outs[2:],
+                             tile=8).numpy())
     got, _ = _host_keyed(lib, table, tile_keys, outs)
     np.testing.assert_array_equal(got, want)
+    assert want.any()
+
+
+def test_keyed_lanes_take_one_key_per_lane(lib):
+    """The lane form: keys mixed lane by lane in natural order, a key of -1
+    and one of K (clipped to 0 and K-1), lanes under an invalid committee
+    key with ok cleared; against the plain version and the oracle."""
+    raw, pks, msgs, sigs, labels = _cases(29, 30, n_keys=3)
+    bad = (E.P + 3).to_bytes(32, "little")
+    table = E.KeyTable(raw[:2] + [bad] + raw[2:], device="cpu")  # key 2 is invalid
+    idx = table.indices_for(pks)
+    known = idx >= 0
+    valid = np.array([label == "valid" for label in labels])
+    first, last = np.flatnonzero((idx == 0) & valid)[0], np.flatnonzero((idx == 3) & valid)[0]
+    under_bad = np.flatnonzero(known)[-2:]
+    blob = E.pack_blob_indexed(idx, msgs, sigs, num_keys=len(table))  # unknown: ok clear
+    blob[under_bad, 24] = 2
+    blob[under_bad, 25] = 0  # the dispatch clears ok under an invalid key
+    outs = K.prologue(E.to_device_words(blob, "cpu"), table.words)
+    keys = blob[:, 24].astype(np.int32)
+    keys[first], keys[last] = -1, len(table)
+    assert len(set(keys[:8].tolist())) > 2  # keys vary lane by lane
+    want = K.verify_keyed_lanes(torch.as_tensor(keys), table.neg_combs51(), *outs[2:]).numpy()
+    got, _ = _host_keyed(lib, table, keys, outs, tile=1)
+    np.testing.assert_array_equal(got, want)
+    oracle = _oracle(pks, msgs, sigs)
+    oracle[~known] = False  # unknown keys ride the generic patch, not this kernel
+    oracle[under_bad] = False
+    np.testing.assert_array_equal(want, oracle)
+    assert want[first] and want[last] and want.sum() >= 4

@@ -53,7 +53,7 @@ def test_plain_prologue_flat_equals_the_indexed_prologue():
 
 def test_plain_verify_keyed_flat_equals_the_grouped_keyed_path_and_the_labels():
     table, grouped, tile_keys, positions, (pks, msgs, sigs, labels) = _grouped(32)
-    acomb, _ = table.neg_combs()
+    acomb = table.neg_combs51()
     tk = torch.as_tensor(tile_keys)
     outs = K.prologue(E.to_device_words(grouped, "cpu"), table.words)
     want = K.verify_keyed(tk, acomb, *outs[2:], tile=TILE).numpy()
@@ -68,7 +68,7 @@ def test_plain_verify_keyed_flat_equals_the_grouped_keyed_path_and_the_labels():
 @pytest.mark.parametrize("case", ["ragged_batch", "short_upload", "long_upload"])
 def test_flat_upload_errors_as_jax_raises_them(case):
     table, grouped, tile_keys, _, _ = _grouped(33)
-    acomb, _ = table.neg_combs()
+    acomb = table.neg_combs51()
     flat = E.to_device_words(E.pack_flat(grouped), "cpu")
     tk = torch.as_tensor(tile_keys)
     if case == "ragged_batch":  # 7 tiles of 8 lanes: 56 lanes, not a multiple of 32
@@ -96,6 +96,6 @@ def test_plain_verify_keyed_flat_equals_pallas_verify_keyed_flat():
     flat = np.concatenate([grouped[:, :24].reshape(-1), okmask])
     want = np.asarray(JP.verify_keyed_flat(flat, JE.pk_table_words(raw), combs, tile_keys,
                                            tile=TILE, interpret=True))
-    got = K.verify_keyed_flat(E.to_device_words(flat, "cpu"), table.words, table.neg_combs()[0],
+    got = K.verify_keyed_flat(E.to_device_words(flat, "cpu"), table.words, table.neg_combs51(),
                               torch.as_tensor(tile_keys), tile=TILE)
     np.testing.assert_array_equal(got.numpy(), want)
