@@ -45,10 +45,29 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    (the CPU/GPU router); verdicts must equal the oracle's, at least one
    batch must take the GPU route and the breaker must end closed.  Prints
    the router's calibration and how many batches took each route.
-Each path of steps 3-6 (the block path and the committee dispatch of step 3
+7. Entry: ``mysticeti_tpu_torch.entry.entry()`` on the card, its 8 verdicts
+   all True and the oracle's; a copy with a bit flipped in R, A, M or s
+   gives the oracle's verdicts.  Then ``dryrun_multichip(4)`` over the cards
+   there are (4 shards on one card).
+8. Service: a ``VerifierServer`` on a unix socket under ``build/``, in a
+   thread, its backend on ``cuda:0`` and prewarmed; the blocks of step 3
+   through ``_make_verifier("cuda-only")`` and then ``("cuda")`` with
+   ``MYSTICETI_VERIFIER_SOCKET`` set.  Verdicts must equal the oracle's,
+   HELLO_OK must carry a calibration and "cuda", the server must launch the
+   keyed kernel and never the generic one, and the hybrid router must not
+   be pinned to the CPU.
+9. Metrics: the block path of step 3 runs with a ``metrics.Metrics`` and a
+   span tracer; prints the pack, device and fetch stage seconds (sums and
+   counts), the bytes moved each way, the kernels' build hits and misses,
+   and checks the Chrome trace written under ``build/`` has the
+   ``verify_*`` spans.
+10. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
+   workers, 8 iterations, 2 trials and a 30 s budget; its JSON line must
+   come from rung 0 with a value above 0.
+Each path of steps 3-8 (the block path and the committee dispatch of step 3
 apart) runs with every launch count set to 0 just before it and read just
 after; every kernel must have launched on some path.
-7. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+11. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or when any
@@ -116,6 +135,9 @@ FLUSH = 256
 BUSY_CYCLES = 4_000_000
 # What `--times` measures.
 TIMED = ("prologue", "verify_generic", "verify_keyed", "verify_keyed_lanes", "flush")
+# The bench child: a short run of the benchmark's real shape.
+BENCH_ENV = {"BENCH_PROCS": "2", "BENCH_ITERS": "8", "BENCH_TRIALS": "2", "BENCH_MAX_S": "30"}
+HERE = os.path.dirname(os.path.abspath(__file__))
 
 
 class SmokeFailure(Exception):
@@ -509,28 +531,38 @@ def build_blocks(signers, rng):
     return raws
 
 
-def main_path(signers, committee, rng, kernels):
+def main_path(signers, committee, rng, kernels, metrics):
     """The node's verify path, then one committee dispatch of BUCKET lanes.
-    Returns the launch counts of each ({"block": ..., "committee": ...}),
-    the dispatch rate, the blocks with the oracle's verdicts, and the
-    committee burst's lanes."""
+    The block path runs with ``metrics`` and a span tracer (``metrics_line``
+    reads them).  Returns the launch counts of each ({"block": ...,
+    "committee": ...}), the dispatch and block rates, the blocks with the
+    oracle's verdicts, the committee burst's lanes and the block path's
+    metrics reading."""
     import numpy as np
 
+    from mysticeti_tpu_torch import spans
     from mysticeti_tpu_torch.types import StatementBlock
     from mysticeti_tpu_torch.validator import ACCELERATOR_KIND, _make_verifier
 
     raws = build_blocks(signers, rng)
-    verifier = _make_verifier(ACCELERATOR_KIND, committee)
+    verifier = _make_verifier(ACCELERATOR_KIND, committee, metrics=metrics)
     check(verifier.ready.wait(300), "verifier warmup did not finish")
     blocks = [StatementBlock.from_bytes(r) for r in raws]
     for b in blocks:
         b.verify_structure(committee)
+    moved_before = transfer_bytes(metrics)
+    tracer = spans.SpanTracer()
+    previous = spans.install(tracer)
     for k in kernels:
         k.reset_counts()
     t0 = time.monotonic()
-    verdicts = asyncio.run(verifier.verify_blocks(blocks))
+    try:
+        verdicts = asyncio.run(verifier.verify_blocks(blocks))
+    finally:
+        spans.install(previous)
     block_s = time.monotonic() - t0
     launches = {"block": {k.name: k.launches for k in kernels}}
+    reading = metrics_line(metrics, moved_before, tracer, len(blocks))
     want = [oracle(committee.get_public_key(b.author()).bytes, b.signed_digest(), b.signature)
             for b in blocks]
     check(verdicts == want, "block verdicts differ from the oracle's")
@@ -561,7 +593,50 @@ def main_path(signers, committee, rng, kernels):
     rate = KEYED_LANES / statistics.median(runs)
     print(f"committee dispatch: {KEYED_LANES} signatures in one {BUCKET}-lane bucket ({STRAGGLERS} unknown-key stragglers), "
           f"end to end {rate:.0f} sig/s (median of 3, host pack included)", flush=True)
-    return launches, rate, (raws, want), (pks, msgs, sigs, expected)
+    return (launches, {"committee_sig_per_s": rate, "block_per_s": len(blocks) / block_s},
+            (raws, want), (pks, msgs, sigs, expected), reading)
+
+
+def transfer_bytes(metrics) -> dict:
+    get = metrics.registry.get_sample_value
+    return {d: get("mysticeti_device_transfer_bytes_total", {"direction": d}) or 0.0
+            for d in ("to_device", "from_device")}
+
+
+def metrics_line(metrics, moved_before, tracer, n_blocks) -> dict:
+    """The block path's stage seconds and transfers, the run's kernel builds,
+    and its Chrome trace written under build/ and read back; printed as one
+    ``{"metrics": ...}`` line."""
+    from mysticeti_tpu_torch import spans
+
+    get = metrics.registry.get_sample_value
+    stages = {}
+    for stage in ("pack", "device", "fetch"):
+        labels = {"stage": stage}
+        stages[stage] = {"sum_s": get("verify_pipeline_stage_seconds_sum", labels),
+                         "count": get("verify_pipeline_stage_seconds_count", labels)}
+        check(stages[stage]["count"], f"no {stage} stage seconds were observed")
+    moved = {d: v - moved_before[d] for d, v in transfer_bytes(metrics).items()}
+    check(moved["to_device"] > 0 and moved["from_device"] > 0, f"no transfer bytes counted: {moved}")
+    builds = {name: get(f"mysticeti_cuda_{name}_total") for name in
+              ("builds", "build_seconds", "build_cache_hits", "build_cache_misses")}
+    check(builds["build_cache_hits"] + builds["build_cache_misses"] > 0, "no kernel build was counted")
+    path = os.path.join(HERE, "build", "chip_smoke_trace.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    tracer.write(path)
+    events = spans.complete_spans(spans.load_trace_events(path)[0])
+    by_name = {}
+    for e in events:
+        by_name[e["name"]] = by_name.get(e["name"], 0) + 1
+    check(set(by_name) == set(spans.VERIFY_STAGES), f"trace spans {sorted(by_name)}")
+    check(by_name["verify_dispatch"] == n_blocks, "a block has no verify_dispatch span")
+    reading = {"blocks": n_blocks, "stage_seconds": stages, "transfer_bytes": moved,
+               "occupancy": {p: get("mysticeti_verify_occupancy_fraction", {"phase": p})
+                             for p in ("pack", "device", "fetch")},
+               "builds": builds, "trace": {"path": os.path.relpath(path, HERE), "spans": by_name},
+               "dispatches": get("verify_dispatch_batch_size_count")}
+    print(json.dumps({"metrics": reading}), flush=True)
+    return reading
 
 
 def flat_phase(table, keyed_chunk, kernels, report):
@@ -734,6 +809,181 @@ def hybrid_phase(committee, blocks_and_want, kernels):
     return launches, reading
 
 
+def entry_phase(kernels):
+    """``entry()`` on the card: every verdict True and the oracle's; a copy
+    with a bit flipped in R, A, M and s gives the oracle's verdicts.  Then
+    ``dryrun_multichip(4)`` over the cards there are."""
+    import numpy as np
+    import torch
+
+    from mysticeti_tpu_torch import entry
+    from mysticeti_tpu_torch.ops import ed25519 as E
+
+    def lanes_of(msg, s):  # the (pk, msg, sig) bytes of each packed lane
+        rows = msg.astype(">u4").tobytes()
+        tails = s.astype("<u4").tobytes()
+        return [(rows[96 * i + 32: 96 * i + 64], rows[96 * i + 64: 96 * i + 96],
+                 rows[96 * i: 96 * i + 32] + tails[32 * i: 32 * i + 32]) for i in range(len(msg))]
+
+    for k in kernels:
+        k.reset_counts()
+    fn, args = entry.entry()
+    check(all(a.device.type == "cuda" for a in args), "entry() did not place its batch on the card")
+    got = fn(*args).cpu().numpy()
+    msg = args[0].cpu().numpy().view(np.uint32).copy()
+    s = args[1].cpu().numpy().view(np.uint32).copy()
+    want = [oracle(*lane) for lane in lanes_of(msg, s)]
+    check(got.tolist() == [True] * 8 and want == [True] * 8, f"entry verdicts {got.tolist()}")
+    for lane, (col, bit) in enumerate([(0, 3), (7, 30), (8, 0), (12, 17), (16, 9), (23, 31)]):
+        msg[lane, col] ^= np.uint32(1 << bit)
+    s[6, 0] ^= np.uint32(1)
+    s[7, 5] ^= np.uint32(1 << 12)
+    bad = fn(E.to_device_words(msg, args[0].device), E.to_device_words(s, args[0].device),
+             args[2]).cpu().numpy()
+    want_bad = [oracle(*lane) for lane in lanes_of(msg, s)]
+    check(bad.tolist() == want_bad, f"corrupted entry verdicts {bad.tolist()} != oracle {want_bad}")
+    entry_counts = {k.name: k.launches for k in kernels}
+    print(f"entry: verify_fused_impl on {args[0].device}, 8 valid signatures True, a copy with "
+          f"bits flipped in R, A, M and s gives the oracle's verdicts {want_bad}", flush=True)
+
+    for k in kernels:
+        k.reset_counts()
+    t0 = time.monotonic()
+    entry.dryrun_multichip(4)
+    dryrun_s = time.monotonic() - t0
+    dryrun_counts = {k.name: k.launches for k in kernels}
+    check(dryrun_counts["prologue"] > 0 and dryrun_counts["verify_generic"] > 0,
+          f"dryrun_multichip launched {dryrun_counts}")
+    print(f"dryrun: dryrun_multichip(4) over {torch.cuda.device_count()} card(s) passed in "
+          f"{dryrun_s:.1f} s", flush=True)
+    return entry_counts, dryrun_counts
+
+
+class ServiceThread:
+    """A ``VerifierServer`` serving on a unix socket from its own event loop
+    in a thread; ``start`` returns once the backend is prewarmed."""
+
+    def __init__(self, path, keys, device):
+        import threading
+
+        from mysticeti_tpu_torch.metrics import Metrics
+        from mysticeti_tpu_torch.verifier_service import VerifierServer
+
+        self.server = VerifierServer(path, committee_keys=keys, metrics=Metrics(), device=device)
+        self._ready = threading.Event()
+        self._error = None
+        self._loop = None
+        self._thread = threading.Thread(target=self._run, name="verifier-service", daemon=True)
+
+    def _run(self):
+        async def serve():
+            self._loop = asyncio.get_running_loop()
+            self._stop = asyncio.Event()
+            try:
+                await self.server.start()
+                await self._loop.run_in_executor(None, self.server.prewarm)
+            except Exception as exc:  # noqa: BLE001 - raised again by start()
+                self._error = exc
+                self._stop.set()
+            self._ready.set()
+            await self._stop.wait()
+            await self.server.stop()
+
+        asyncio.run(serve())
+
+    def start(self):
+        self._thread.start()
+        check(self._ready.wait(300), "the verifier service did not warm up")
+        if self._error is not None:
+            self._thread.join(60)
+            raise self._error
+
+    def stop(self):
+        if self._loop is not None:
+            self._loop.call_soon_threadsafe(self._stop.set)
+        self._thread.join(60)
+        check(not self._thread.is_alive(), "the verifier service thread did not stop")
+
+
+def service_phase(committee, blocks_and_want, kernels, in_process_per_s):
+    """The block path through the shared verifier service, ``cuda-only``
+    then ``cuda`` kind."""
+    from mysticeti_tpu_torch.block_validator import HybridSignatureVerifier
+    from mysticeti_tpu_torch.metrics import Metrics
+    from mysticeti_tpu_torch.types import StatementBlock
+    from mysticeti_tpu_torch.validator import ACCELERATOR_KIND, HYBRID_KIND, _make_verifier
+    from mysticeti_tpu_torch.verifier_service import ENV_SOCKET, RemoteSignatureVerifier
+
+    raws, want = blocks_and_want
+    path = os.path.join(HERE, "build", "svc", "verifier.sock")
+    service = ServiceThread(path, committee.public_key_bytes(), "cuda:0")
+    service.start()
+    os.environ[ENV_SOCKET] = path
+    reading = {"socket": os.path.relpath(path, HERE)}
+    try:
+        for k in kernels:
+            k.reset_counts()
+        for kind in (ACCELERATOR_KIND, HYBRID_KIND):
+            metrics = Metrics()
+            verifier = _make_verifier(kind, committee, metrics=metrics)
+            check(verifier.ready.wait(300), f"{kind} warmup through the service did not finish")
+            backend = verifier.verifier
+            remote = backend.tpu if isinstance(backend, HybridSignatureVerifier) else backend
+            check(isinstance(remote, RemoteSignatureVerifier), f"{kind} did not take the service")
+            check(remote.dispatch_calibration() is not None, "HELLO_OK carried no calibration")
+            check(remote.advertised_backend == "cuda",
+                  f"HELLO_OK advertised {remote.advertised_backend!r}, not 'cuda'")
+            if kind == HYBRID_KIND:
+                check(backend.pinned_backend is None, "the hybrid router is pinned to the CPU")
+            blocks = [StatementBlock.from_bytes(r) for r in raws]
+            t0 = time.monotonic()
+            verdicts = asyncio.run(verifier.verify_blocks(blocks))
+            elapsed = time.monotonic() - t0
+            check(verdicts == want, f"{kind} verdicts through the service differ from the oracle's")
+            get = metrics.registry.get_sample_value
+            reading[kind] = {
+                "blocks_per_s": len(blocks) / elapsed,
+                "calibration": list(remote.dispatch_calibration()),
+                "advertised_backend": remote.advertised_backend,
+                "wire_bytes": {d: get("verify_wire_bytes_total", {"direction": d})
+                               for d in ("sent", "recv")},
+            }
+        launches = {k.name: k.launches for k in kernels}
+    finally:
+        os.environ.pop(ENV_SOCKET, None)
+        service.stop()
+    server_get = service.server.metrics.registry.get_sample_value
+    reading["server_dispatches"] = server_get("verify_dispatch_batch_size_count")
+    reading["in_process_blocks_per_s"] = in_process_per_s
+    check(launches["verify_keyed"] > 0, f"the service launched no keyed kernel: {launches}")
+    check(launches["verify_generic"] == 0, f"the service launched the generic kernel: {launches}")
+    print(f"service: {len(raws)} blocks through the verifier service on {reading['socket']}, "
+          f"cuda-only {reading[ACCELERATOR_KIND]['blocks_per_s']:.1f} blocks/s and hybrid "
+          f"{reading[HYBRID_KIND]['blocks_per_s']:.1f} blocks/s (in process cuda-only "
+          f"{in_process_per_s:.1f}); verdicts equal the oracle's; HELLO_OK advertised 'cuda' "
+          f"with a calibration; server launches {launches}", flush=True)
+    return launches, reading
+
+
+def bench_phase() -> dict:
+    """``python -m mysticeti_tpu_torch.bench`` as a child, on BENCH_ENV."""
+    env = dict(os.environ, **BENCH_ENV)
+    env.pop("BENCH_WORKER", None)
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", "mysticeti_tpu_torch.bench"], cwd=HERE, env=env,
+                          capture_output=True, text=True, timeout=600)
+    lines = proc.stdout.strip().splitlines()
+    check(proc.returncode == 0 and lines,
+          f"the bench exited {proc.returncode}: {proc.stderr[-2000:]}")
+    record = json.loads(lines[-1])
+    check(record.get("metric") == "ed25519_verifies_per_sec" and record.get("rung") == 0
+          and record.get("value", 0) > 0, f"bench line {lines[-1]}")
+    record["seconds"] = time.monotonic() - t0
+    record["env"] = BENCH_ENV
+    print(json.dumps({"bench": record}), flush=True)
+    return record
+
+
 def build_and_report(K, cuda_build) -> None:
     """Build every kernel source (one nvcc each, in parallel); print the
     build time and ptxas's register, stack and spill lines."""
@@ -767,7 +1017,12 @@ def run() -> int:
         print(f"chip_smoke: the port is not importable here: {exc}", file=sys.stderr)
         return 2
 
+    from mysticeti_tpu_torch.metrics import Metrics
+
     print(card_line(), flush=True)
+    # The run's registry: attributed from the kernels' build on.
+    metrics = Metrics()
+    E.install_device_attribution(metrics)
     build_and_report(K, cuda_build)
 
     rng = random.Random(SEED)
@@ -777,10 +1032,15 @@ def run() -> int:
     table = E.KeyTable(committee.public_key_bytes(), device=dev)
     report = {}
     keyed_chunk = kernel_phase(signers, table, rng, report)
-    by_path, rate, blocks_and_want, burst = main_path(signers, committee, rng, K.KERNELS)
+    by_path, rates, blocks_and_want, burst, metrics_reading = main_path(
+        signers, committee, rng, K.KERNELS, metrics)
     by_path["flat_keyed"], layout = flat_phase(table, keyed_chunk, K.KERNELS, report)
     by_path["sharded"], sharded = sharded_phase(table, burst, rng, K.KERNELS)
     by_path["hybrid"], hybrid = hybrid_phase(committee, blocks_and_want, K.KERNELS)
+    by_path["entry"], by_path["dryrun"] = entry_phase(K.KERNELS)
+    by_path["service"], service = service_phase(committee, blocks_and_want, K.KERNELS,
+                                                rates["block_per_s"])
+    bench = bench_phase()
     # The block path's flushes take the keyed kernel, one key per lane, and
     # never the generic one; the committee dispatch's 8 stragglers take the
     # generic kernel once.
@@ -810,9 +1070,12 @@ def run() -> int:
                                        "block_threads", "dynamic_smem_bytes") if key in r},
         })
     print(json.dumps({"kernels": rows}), flush=True)
-    print(json.dumps({"e2e_sig_per_s": rate, "signatures": KEYED_LANES, "bucket": BUCKET,
-                      "committee": COMMITTEE, "flush": report["flush"], "flat_vs_26col": layout,
-                      "sharded": sharded, "hybrid": hybrid}), flush=True)
+    print(json.dumps({"e2e_sig_per_s": rates["committee_sig_per_s"], "signatures": KEYED_LANES,
+                      "bucket": BUCKET, "committee": COMMITTEE,
+                      "block_path_blocks_per_s": rates["block_per_s"], "flush": report["flush"],
+                      "flat_vs_26col": layout, "sharded": sharded, "hybrid": hybrid,
+                      "service": service, "metrics": metrics_reading,
+                      "bench": bench}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

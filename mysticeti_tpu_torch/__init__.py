@@ -10,7 +10,10 @@ Package layout:
   types / crypto / serde / committee / threshold_clock   — block model + keys
   block_validator / verify_pipeline / validator          — the verifier seam,
                                                            hybrid router included
-  spans / tracing / runtime / utils / network            — what the seam needs
+  verifier_service     — the shared per-host verifier service and its client
+  entry / bench        — entry points, the throughput benchmark
+  metrics / spans / tracing                              — observability
+  runtime / utils / network                              — what the seam needs
   ops/                 — field, scalar, SHA-512 and Ed25519 in torch, plus the
                          CUDA kernel wrappers (ops/ed25519_cuda.py)
   parallel/            — the mesh of cards and the sharded dispatch

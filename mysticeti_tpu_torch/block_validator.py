@@ -7,7 +7,8 @@ the counterpart of ``TpuSignatureVerifier``, sharding over the host's cards
 through ``parallel.mesh``), the hybrid CPU/GPU router
 ``HybridSignatureVerifier`` with its circuit breaker, and the batching
 collector ``BatchedSignatureVerifier`` without threshold aggregation.  The
-aggregate verifier and the verifier service client are not carried over.
+aggregate verifier is not carried over; the verifier service and its client
+(``RemoteSignatureVerifier``) are in verifier_service.py.
 
 Split of responsibilities on the receive path:
   * consensus-rule checks (digest, epoch, author, includes, threshold clock) —
@@ -19,6 +20,7 @@ Split of responsibilities on the receive path:
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import random
 import threading
 import time
@@ -144,8 +146,9 @@ class TorchSignatureVerifier(SignatureVerifier):
 
     With ``committee_keys`` the signer set is known: the keys and their
     combs live on the device in a ``KeyTable``, a signature rides as an
-    index (26 words on the wire instead of 33), and chunks whose per-key
-    grouping fits take the keyed kernel.  ``device`` defaults to ``cuda``
+    index (26 words on the wire instead of 33), and every chunk of committee
+    keys takes the keyed kernel, one key per lane; a key outside the table
+    rides the generic kernel.  ``device`` defaults to ``cuda``
     and raises without a card; ``device="cpu"`` runs the kernels' plain
     PyTorch versions.
 
@@ -274,9 +277,9 @@ class HybridSignatureVerifier(SignatureVerifier):
     BREAKER_BASE_BACKOFF_S = 1.0
     BREAKER_MAX_BACKOFF_S = 30.0
     # Advertised backends with no accelerator behind them (the verifier
-    # service's HELLO_OK, not yet ported): a service running on one of these
-    # has nothing to offload TO — routing pins to the in-process oracle until
-    # a re-HELLO probe sees an upgrade.  In-process backends advertise
+    # service's HELLO_OK, verifier_service.py): a service running on one of
+    # these has nothing to offload TO — routing pins to the in-process oracle
+    # until a re-HELLO probe sees an upgrade.  In-process backends advertise
     # nothing, so the pin stays dormant.
     CPU_ONLY_BACKENDS = frozenset({"cpu"})
 
@@ -918,17 +921,23 @@ class BatchedSignatureVerifier(BlockVerifier):
         verifier: SignatureVerifier,
         max_batch: int = 256,
         max_delay_s: float = 0.005,
+        metrics=None,
         pipeline_depth: Optional[int] = None,
     ) -> None:
         self.committee = committee
         self.verifier = verifier
         self.max_batch = max_batch
         self.max_delay_s = max_delay_s
+        # Optional metrics.Metrics: the pipeline's stage seconds and
+        # occupancy, the collection window, dispatch sizes, padding and
+        # verdict counts.
+        self.metrics = metrics
         # Staged dispatch window: several flushes may be in flight at once
         # (pack N+1 while N computes and N-1's results ride back), bounded
         # so a flooding peer cannot queue unbounded device work.
         self.pipeline = VerifyPipeline(
-            depth=pipeline_depth, fixed_cost_fn=self._pipeline_fixed_cost
+            depth=pipeline_depth, metrics=metrics,
+            fixed_cost_fn=self._pipeline_fixed_cost,
         )
         self.direct_total = 0
         self._pending: List[Tuple[StatementBlock, asyncio.Future]] = []
@@ -976,9 +985,13 @@ class BatchedSignatureVerifier(BlockVerifier):
         return max(self.MIN_ADAPTIVE_DELAY_S, ceiling * expected / 2.0)
 
     def _schedule_flush(self, loop) -> None:  # lint: holds[_lock]
-        """Arm the window timer (caller holds ``self._lock``)."""
+        """Arm the window timer (caller holds ``self._lock``) and publish
+        the chosen window."""
+        delay = self._effective_delay_s()
+        if self.metrics is not None:
+            self.metrics.verify_collector_window_seconds.set(delay)
         self._flush_task = loop.call_later(
-            self._effective_delay_s(), lambda: spawn_logged(self._flush(), log, name="verify-flush")
+            delay, lambda: spawn_logged(self._flush(), log, name="verify-flush")
         )
 
     async def verify(self, block: StatementBlock) -> None:
@@ -1018,15 +1031,31 @@ class BatchedSignatureVerifier(BlockVerifier):
                 f"signature verification failed for {block.reference!r}"
             )
 
+    def _busy(self):
+        """The ``verify:dispatch`` utilization timer, or nothing."""
+        if self.metrics is None:
+            return contextlib.nullcontext()
+        return self.metrics.utilization_timer("verify:dispatch")
+
     def _submit_dispatch(self, pks, digests, sigs):
         """Device stage (executor thread): pack-to-wire + non-blocking
         submission through the backend's async seam."""
-        return self.verifier.verify_signatures_async(pks, digests, sigs)
+        with self._busy():
+            return self.verifier.verify_signatures_async(pks, digests, sigs)
 
-    @staticmethod
-    def _fetch_dispatch(handle):
-        """Fetch stage (executor thread): block until the verdicts are ready."""
-        return handle.result()
+    def _fetch_dispatch(self, handle, n):
+        """Fetch stage (executor thread): block until the verdicts are
+        ready.  The backend label and the padded lane count are read in THIS
+        thread, right after ``result()``: the hybrid router records them
+        thread-locally at fetch."""
+        with self._busy():
+            out = handle.result()
+        label = getattr(self.verifier, "backend_label", type(self.verifier).__name__)
+        padded = getattr(self.verifier, "dispatch_padded", None)
+        if padded is None:
+            padder = getattr(self.verifier, "padded_batch", None)
+            padded = padder(n) if padder is not None else n
+        return out, label, padded
 
     async def _direct(self, blocks) -> List[bool]:
         """One dispatch of ``blocks``' signatures through the pipeline."""
@@ -1070,9 +1099,9 @@ class BatchedSignatureVerifier(BlockVerifier):
                     )
             # Shielded for the same reason: an unshielded cancel can cancel a
             # QUEUED executor job, and then nothing consumes the handle.
-            fetch_fut = loop.run_in_executor(None, self._fetch_dispatch, handle)
+            fetch_fut = loop.run_in_executor(None, self._fetch_dispatch, handle, len(sigs))
             try:
-                out = await asyncio.shield(fetch_fut)
+                out, label, padded = await asyncio.shield(fetch_fut)
             except asyncio.CancelledError:
                 fetch_fut.add_done_callback(_observe_orphan)
                 raise
@@ -1086,6 +1115,20 @@ class BatchedSignatureVerifier(BlockVerifier):
             for block in blocks:
                 tracer.record_span("verify_fetch", block.reference, t_fetch, t1=t1)
                 tracer.record_span("verify_dispatch", block.reference, t_dispatch, t1=t1)
+        if self.metrics is not None:
+            self.metrics.verify_dispatch_batch_size.observe(len(sigs))
+            # Padding waste: lanes the device computed beyond the real
+            # signatures (bucket-shaped dispatches); host backends report n.
+            self.metrics.verify_padding_wasted_total.labels(label).inc(
+                max(0, padded - len(sigs))
+            )
+            accepted = sum(bool(ok) for ok in out)
+            if accepted:
+                self.metrics.verified_signatures_total.labels(label, "accepted").inc(accepted)
+            if accepted < len(out):
+                self.metrics.verified_signatures_total.labels(label, "rejected").inc(
+                    len(out) - accepted
+                )
         return out
 
     async def _flush(self, batch=None) -> None:
@@ -1117,6 +1160,8 @@ class BatchedSignatureVerifier(BlockVerifier):
                 if not future.done():
                     future.set_exception(exc)
             return
+        if self.metrics is not None:
+            self.metrics.verify_batch_size.observe(len(batch))
         for (_, future), ok in zip(batch, results):
             if not future.done():
                 future.set_result(bool(ok))

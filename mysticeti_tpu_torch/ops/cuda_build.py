@@ -15,6 +15,12 @@ Every failure to build or load raises :class:`CudaBuildError`, a
 ``OSError``, which the hybrid router counts as an outage of its accelerator
 route; a kernel that cannot build is a broken installation, not an outage,
 and must never send the node quietly to the CPU oracle.
+
+Build events go to the listeners of :func:`add_listener` (the device
+attribution of ``ops/ed25519.py``): ``("cache_hit", name, 0.0)`` for a
+library already on disk, ``("cache_miss", name, 0.0)`` for one that must be
+built, and ``("build", name, seconds)`` for each nvcc run that succeeded.
+A listener never changes the outcome of a build: what it raises is dropped.
 """
 from __future__ import annotations
 
@@ -24,8 +30,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, List
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "cuda"
@@ -40,10 +47,24 @@ ptxas_reports: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_listeners: List[Callable[[str, str, float], None]] = []
 
 
 class CudaBuildError(RuntimeError):
     """A CUDA source did not build, or its library did not load."""
+
+
+def add_listener(fn: Callable[[str, str, float], None]) -> None:
+    """Call ``fn(event, source name, seconds)`` on every build event."""
+    _listeners.append(fn)
+
+
+def _emit(event: str, name: str, seconds: float = 0.0) -> None:
+    for fn in _listeners:
+        try:
+            fn(event, name, seconds)
+        except Exception:  # noqa: BLE001 - attribution never breaks a build
+            pass
 
 
 def nvcc() -> str:
@@ -77,11 +98,14 @@ def build(names: Iterable[str]) -> None:
 
 def _build(names: Iterable[str]) -> None:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    started = time.monotonic()
     procs = {}
     for name in names:
         out = library_path(name)
         if out.exists():
+            _emit("cache_hit", name)
             continue
+        _emit("cache_miss", name)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
         cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -94,6 +118,8 @@ def _build(names: Iterable[str]) -> None:
             failures.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
             continue
         os.replace(tmp, out)
+        # Seconds from the start of the parallel build to this source's end.
+        _emit("build", name, time.monotonic() - started)
     if failures:
         raise CudaBuildError("CUDA build failed:\n" + "\n".join(failures))
 

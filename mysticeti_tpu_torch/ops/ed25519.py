@@ -70,6 +70,64 @@ def device_key(device) -> torch.device:
     return device
 
 
+# ---------------------------------------------------------------------------
+# Host attribution plane: device-side counters, host bookkeeping only.
+
+_attr_metrics = None
+_attr_listener_installed = False
+
+
+def _on_build_event(event: str, name: str, seconds: float) -> None:
+    m = _attr_metrics
+    if m is None:
+        return
+    if event == "cache_hit":
+        m.mysticeti_cuda_build_cache_hits_total.inc()
+    elif event == "cache_miss":
+        m.mysticeti_cuda_build_cache_misses_total.inc()
+    elif event == "build":
+        m.mysticeti_cuda_builds_total.inc()
+        m.mysticeti_cuda_build_seconds_total.inc(max(0.0, seconds))
+
+
+def install_device_attribution(metrics) -> bool:
+    """Wire the kernels' build events and the transfer byte counters into
+    ``metrics`` (a ``metrics.Metrics``); re-calling swaps the target
+    registry, ``None`` turns counting off.
+
+    The JAX package counts compile events and its persistent compile
+    cache's hits and misses (``mysticeti_jax_compiles_total``,
+    ``mysticeti_jax_compile_seconds_total``, ``mysticeti_jax_cache_hits_total``,
+    ``mysticeti_jax_cache_misses_total``).  The port compiles nothing at run
+    time but the nvcc build of ``ops/cuda_build.py``, so those become:
+    ``mysticeti_cuda_build_cache_hits_total`` (a kernel library already on
+    disk when it is first needed), ``mysticeti_cuda_build_cache_misses_total``
+    (one that must be built), ``mysticeti_cuda_builds_total`` (nvcc runs that
+    succeeded) and ``mysticeti_cuda_build_seconds_total`` (their seconds,
+    each from the start of its parallel build).  Transfers go to
+    ``mysticeti_device_transfer_bytes_total`` (``_note_transfer``).
+    Attribution never changes a verdict, and a build failure still raises
+    ``CudaBuildError``.  Returns True (the listener is in place)."""
+    global _attr_metrics, _attr_listener_installed
+    _attr_metrics = metrics
+    if not _attr_listener_installed:
+        from . import cuda_build
+
+        cuda_build.add_listener(_on_build_event)
+        _attr_listener_installed = True
+    return True
+
+
+def _note_transfer(direction: str, nbytes: int) -> None:
+    """Count host<->device bytes at the dispatch and fetch seams
+    (``to_device``: the padded packed arrays, key tables and combs as
+    uploaded; ``from_device``: the verdicts and totals as fetched).  Counted
+    whatever the device, so a CPU run reads the bytes a card would move."""
+    m = _attr_metrics
+    if m is not None and nbytes > 0:
+        m.mysticeti_device_transfer_bytes_total.labels(direction).inc(nbytes)
+
+
 def _recover_x(y: int, sign: int) -> Optional[int]:
     x2 = (y * y - 1) * pow(_D * y * y + 1, P - 2, P) % P
     if x2 == 0:
@@ -263,6 +321,20 @@ def prepare_fused(
     s_windows = SC.windows4(s_limbs)
     ok = host_ok & a_canonical & s_ok
     return a_y, a_sign, r_y, r_sign, s_windows, k_windows, ok
+
+
+def verify_fused_impl(msg_words: torch.Tensor, s_words: torch.Tensor,
+                      host_ok: torch.Tensor) -> torch.Tensor:
+    """Batched fused verification, (B,) bool, from the three ``pack_bytes``
+    arrays as tensors on one device: (B, 24) big-endian R||A||M words, (B,
+    8) little-endian s words (uint32 bits, in int32 or int64) and the (B,)
+    ok mask.  On a card the prologue and generic kernels; on the CPU their
+    plain versions."""
+    from . import ed25519_cuda as K
+
+    blob = torch.cat([msg_words.to(torch.int32), s_words.to(torch.int32),
+                      host_ok.to(torch.int32)[:, None]], dim=1).contiguous()
+    return K.verify_generic(*K.prologue(blob))
 
 
 def indexed_to_msg_words(blob: torch.Tensor, table: torch.Tensor):
@@ -512,7 +584,9 @@ def _comb_on(host, device) -> torch.Tensor:
     with _base_comb_lock:
         t = _base_combs.get((host, device))
         if t is None:
-            t = _base_combs[(host, device)] = torch.as_tensor(host(), device=device)
+            arr = host()
+            t = _base_combs[(host, device)] = torch.as_tensor(arr, device=device)
+            _note_transfer("to_device", arr.nbytes)
         return t
 
 
@@ -644,8 +718,10 @@ def group_blob_for_tiles(
 
 def to_device_words(arr: np.ndarray, device) -> torch.Tensor:
     """A uint32 host array as an int32 tensor with the same bits on
-    ``device`` (torch has no general uint32 arithmetic)."""
+    ``device`` (torch has no general uint32 arithmetic); its bytes count as
+    an upload (``_note_transfer``)."""
     arr = np.ascontiguousarray(arr, dtype=np.uint32).view(np.int32)
+    _note_transfer("to_device", arr.nbytes)
     return torch.from_numpy(arr).to(device)
 
 
@@ -692,6 +768,7 @@ class KeyTable:
             torch.as_tensor(combs, device=table.device),
             np.asarray(valid, bool).copy(),
         )
+        _note_transfer("to_device", combs.nbytes)
         return table
 
     def __len__(self) -> int:
@@ -719,6 +796,7 @@ class KeyTable:
             if self._neg_combs is None:
                 arr, valid = build_neg_key_combs(self._keys)
                 self._neg_combs = (torch.as_tensor(arr, device=self.device), valid)
+                _note_transfer("to_device", arr.nbytes)
             return self._neg_combs
 
     def neg_combs51(self) -> torch.Tensor:
@@ -727,7 +805,9 @@ class KeyTable:
         with self._combs_lock:
             if self._neg_combs51 is None:
                 comb13 = self.neg_combs()[0].cpu().numpy()
-                self._neg_combs51 = torch.as_tensor(comb51_from13(comb13), device=self.device)
+                lines = comb51_from13(comb13)
+                self._neg_combs51 = torch.as_tensor(lines, device=self.device)
+                _note_transfer("to_device", lines.nbytes)
             return self._neg_combs51
 
 
@@ -797,6 +877,7 @@ def _to_host(parts: Sequence[torch.Tensor]) -> np.ndarray:
     host = {}
     for device, ts in by_device.items():
         whole = torch.cat(ts).cpu().numpy()
+        _note_transfer("from_device", whole.nbytes)
         host[device] = iter(np.split(whole, np.cumsum([t.shape[0] for t in ts])[:-1]))
     return np.concatenate([next(host[t.device]) for t in parts])
 
@@ -850,8 +931,9 @@ def dispatch_batch(
     arrays = pack_batch(public_keys, messages, signatures)
     handles = []
     for start, count, b in iter_buckets(len(signatures)):
-        padded = [torch.as_tensor(_pad_to(x[start : start + count], b), device=device)
-                  for x in arrays]
+        padded = [_pad_to(x[start : start + count], b) for x in arrays]
+        _note_transfer("to_device", sum(x.nbytes for x in padded))
+        padded = [torch.as_tensor(x, device=device) for x in padded]
         handles.append((count, K.verify_generic(*padded)))
     return VerifyDispatch(handles)
 

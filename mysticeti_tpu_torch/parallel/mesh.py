@@ -76,10 +76,14 @@ def sharded_verify_kernel(mesh: Mesh):
     global valid count): the generic kernel once per shard.  The batch must
     be a multiple of the mesh size."""
 
+    def upload(x, dev):
+        x = np.ascontiguousarray(x)
+        E._note_transfer("to_device", x.nbytes)
+        return torch.as_tensor(x, device=dev)
+
     def run(*arrays):
         oks = [
-            K.verify_generic(*(torch.as_tensor(np.ascontiguousarray(x[rows]), device=dev)
-                               for x in arrays))
+            K.verify_generic(*(upload(x[rows], dev) for x in arrays))
             for dev, rows in _shards(mesh, arrays[0].shape[0])
         ]
         return oks, _psum(mesh, oks)
@@ -99,7 +103,7 @@ def sharded_verify_batch(
     packed = E.pack_batch(public_keys, messages, signatures)
     padded = max(1, -(-n // mesh.size)) * mesh.size
     oks, total = sharded_verify_kernel(mesh)(*(E._pad_to(x, padded) for x in packed))
-    return E.fetch_handles([(n, oks)]), int(total)
+    return E.fetch_handles([(n, oks)]), _total([total])
 
 
 def _shard_run(mesh: Mesh, blob: np.ndarray, table: Optional[E.KeyTable] = None):
@@ -168,6 +172,9 @@ def _submit_fused(mesh, public_keys, messages, signatures):
 
 
 def _total(totals) -> int:
+    """The valid count, one fetch of each chunk's device total."""
+    for t in totals:
+        E._note_transfer("from_device", t.element_size())
     return int(sum(int(t) for t in totals))
 
 

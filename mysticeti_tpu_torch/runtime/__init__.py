@@ -1,7 +1,8 @@
-"""Runtime clock: the part of ``mysticeti_tpu.runtime`` the verifier needs.
+"""Runtime clocks: the part of ``mysticeti_tpu.runtime`` the verifier needs.
 
 The port has no deterministic virtual-time loop yet, so the clock is the
-running asyncio loop's (monotonic) clock, or ``time.monotonic`` outside one.
+running asyncio loop's (monotonic) clock, or ``time.monotonic`` outside one,
+and the wall clock is ``time.time``.
 """
 from __future__ import annotations
 
@@ -17,4 +18,9 @@ def now() -> float:
         return time.monotonic()
 
 
-__all__ = ["now"]
+def timestamp_utc() -> float:
+    """Wall-clock seconds."""
+    return time.time()
+
+
+__all__ = ["now", "timestamp_utc"]

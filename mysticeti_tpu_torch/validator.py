@@ -12,9 +12,12 @@ over yet.  Kinds:
 * ``"cpu"``       — the batching collector over the CPU oracle;
 * ``"accept"``    — no signature checks (consensus-only escape hatch).
 
-On a host with several cards both accelerator kinds shard each batch over
-them (``TorchSignatureVerifier(mesh="auto")``).  The aggregate kinds
-(``-agg``) and the shared verifier service are not carried over.
+With ``MYSTICETI_VERIFIER_SOCKET`` set, both accelerator kinds reach the
+card through the host's shared verifier service (verifier_service.py)
+instead of in-process kernels: this process then never opens a CUDA
+context.  In process, on a host with several cards both accelerator kinds
+shard each batch over them (``TorchSignatureVerifier(mesh="auto")``).  The
+aggregate kinds (``-agg``) are not carried over.
 """
 from __future__ import annotations
 
@@ -34,35 +37,49 @@ ACCELERATOR_KIND = "cuda-only"
 HYBRID_KIND = "cuda"
 
 
-def _make_verifier(kind: str, committee: Committee, device=None):
+def _make_verifier(kind: str, committee: Committee, metrics=None, device=None):
     """Signature verification is ON by default; "accept" is an explicit
-    escape hatch.  ``device`` places the accelerator kind's tensors (default
-    ``cuda``, which raises without a card; ``"cpu"`` runs the kernels' plain
-    versions).
+    escape hatch.  ``metrics`` (a ``metrics.Metrics``) reaches the
+    collector, the router, the service client and, in process, the device
+    attribution.  ``device`` places the in-process accelerator kind's
+    tensors (default ``cuda``, which raises without a card; ``"cpu"`` runs
+    the kernels' plain versions); a service client has none.
 
     The returned verifier carries a ``ready`` threading.Event: set once its
     one-time warmup is done (immediately for cpu/accept; after the kernels'
-    build and first launches for the accelerator kind)."""
+    build and first launches, or the service's HELLO, for the accelerator
+    kinds)."""
     ready = threading.Event()
     window_ms = float(os.environ.get("MYSTICETI_VERIFY_WINDOW_MS", "5"))
     depth_env = os.environ.get("MYSTICETI_VERIFY_PIPELINE_DEPTH")
     collector_opts = dict(
+        metrics=metrics,
         max_delay_s=window_ms / 1e3,
         pipeline_depth=int(depth_env) if depth_env else None,
     )
     if kind in (HYBRID_KIND, ACCELERATOR_KIND):
-        backend = TorchSignatureVerifier(
-            committee_keys=committee.public_key_bytes(), device=device
-        )
+        committee_keys = committee.public_key_bytes()
+        if os.environ.get("MYSTICETI_VERIFIER_SOCKET"):
+            # The host's shared verifier service owns the card: one warmed
+            # runtime serving every co-located validator.
+            from .verifier_service import RemoteSignatureVerifier
+
+            backend = RemoteSignatureVerifier(committee_keys=committee_keys, metrics=metrics)
+        else:
+            backend = TorchSignatureVerifier(committee_keys=committee_keys, device=device)
+            if metrics is not None:
+                from .ops import ed25519
+
+                ed25519.install_device_attribution(metrics)
         if kind == HYBRID_KIND:
             # Small batches take the CPU oracle, sparing them the dispatch
             # latency; "cuda-only" pins every batch to the kernels.
-            backend = HybridSignatureVerifier(tpu=backend)
+            backend = HybridSignatureVerifier(tpu=backend, metrics=metrics)
 
         def _warm() -> None:
-            # Build the kernels, upload the combs and (hybrid) calibrate both
-            # routes off the hot path: blocks arriving meanwhile queue in the
-            # batching collector.
+            # Build the kernels, upload the combs (or HELLO the service) and
+            # (hybrid) calibrate both routes off the hot path: blocks
+            # arriving meanwhile queue in the batching collector.
             try:
                 backend.warmup()
             finally:

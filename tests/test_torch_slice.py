@@ -80,7 +80,7 @@ def test_slice_verdicts_equal_the_jax_cpu_collector():
     want = _verdicts(JT.StatementBlock.from_bytes, jcommittee, reference, raws)
     assert got == want
     assert got.count(False) == 4  # every tampered block, and only those
-    assert {e[0] for e in tracer.events} == set(spans.STAGES)
+    assert {e[0] for e in tracer.events} == set(spans.VERIFY_STAGES)
 
 
 def test_verifier_kinds():
@@ -107,6 +107,9 @@ def _imported_roots(path: pathlib.Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "mysticeti_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) > 10
+    names = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {f"mysticeti_tpu_torch/{m}.py" for m in (
+        "entry", "bench", "verifier_service", "metrics", "spans", "tracing")} <= names
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "mysticeti_tpu"}, path
