@@ -61,13 +61,29 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    counts), the bytes moved each way, the kernels' build hits and misses,
    and checks the Chrome trace written under ``build/`` has the
    ``verify_*`` spans.
-10. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
+10. Receive: config 4's blocks at full width (50 authorities, 4,000
+   transactions of 512 B a block), 5 rounds = 250 blocks, one in 25
+   tampered, honest children including only valid blocks, and one forged
+   block included by fewer than a quorum.  Authority 0 sends them in
+   ``Blocks`` frames under ``MAX_FRAME`` over loopback between two port
+   ``TcpNetwork`` endpoints; authority 1 receives them through
+   ``_FrameReceiver`` and ``decode_message``, decodes each frame with
+   ``StatementBlock.from_bytes_many`` (native, off the loop through
+   ``DataPlaneOffload``) and runs ``verify_structure``.  The native
+   extension must be built and active.  All 250 blocks go at once through
+   ``cuda-only``, ``cuda-only-agg`` and ``cuda-agg``: verdicts equal to the
+   oracle's, the forged block rejected, the aggregate kinds skipping blocks
+   (skipped + direct = 250), the path launching the keyed kernel and never
+   the generic one.  Then ``cuda-only`` and ``cuda-only-agg`` in turns,
+   three pairs.  Also timed: the 250 blocks' decode native against the
+   pure-Python fallback in this process.
+11. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
    workers, 8 iterations, 2 trials and a 30 s budget; its JSON line must
    come from rung 0 with a value above 0.
-Each path of steps 3-8 (the block path and the committee dispatch of step 3
+Each path of steps 3-10 (the block path and the committee dispatch of step 3
 apart) runs with every launch count set to 0 just before it and read just
 after; every kernel must have launched on some path.
-11. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+12. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or when any
@@ -135,6 +151,19 @@ FLUSH = 256
 BUSY_CYCLES = 4_000_000
 # What `--times` measures.
 TIMED = ("prologue", "verify_generic", "verify_keyed", "verify_keyed_lanes", "flush")
+# The receive phase: config 4's blocks at full width (4,000 transactions of
+# 512 B, the JAX package's TRANSACTION_SIZE_DEFAULT), depth cut to 5 rounds =
+# 250 blocks, one collector flush (max_batch 256); sent as Blocks frames over
+# loopback between two TcpNetwork endpoints.
+RECEIVE_ROUNDS = 5
+RECEIVE_TX = 4000
+# The forged block that fewer than a quorum of authorities' valid blocks
+# include (round, author); it must be rejected, not aggregated.
+BYZANTINE = (2, 20)
+RECEIVE_PAIRS = 3  # cuda-only / cuda-only-agg runs in turns
+RECEIVE_KINDS = ("cuda-only", "cuda-only-agg", "cuda-agg")
+# The native functions the receive path calls; the phase fails without them.
+RECEIVE_NATIVE = ("decode_block", "block_digests", "parse_blocks_spans", "split_frames")
 # The bench child: a short run of the benchmark's real shape.
 BENCH_ENV = {"BENCH_PROCS": "2", "BENCH_ITERS": "8", "BENCH_TRIALS": "2", "BENCH_MAX_S": "30"}
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -504,6 +533,13 @@ def kernel_phase(signers, table, rng, report):
     return keyed_chunk
 
 
+def tampered_kind(serial: int) -> int:
+    """How ``build_blocks`` and ``build_receive_blocks`` tamper the block
+    with this serial: -1 not at all (one in 25 is), else 0 a signature byte,
+    1 a payload byte, 2 a wrong signer."""
+    return (serial // 25) % 3 if serial % 25 == 7 else -1
+
+
 def build_blocks(signers, rng):
     """Serialized blocks of the committee over ROUNDS rounds; one in
     twenty-five tampered (signature byte, payload byte or wrong signer)."""
@@ -517,7 +553,7 @@ def build_blocks(signers, rng):
         for a in range(n):
             txs = [Share(rng.randbytes(TX_BYTES)) for _ in range(TX_PER_BLOCK)]
             serial = len(raws)
-            kind = (serial // 25) % 3 if serial % 25 == 7 else -1
+            kind = tampered_kind(serial)
             signer = signers[(a + 1) % n] if kind == 2 else signers[a]
             block = StatementBlock.build(a, rnd, prev, txs, signer=signer)
             refs.append(block.reference)
@@ -595,6 +631,12 @@ def main_path(signers, committee, rng, kernels, metrics):
           f"end to end {rate:.0f} sig/s (median of 3, host pack included)", flush=True)
     return (launches, {"committee_sig_per_s": rate, "block_per_s": len(blocks) / block_s},
             (raws, want), (pks, msgs, sigs, expected), reading)
+
+
+def sample_sum(metrics, name) -> float:
+    """The sum of a counter's samples over all its label values."""
+    return sum(sample.value for family in metrics.registry.collect()
+               for sample in family.samples if sample.name == name)
 
 
 def transfer_bytes(metrics) -> dict:
@@ -965,6 +1007,252 @@ def service_phase(committee, blocks_and_want, kernels, in_process_per_s):
     return launches, reading
 
 
+def build_receive_blocks(committee, signers, rng, rounds=RECEIVE_ROUNDS, txs=RECEIVE_TX):
+    """Serialized blocks of an aggregation-shaped DAG: as ``build_blocks``,
+    but honest children include only the previous round's valid blocks (what
+    honest nodes do), and the BYZANTINE block is signed by another key and
+    included by the valid blocks of one authority fewer than a quorum.
+    Returns the raws, which are valid, and the BYZANTINE block's index."""
+    from mysticeti_tpu_torch.types import Share, StatementBlock
+
+    n = len(signers)
+    byz_round, byz_author = BYZANTINE
+    endorsers = [a for a in range(n) if tampered_kind(byz_round * n + a) < 0]
+    endorsers = set(endorsers[: committee.quorum_threshold() - 1])
+    prev = [StatementBlock.new_genesis(a).reference for a in range(n)]
+    raws, valid, byz_ref, byz_index = [], [], None, None
+    for rnd in range(1, rounds + 1):
+        good = []
+        for a in range(n):
+            serial = len(raws)
+            kind = tampered_kind(serial)
+            byzantine = (rnd, a) == BYZANTINE
+            signer = signers[(a + 1) % n] if kind == 2 or byzantine else signers[a]
+            includes = list(prev)
+            if rnd == byz_round + 1 and a in endorsers:
+                includes.append(byz_ref)
+            block = StatementBlock.build(
+                a, rnd, includes, [Share(rng.randbytes(TX_BYTES)) for _ in range(txs)],
+                signer=signer)
+            raw = bytearray(block.to_bytes())
+            if kind == 0:
+                raw[-1 - rng.randrange(64)] ^= 1 << rng.randrange(8)
+            elif kind == 1:
+                raw[-100] ^= 1
+            raws.append(bytes(raw))
+            valid.append(kind < 0 and not byzantine)
+            if valid[-1]:
+                good.append(block.reference)
+            if byzantine:
+                byz_ref, byz_index = block.reference, serial
+        prev = good
+    return raws, valid, byz_index
+
+
+def frames_under_cap(raws, per_round):
+    """Each round's blocks split into ``Blocks`` frames, each holding as
+    many blocks as fit under MAX_FRAME by their encoded size."""
+    from mysticeti_tpu_torch.network import MAX_FRAME
+
+    frames = []
+    for start in range(0, len(raws), per_round):
+        frame, size = [], 1 + 4  # tag, count
+        for raw in raws[start: start + per_round]:
+            if frame and size + 4 + len(raw) > MAX_FRAME:
+                frames.append(frame)
+                frame, size = [], 1 + 4
+            frame.append(raw)
+            size += 4 + len(raw)
+        frames.append(frame)
+    return frames
+
+
+async def over_loopback(frames, streaming=True):
+    """Authority 0 sends ``frames`` to authority 1 over two port
+    ``TcpNetwork`` endpoints on 127.0.0.1; authority 1 decodes each frame
+    with ``from_bytes_many`` on the data-plane offload worker, as it arrives
+    (``streaming``, what a node does) or, for ``receive_split``, once the
+    last frame is in.  Returns the decoded blocks, the seconds from the first
+    send to the last decode, the seconds to the last frame received, the
+    decode seconds and the bytes authority 1 received."""
+    from mysticeti_tpu_torch.core_task import DataPlaneOffload
+    from mysticeti_tpu_torch.metrics import Metrics
+    from mysticeti_tpu_torch.network import Blocks, TcpNetwork
+    from mysticeti_tpu_torch.types import StatementBlock
+
+    addresses = [("127.0.0.1", 0), ("127.0.0.1", 0)]
+    receiver_metrics = Metrics()
+    net1 = await TcpNetwork.start(1, addresses, receiver_metrics)
+    addresses[1] = ("127.0.0.1", net1._server.sockets[0].getsockname()[1])
+    net0 = await TcpNetwork.start(0, addresses, Metrics())
+    offload = DataPlaneOffload(metrics=receiver_metrics)
+    try:
+        conn0 = await asyncio.wait_for(net0.connections.get(), 30)
+        conn1 = await asyncio.wait_for(net1.connections.get(), 30)
+        check(offload.active(), "the data-plane offload is inactive (no native extension)")
+        t0 = time.monotonic()
+
+        async def send():
+            for frame in frames:
+                await conn0.send(Blocks(tuple(frame)))
+
+        async def decode(msg):
+            check(offload.should_offload(sum(len(b) for b in msg.blocks)),
+                  "a frame too small for the offload")
+            d0 = time.monotonic()
+            blocks.extend(await offload.run("decode", StatementBlock.from_bytes_many, msg.blocks))
+            return time.monotonic() - d0
+
+        sender = asyncio.ensure_future(send())
+        blocks, held, decode_s = [], [], 0.0
+        for frame in frames:
+            msg = await asyncio.wait_for(conn1.recv(), 60)
+            check(type(msg) is Blocks and len(msg.blocks) == len(frame),
+                  f"received {type(msg).__name__} instead of a {len(frame)}-block frame")
+            check(all(type(b) is memoryview for b in msg.blocks),
+                  "the frame did not come through the zero-copy receiver")
+            if streaming:
+                decode_s += await decode(msg)
+            else:
+                held.append(msg)
+        received_s = time.monotonic() - t0
+        for msg in held:
+            decode_s += await decode(msg)
+        wire_s = time.monotonic() - t0
+        await sender
+        received = receiver_metrics.registry.get_sample_value(
+            "mesh_wire_bytes_total", {"direction": "received"})
+    finally:
+        offload.stop()
+        await net0.stop()
+        await net1.stop()
+    return blocks, wire_s, received_s, decode_s, received
+
+
+def decode_times(raws):
+    """Seconds to decode ``raws`` with ``from_bytes_many`` and have each
+    block's signed digest: native, then the per-raw pure-Python fallback in
+    this process (the native hooks switched off for the call)."""
+    from mysticeti_tpu_torch import types as T
+
+    def timed():
+        t0 = time.monotonic()
+        blocks = T.StatementBlock.from_bytes_many(raws)
+        for b in blocks:
+            b.signed_digest()
+        return time.monotonic() - t0, blocks
+
+    native_s, native_blocks = timed()
+    hooks = T._native_decode, T._native_block_digests
+    T._native_decode = T._native_block_digests = None
+    try:
+        fallback_s, fallback_blocks = timed()
+    finally:
+        T._native_decode, T._native_block_digests = hooks
+    check([b.signed_digest() for b in native_blocks] == [b.signed_digest() for b in fallback_blocks]
+          and all(b._stamps is None for b in fallback_blocks),
+          "the fallback decode differs from the native one, or did not run")
+    return native_s, fallback_s
+
+
+def receive_phase(committee, signers, rng, kernels):
+    """The wire receive path at config 4's full width, then the verifier
+    kinds on the received burst (see the module docstring, step 10)."""
+    from mysticeti_tpu_torch.block_validator import BatchedSignatureVerifier
+    from mysticeti_tpu_torch.metrics import Metrics
+    from mysticeti_tpu_torch.native import active_functions
+    from mysticeti_tpu_torch.validator import _make_verifier
+
+    active = active_functions()
+    check(set(RECEIVE_NATIVE) <= set(active),
+          f"the native extension lacks {sorted(set(RECEIVE_NATIVE) - set(active))}")
+    n = len(signers)
+    t0 = time.monotonic()
+    raws, valid, byz_index = build_receive_blocks(committee, signers, rng, RECEIVE_ROUNDS,
+                                                  RECEIVE_TX)
+    build_s = time.monotonic() - t0
+    frames = frames_under_cap(raws, n)
+    blocks, wire_s, _, wire_decode_s, received = asyncio.run(over_loopback(frames))
+    check([b.to_bytes() for b in blocks] == raws, "the received blocks differ from the sent ones")
+    check(all(b._signed_digest is not None and b._stamps is not None for b in blocks),
+          "a received block has no precomputed signed digest: the native decode did not run")
+    for b in blocks:
+        b.verify_structure(committee)
+    want = [oracle(committee.get_public_key(b.author()).bytes, b.signed_digest(), b.signature)
+            for b in blocks]
+    check(want == valid, "the oracle disagrees with the blocks' labels")
+    native_s, fallback_s = decode_times(raws)
+    reading = {"blocks": len(blocks), "block_bytes": len(raws[0]), "frames": len(frames),
+               "blocks_per_frame": [len(f) for f in frames[: len(frames) // RECEIVE_ROUNDS]],
+               "bytes_received": received, "wire_s": wire_s, "wire_decode_s": wire_decode_s,
+               "decode_native_s": native_s, "decode_fallback_s": fallback_s,
+               "native_over_fallback": native_s / fallback_s, "build_s": build_s,
+               "tampered": want.count(False), "native_functions": list(active)}
+    print(f"receive: {len(blocks)} blocks of {len(raws[0])} B in {len(frames)} frames, "
+          f"{received:.0f} B received over loopback in {wire_s:.3f} s decoding each frame as "
+          f"it arrives ({wire_decode_s:.3f} s of it decoding); decode native {native_s:.3f} s, "
+          f"fallback {fallback_s:.3f} s ({native_s / fallback_s:.3f}x) [{card_line()}]",
+          flush=True)
+
+    # Every kind's warmup (kernel loads, key combs, the hybrid's calibration)
+    # runs before the counts are zeroed: they count the receive path only.
+    verifiers, registries = {}, {}
+    for kind in RECEIVE_KINDS:
+        registries[kind] = Metrics()
+        verifier = verifiers[kind] = _make_verifier(kind, committee, metrics=registries[kind])
+        check(verifier.ready.wait(300), f"{kind} warmup did not finish")
+        check(verifier.aggregate == kind.endswith("-agg"), f"{kind} aggregate mode")
+    for k in kernels:
+        k.reset_counts()
+    for kind, verifier in verifiers.items():
+        metrics = registries[kind]
+        t0 = time.monotonic()
+        verdicts = asyncio.run(verifier.verify_blocks(blocks))
+        elapsed = time.monotonic() - t0
+        check(verdicts == want, f"{kind} verdicts differ from the oracle's")
+        check(verdicts[byz_index] is False, f"{kind} accepted the forged block")
+        check(verifier.aggregated_total + verifier.direct_total == len(blocks),
+              f"{kind}: {verifier.aggregated_total} aggregated + {verifier.direct_total} "
+              f"direct != {len(blocks)}")
+        if verifier.aggregate:
+            check(verifier.aggregated_total > 0, f"{kind} skipped no block")
+        get = metrics.registry.get_sample_value
+        dispatched = get("verify_dispatch_batch_size_sum") or 0.0
+        reading[kind] = {"blocks_per_s": len(blocks) / elapsed,
+                         "aggregated": verifier.aggregated_total, "direct": verifier.direct_total,
+                         "signatures_dispatched": dispatched,
+                         "dispatches": get("verify_dispatch_batch_size_count"),
+                         "lanes": dispatched + sample_sum(metrics, "verify_padding_wasted_total")}
+    launches = {k.name: k.launches for k in kernels}
+    check(launches["verify_keyed"] > 0 and launches["prologue"] > 0,
+          f"the receive path did not take the prologue and the keyed kernel: {launches}")
+    check(launches["verify_generic"] == 0, f"the receive path launched the generic kernel: {launches}")
+
+    rates = {kind: [] for kind in RECEIVE_KINDS[:2]}
+    for _ in range(RECEIVE_PAIRS):
+        for kind in RECEIVE_KINDS[:2]:
+            made = verifiers[kind]
+            fresh = BatchedSignatureVerifier(committee, made.verifier, max_delay_s=made.max_delay_s,
+                                             aggregate=made.aggregate)
+            t0 = time.monotonic()
+            verdicts = asyncio.run(fresh.verify_blocks(blocks))
+            rates[kind].append(len(blocks) / (time.monotonic() - t0))
+            check(verdicts == want, f"{kind} verdicts differ from the oracle's in turn")
+    reading["turns_blocks_per_s"] = rates
+    reading["median_blocks_per_s"] = {k: statistics.median(v) for k, v in rates.items()}
+    only, agg = (reading["median_blocks_per_s"][k] for k in RECEIVE_KINDS[:2])
+    reading["agg_over_only"] = agg / only
+    reading["card"] = card_line()
+    print(f"receive: verdicts equal the oracle's for {', '.join(RECEIVE_KINDS)}; forged block "
+          f"{byz_index} rejected; aggregated {reading['cuda-only-agg']['aggregated']} / direct "
+          f"{reading['cuda-only-agg']['direct']} (cuda-only-agg), signatures dispatched "
+          f"{reading['cuda-only']['signatures_dispatched']:.0f} vs "
+          f"{reading['cuda-only-agg']['signatures_dispatched']:.0f}; median blocks/s in turns "
+          f"cuda-only {only:.1f}, cuda-only-agg {agg:.1f} ({agg / only:.3f}x); launches "
+          f"{launches} [{reading['card']}]", flush=True)
+    return launches, reading
+
+
 def bench_phase() -> dict:
     """``python -m mysticeti_tpu_torch.bench`` as a child, on BENCH_ENV."""
     env = dict(os.environ, **BENCH_ENV)
@@ -1040,6 +1328,7 @@ def run() -> int:
     by_path["entry"], by_path["dryrun"] = entry_phase(K.KERNELS)
     by_path["service"], service = service_phase(committee, blocks_and_want, K.KERNELS,
                                                 rates["block_per_s"])
+    by_path["receive"], receive = receive_phase(committee, signers, rng, K.KERNELS)
     bench = bench_phase()
     # The block path's flushes take the keyed kernel, one key per lane, and
     # never the generic one; the committee dispatch's 8 stragglers take the
@@ -1074,7 +1363,7 @@ def run() -> int:
                       "bucket": BUCKET, "committee": COMMITTEE,
                       "block_path_blocks_per_s": rates["block_per_s"], "flush": report["flush"],
                       "flat_vs_26col": layout, "sharded": sharded, "hybrid": hybrid,
-                      "service": service, "metrics": metrics_reading,
+                      "service": service, "receive": receive, "metrics": metrics_reading,
                       "bench": bench}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1107,6 +1396,111 @@ def sharded_only() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def receive_only() -> int:
+    """The receive phase alone: ``python3 -c 'import chip_smoke as c;
+    raise SystemExit(c.main(c.receive_only))'``."""
+    import torch
+
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    committee = Committee.new_for_benchmarks(COMMITTEE)
+    launches, reading = receive_phase(committee, Committee.benchmark_signers(COMMITTEE),
+                                      random.Random(SEED), K.KERNELS)
+    print(json.dumps({"receive": reading, "launches": launches}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def offload_decode_times(frames):
+    """Seconds to decode ``frames`` natively one frame at a time on the
+    data-plane offload worker from memoryview slices of one buffer a frame
+    (what ``decode_message`` hands over): keeping every block, as the
+    receive path does, and dropping each frame's blocks once decoded.  The
+    two split the receive path's decode time into the decode's own work and
+    what keeping ~1 GB of new blocks costs."""
+    from mysticeti_tpu_torch.core_task import DataPlaneOffload
+    from mysticeti_tpu_torch.types import StatementBlock
+
+    def views(frame):
+        buf = memoryview(bytearray(b"".join(frame)))
+        cuts = [0]
+        for raw in frame:
+            cuts.append(cuts[-1] + len(raw))
+        return [buf[a:b] for a, b in zip(cuts, cuts[1:])]
+
+    async def timed(keep):
+        offload = DataPlaneOffload()
+        kept = []
+        try:
+            t0 = time.monotonic()
+            for batch in framed_views:
+                out = await offload.run("decode", StatementBlock.from_bytes_many, batch)
+                if keep:
+                    kept.extend(out)
+            return time.monotonic() - t0
+        finally:
+            offload.stop()
+
+    framed_views = [views(f) for f in frames]
+    return {"kept_s": asyncio.run(timed(True)), "dropped_s": asyncio.run(timed(False))}
+
+
+def aggregate_bookkeeping_s(committee, blocks, want):
+    """Host seconds of the collector's aggregate bookkeeping on ``blocks``
+    alone (``aggregate_verify`` and ``_note_endorsements``, the frontier
+    answered from ``want`` with no dispatch), median of 3."""
+    from mysticeti_tpu_torch.block_validator import BatchedSignatureVerifier, aggregate_verify
+
+    verdict = {b.reference: ok for b, ok in zip(blocks, want)}
+
+    async def direct(sub):
+        return [verdict[b.reference] for b in sub]
+
+    async def once():
+        collector = BatchedSignatureVerifier(committee, None, aggregate=True)
+        t0 = time.monotonic()
+        results = await aggregate_verify(blocks, committee, direct,
+                                         prior_endorsers=collector._prior_endorsers,
+                                         defer_unresolved=True)
+        collector._note_endorsements(blocks, results)
+        elapsed = time.monotonic() - t0
+        check(results == want, "the aggregate rule disagrees with the oracle")
+        return elapsed
+
+    return statistics.median(asyncio.run(once()) for _ in range(3))
+
+
+def receive_split() -> int:
+    """Where the receive burst's time goes, on the host alone (not part of
+    the default run): ``python3 -c 'import chip_smoke as c; raise
+    SystemExit(c.main(c.receive_split))'``.  The receive phase's blocks and
+    frames; the transfer alone (the frames decoded only once the last is
+    in); the decode per frame on the offload worker keeping the blocks and
+    dropping them; and the host seconds of the aggregate bookkeeping."""
+    from mysticeti_tpu_torch.committee import Committee
+
+    print(card_line(), flush=True)
+    committee = Committee.new_for_benchmarks(COMMITTEE)
+    signers = Committee.benchmark_signers(COMMITTEE)
+    raws, valid, _ = build_receive_blocks(committee, signers, random.Random(SEED), RECEIVE_ROUNDS,
+                                          RECEIVE_TX)
+    frames = frames_under_cap(raws, len(signers))
+    blocks, wire_s, transfer_s, after_transfer_s, _ = asyncio.run(
+        over_loopback(frames, streaming=False))
+    check([b.to_bytes() for b in blocks] == raws, "the held frames differ from the sent ones")
+    reading = {"transfer_only_s": transfer_s, "decode_after_transfer_s": after_transfer_s,
+               "wire_s": wire_s, "decode_offload": offload_decode_times(frames),
+               "aggregate_bookkeeping_s": aggregate_bookkeeping_s(committee, blocks, valid),
+               "card": card_line()}
+    print(json.dumps({"receive_split": reading}), flush=True)
     return 0
 
 

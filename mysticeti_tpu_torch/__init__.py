@@ -1,4 +1,4 @@
-"""mysticeti-tpu on PyTorch and CUDA: the committee block-signature verify path.
+"""mysticeti-tpu on PyTorch and CUDA: the block receive and verify path.
 
 A port of the ``mysticeti_tpu`` verifier slice to PyTorch, with the batched
 Ed25519 work running in hand-written CUDA kernels for Hopper (``sm_90a``).
@@ -9,11 +9,16 @@ counterpart there, and imports nothing of it: the host modules it needs
 Package layout:
   types / crypto / serde / committee / threshold_clock   — block model + keys
   block_validator / verify_pipeline / validator          — the verifier seam,
-                                                           hybrid router included
+                                                           hybrid router and
+                                                           threshold aggregation
+                                                           included
+  network / core_task  — the mesh transport and codec, the data-plane offload
+  native/              — the C++ data plane (decode, digests, frame codecs),
+                         built with g++ at first import
   verifier_service     — the shared per-host verifier service and its client
   entry / bench        — entry points, the throughput benchmark
   metrics / spans / tracing                              — observability
-  runtime / utils / network                              — what the seam needs
+  runtime / utils                                        — what the seam needs
   ops/                 — field, scalar, SHA-512 and Ed25519 in torch, plus the
                          CUDA kernel wrappers (ops/ed25519_cuda.py)
   parallel/            — the mesh of cards and the sharded dispatch

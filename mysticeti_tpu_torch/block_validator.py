@@ -5,9 +5,10 @@ accelerator path: ``BlockVerifier`` / ``AcceptAllBlockVerifier``, the
 ``SignatureVerifier`` backends (the CPU oracle and ``TorchSignatureVerifier``,
 the counterpart of ``TpuSignatureVerifier``, sharding over the host's cards
 through ``parallel.mesh``), the hybrid CPU/GPU router
-``HybridSignatureVerifier`` with its circuit breaker, and the batching
-collector ``BatchedSignatureVerifier`` without threshold aggregation.  The
-aggregate verifier is not carried over; the verifier service and its client
+``HybridSignatureVerifier`` with its circuit breaker, the batching collector
+``BatchedSignatureVerifier`` (with its threshold-aggregate mode), and the
+threshold-aggregate rule itself (``aggregate_verify``,
+``ThresholdAggregateVerifier``).  The verifier service and its client
 (``RemoteSignatureVerifier``) are in verifier_service.py.
 
 Split of responsibilities on the receive path:
@@ -24,6 +25,7 @@ import contextlib
 import random
 import threading
 import time
+from itertools import islice
 from typing import List, Optional, Sequence, Tuple
 
 from . import spans
@@ -862,6 +864,189 @@ class _HybridTpuDispatch:
             inner()
 
 
+async def aggregate_verify(
+    blocks: Sequence[StatementBlock],
+    committee: Committee,
+    direct_verify,
+    count=None,
+    prior_endorsers=None,
+    defer_unresolved: bool = False,
+) -> List[Optional[bool]]:
+    """The threshold-aggregate acceptance rule over one batch of blocks
+    (shared by the frame-level ``ThresholdAggregateVerifier`` and the
+    collector-level aggregate mode of ``BatchedSignatureVerifier``).
+
+    ``direct_verify(sub_blocks) -> List[bool]`` is the inner signature check
+    (awaitable); ``count(aggregated, direct)`` is an optional accounting
+    callback.  ``prior_endorsers(ref) -> set[AuthorityIndex]`` optionally
+    supplies authors of PREVIOUSLY ACCEPTED blocks that include ``ref``
+    (every accepted block was itself signature-verified or quorum-endorsed,
+    so its endorsement carries inductively) — this is what makes the rule
+    bite during catch-up, where peers' own-block streams run at different
+    round offsets and a block's verified children usually arrived earlier
+    via a faster stream.  See ``ThresholdAggregateVerifier`` and
+    ``docs/aggregate-verification.md`` for the safety argument: acceptance
+    chains are well-founded and terminate at directly verified signatures.
+
+    Dispatch shape: one frontier dispatch, then the descending-round
+    cascade accepts interiors off those results with NO further dispatch.  Blocks whose endorsement
+    fell short once non-accepted endorsers were excluded ("unresolved"):
+
+    * ``defer_unresolved=False`` (frame-level wrapper): a second direct
+      dispatch resolves them here.  Correct, but SERIALIZED behind the
+      frontier dispatch — on a remote accelerator (~100 ms/round-trip) the
+      second trip halves flush cadence exactly where aggregation was meant
+      to help.
+    * ``defer_unresolved=True`` (the batching collector's deployed mode):
+      their slots return ``None`` and the collector folds them into the
+      NEXT flush window, where they are either endorsed by newly arrived
+      children or dispatched as ordinary frontier — every flush pays
+      exactly one round-trip, same as the plain verifier.  The collector
+      force-dispatches a block on its SECOND deferral: otherwise a
+      Byzantine author could park a forged block in "maybe" forever by
+      minting fresh structure-valid endorsers each window (liveness, not
+      safety — acceptance still requires a quorum of ACCEPTED endorsers).
+    """
+    n = len(blocks)
+    if count is None:
+        count = lambda aggregated, direct: None  # noqa: E731
+    if n == 0:
+        return []
+    if n == 1 and prior_endorsers is None:
+        count(0, n)
+        return list(await direct_verify(list(blocks)))
+    index_of = {b.reference: i for i, b in enumerate(blocks)}
+    # endorsers[i] = indexes of in-batch blocks that include block i.
+    endorsers: List[List[int]] = [[] for _ in range(n)]
+    for j, b in enumerate(blocks):
+        for ref in b.includes:
+            i = index_of.get(ref)
+            if i is not None:
+                endorsers[i].append(j)
+
+    quorum = committee.quorum_threshold()
+
+    def endorsement_stake(i, accepted_flags) -> int:
+        seen = (
+            set(prior_endorsers(blocks[i].reference))
+            if prior_endorsers is not None
+            else set()
+        )
+        stake = sum(committee.get_stake(a) for a in seen)
+        for j in endorsers[i]:
+            if accepted_flags[j] is not True:
+                continue
+            author = blocks[j].author()
+            if author in seen:
+                continue
+            seen.add(author)
+            stake += committee.get_stake(author)
+        return stake
+
+    # Frontier = blocks that cannot possibly reach quorum endorsement
+    # even if every endorser were accepted.
+    maybe: List[Optional[bool]] = [None] * n
+    all_true = [True] * n
+    frontier = [i for i in range(n) if endorsement_stake(i, all_true) < quorum]
+    frontier_set = set(frontier)
+    # Descending claimed-round order: honest endorsers sit in strictly
+    # higher rounds than the blocks they include, so an endorser's fate is
+    # known by the time its endorsee is evaluated.  Rounds are attacker-
+    # claimed, but a mis-ordered (forged) endorser merely evaluates as
+    # not-yet-accepted (False) — never as accepted (see
+    # docs/aggregate-verification.md, well-foundedness).
+    order = sorted(
+        (i for i in range(n) if i not in frontier_set),
+        key=lambda i: -blocks[i].round(),
+    )
+    direct = await direct_verify([blocks[i] for i in frontier])
+    for i, ok in zip(frontier, direct):
+        maybe[i] = bool(ok)
+    count(0, len(frontier))
+    for i in order:
+        maybe[i] = endorsement_stake(i, maybe) >= quorum
+        if maybe[i]:
+            count(1, 0)
+    unresolved = [i for i in order if maybe[i] is False]
+    if unresolved:
+        if defer_unresolved:
+            # The caller folds these into its next flush window — no second
+            # serialized dispatch on this one.
+            for i in unresolved:
+                maybe[i] = None
+            return list(maybe)
+        # Endorsement fell short once non-accepted endorsers were excluded:
+        # these still deserve a direct check rather than a blanket reject.
+        second = await direct_verify([blocks[i] for i in unresolved])
+        count(0, len(unresolved))
+        for i, ok in zip(unresolved, second):
+            maybe[i] = bool(ok)
+    return [bool(v) for v in maybe]
+
+
+class ThresholdAggregateVerifier(BlockVerifier):
+    """Threshold-aggregate verification (BASELINE config #5's technique).
+
+    Exploits the digest/signature layering (crypto.rs:77-84): a block's
+    reference digest is computed over its full serialization INCLUDING the
+    signature, and honest validators only include blocks they verified.  So
+    when blocks signed by a quorum (2f+1 stake, hence >= f+1 honest) of
+    distinct authorities reference block B, B's authenticity is already
+    certified by the quorum — its signature need not be re-checked here.
+
+    Applied at batch granularity on the receive path: within one incoming
+    batch (catch-up and sync deliver hundreds of blocks spanning many
+    rounds), only the non-endorsed FRONTIER is signature-verified through
+    the inner verifier (one accelerator dispatch); interior blocks are accepted when
+    a quorum of distinct accepted in-batch endorsers references them.
+    Acceptance is evaluated in descending-round order, so every acceptance
+    chain terminates at directly verified frontier signatures — a forged
+    interior block needs 2f+1 distinct accepted endorsers, which exceeds the
+    fault model.
+
+    Blocks that do not reach quorum endorsement (including every singleton
+    steady-state delivery) go through the inner verifier unchanged.
+    """
+
+    def __init__(self, committee: Committee, inner: BlockVerifier,
+                 metrics=None) -> None:
+        self.committee = committee
+        self.inner = inner
+        self.metrics = metrics
+        # Plain counters for tests; scrapeable via verified_signatures_total
+        # {backend="aggregate"} when metrics are wired.
+        self.aggregated_total = 0
+        self.direct_total = 0
+
+    def _count(self, aggregated: int, direct: int) -> None:
+        self.aggregated_total += aggregated
+        self.direct_total += direct
+        if self.metrics is not None:
+            if aggregated:
+                self.metrics.verified_signatures_total.labels(
+                    "aggregate", "skipped"
+                ).inc(aggregated)
+            if direct:
+                self.metrics.verified_signatures_total.labels(
+                    "aggregate", "direct"
+                ).inc(direct)
+
+    async def verify(self, block: StatementBlock) -> None:
+        await self.inner.verify(block)
+
+    async def verify_blocks(self, blocks: Sequence[StatementBlock]) -> List[bool]:
+        return await aggregate_verify(
+            blocks, self.committee, self.inner.verify_blocks, self._count
+        )
+
+    def note_committee(self, committee: Committee) -> None:
+        """Quorum endorsement is stake-weighted: follow the epoch's stakes."""
+        self.committee = committee
+        note = getattr(self.inner, "note_committee", None)
+        if note is not None:
+            note(committee)
+
+
 def _observe_orphan(fut) -> None:
     """Retrieve an orphaned executor future's exception so a backend crash
     after the awaiting flush was cancelled is logged, not swallowed into an
@@ -905,6 +1090,10 @@ class BatchedSignatureVerifier(BlockVerifier):
     Usable from any number of asyncio tasks (one per peer connection); the
     device dispatch runs in a worker thread so the event loop never blocks on
     the accelerator.
+
+    With ``aggregate=True`` each flush goes through ``aggregate_verify``:
+    quorum-endorsed interior blocks skip the signature dispatch and only the
+    frontier pays (see ``_flush`` and ``_resolve_deferred``).
     """
 
     MAX_ADAPTIVE_DELAY_S = 0.1
@@ -922,6 +1111,7 @@ class BatchedSignatureVerifier(BlockVerifier):
         max_batch: int = 256,
         max_delay_s: float = 0.005,
         metrics=None,
+        aggregate: bool = False,
         pipeline_depth: Optional[int] = None,
     ) -> None:
         self.committee = committee
@@ -939,7 +1129,26 @@ class BatchedSignatureVerifier(BlockVerifier):
             depth=pipeline_depth, metrics=metrics,
             fixed_cost_fn=self._pipeline_fixed_cost,
         )
+        # Collector-level threshold aggregation: one flush window pools
+        # blocks from EVERY peer connection, so the batch spans authors —
+        # exactly what quorum endorsement needs (a frame-level wrapper sees
+        # one peer's own blocks, whose one author never reaches 2f+1
+        # endorsement stake).  Interior quorum-endorsed blocks skip the
+        # signature dispatch; only the frontier pays.
+        self.aggregate = aggregate
+        self.aggregated_total = 0
         self.direct_total = 0
+        # Cross-flush endorsement index: ref -> authors of ACCEPTED blocks
+        # that include it.  Catch-up streams from different peers run at
+        # different round offsets, so a backlog block's quorum of verified
+        # children has usually been accepted in EARLIER flushes.  Strictly
+        # size-bounded with insertion-order (FIFO) eviction: rounds CLAIMED
+        # by blocks are attacker-controlled, so neither the prune window nor
+        # residency may key on them.
+        self._endorsements: dict = {}
+        # id(future) of entries deferred once (aggregate mode): the next
+        # unresolved verdict force-dispatches instead of deferring again.
+        self._deferred: set = set()
         self._pending: List[Tuple[StatementBlock, asyncio.Future]] = []
         self._lock = threading.Lock()
         self._flush_task: Optional[asyncio.TimerHandle] = None
@@ -1059,6 +1268,8 @@ class BatchedSignatureVerifier(BlockVerifier):
 
     async def _direct(self, blocks) -> List[bool]:
         """One dispatch of ``blocks``' signatures through the pipeline."""
+        if not blocks:
+            return []
         loop = asyncio.get_running_loop()
         tracer = spans.active()
         # -- pack stage (host, loop thread): key lookup + list building; the
@@ -1141,13 +1352,24 @@ class BatchedSignatureVerifier(BlockVerifier):
                     self._flush_task = None
         if not batch:
             return
-        self.direct_total += len(batch)
+        blocks = [b for b, _ in batch]
         try:
-            results = await self._direct([b for b, _ in batch])
+            if self.aggregate:
+                results = await aggregate_verify(
+                    blocks, self.committee, self._direct, self._account,
+                    prior_endorsers=self._prior_endorsers,
+                    defer_unresolved=True,
+                )
+                results = await self._resolve_deferred(batch, results)
+                self._note_endorsements(blocks, results)
+            else:
+                self._account(0, len(blocks))
+                results = await self._direct(blocks)
         except asyncio.CancelledError:
             # Cancelled mid-dispatch (node teardown): the window's futures
             # must still resolve, or verify() callers park forever.
             for _, future in batch:
+                self._deferred.discard(id(future))
                 if not future.done():
                     future.cancel()
             raise
@@ -1157,14 +1379,66 @@ class BatchedSignatureVerifier(BlockVerifier):
             # infra failure is not evidence the signatures were invalid.
             log.error("signature verifier crashed on %d blocks: %r", len(batch), exc)
             for _, future in batch:
+                self._deferred.discard(id(future))
                 if not future.done():
                     future.set_exception(exc)
             return
         if self.metrics is not None:
             self.metrics.verify_batch_size.observe(len(batch))
         for (_, future), ok in zip(batch, results):
+            if ok is None:
+                continue  # deferred: resolves with the next flush
             if not future.done():
                 future.set_result(bool(ok))
+
+    def _account(self, aggregated: int, direct: int) -> None:
+        """Count skipped (aggregate-accepted) and directly dispatched
+        blocks; the skips are also scrapeable as
+        ``verified_signatures_total{backend="aggregate", outcome="skipped"}``
+        (the direct ones count under their backend's label at dispatch)."""
+        self.aggregated_total += aggregated
+        self.direct_total += direct
+        if self.metrics is not None and aggregated:
+            self.metrics.verified_signatures_total.labels(
+                "aggregate", "skipped"
+            ).inc(aggregated)
+
+    async def _resolve_deferred(self, batch, results):
+        """Route ``None`` (unresolved) slots from an aggregate flush.
+
+        First deferral: fold the entry into the NEXT flush window — it will
+        be endorsed there by newly arrived children or dispatched as
+        ordinary frontier, so this flush stays at one accelerator
+        round-trip.  Second deferral: force a direct dispatch — a block that
+        stays "maybe" across windows is either ahead of its children (direct
+        check settles it) or a Byzantine park attempt (minting fresh
+        endorsers each window must not stall it forever).
+        """
+        results = list(results)
+        requeue, force = [], []
+        for slot, ((block, future), ok) in enumerate(zip(batch, results)):
+            if ok is not None:
+                self._deferred.discard(id(future))
+                continue
+            if id(future) in self._deferred:
+                self._deferred.discard(id(future))
+                force.append((slot, block))
+            else:
+                self._deferred.add(id(future))
+                requeue.append((block, future))
+        if force:
+            out = await self._direct([b for _, b in force])
+            self.direct_total += len(force)
+            for (slot, _), ok in zip(force, out):
+                results[slot] = bool(ok)
+        if requeue:
+            loop = asyncio.get_running_loop()
+            with self._lock:
+                # Oldest first: deferred entries re-enter at the head.
+                self._pending[:0] = requeue
+                if self._flush_task is None:
+                    self._schedule_flush(loop)
+        return results
 
     async def verify_blocks(self, blocks: Sequence[StatementBlock]) -> List[bool]:
         """All blocks of a frame join the collector CONCURRENTLY.  Only
@@ -1183,6 +1457,42 @@ class BatchedSignatureVerifier(BlockVerifier):
                 out.append(True)
         return out
 
+    ENDORSEMENT_MAX_ENTRIES = 200_000  # hard cap; FIFO eviction beyond it
+
+    _EMPTY = frozenset()
+
+    def _prior_endorsers(self, ref):
+        # Callers must not mutate (endorsement_stake copies before mutating).
+        return self._endorsements.get(ref, self._EMPTY)
+
+    def _note_endorsements(self, blocks, results) -> None:
+        """Record accepted blocks' includes in the endorsement index; only
+        ACCEPTED blocks endorse (each was signature-verified or quorum-
+        endorsed itself, so the license carries inductively).  Eviction is
+        strictly by first-endorsement insertion order — recent entries (the
+        live catch-up window) survive regardless of the rounds blocks CLAIM."""
+        endorsements = self._endorsements
+        for block, ok in zip(blocks, results):
+            if not ok:
+                continue
+            author = block.author()
+            for ref in block.includes:
+                prev = endorsements.get(ref)
+                if prev is None:
+                    endorsements[ref] = {author}
+                else:
+                    prev.add(author)
+        excess = len(endorsements) - self.ENDORSEMENT_MAX_ENTRIES
+        if excess > 0:
+            # dicts iterate in insertion order: drop the oldest entries.
+            for ref in list(islice(iter(endorsements), excess)):
+                del endorsements[ref]
+
     async def flush_now(self) -> None:
-        """Test/shutdown hook: drain whatever is pending immediately."""
+        """Test/shutdown hook: drain whatever is pending immediately —
+        including aggregate-mode deferrals (a deferred entry re-enters
+        ``_pending``; its second appearance force-dispatches, so this loop
+        terminates)."""
         await self._flush()
+        while self._pending:
+            await self._flush()

@@ -1,15 +1,18 @@
 """Observability: the verifier's prometheus series, busy timers, /metrics.
 
 The port's copy of ``mysticeti_tpu.metrics``, trimmed to the series the
-port's modules write: the batching collector and its staged pipeline, the
-hybrid router, the verifier service and its client, and the device
-attribution of ``ops/ed25519.py``.  Every family keeps the JAX package's
-name, labels and buckets, except the JAX compile and compile-cache families,
-which become the kernels' build families (``mysticeti_cuda_build*``, see
-``ops.ed25519.install_device_attribution``).  The consensus, storage,
-network and ingress families, the exact-percentile histograms and the
-native data plane's ``mysticeti_native_active`` gauge wait for the modules
-that write them.
+port's modules write: the batching collector and its staged pipeline
+(aggregate mode's ``verified_signatures_total{backend="aggregate"}``
+skipped/direct counts included), the hybrid router, the verifier service and
+its client, the device attribution of ``ops/ed25519.py``, the mesh transport
+(``network.py``: connection latency and send drops, wire bytes, coalesced
+frames, malformed frames), and the native data plane
+(``mysticeti_native_active``, ``dataplane_offload_seconds``).  Every family
+keeps the JAX package's name, labels and buckets, except the JAX compile and
+compile-cache families, which become the kernels' build families
+(``mysticeti_cuda_build*``, see ``ops.ed25519.install_device_attribution``).
+The consensus, storage and ingress families and the exact-percentile
+histograms wait for the modules that write them.
 """
 from __future__ import annotations
 
@@ -46,7 +49,66 @@ class Metrics:
         def histogram(name, doc, labels=(), buckets=STAGE_BUCKETS):
             return Histogram(name, doc, labelnames=labels, buckets=buckets, registry=r)
 
-        # Signature verifier: the collector (block_validator.py).
+        # Mesh transport (network.py): peer RTT, what the sockets carried,
+        # the frames the write loop coalesced, and the sends backpressure
+        # discarded.
+        self.connection_latency = histogram(
+            "connection_latency", "peer rtt", labels=("peer",),
+            buckets=[0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 5.0],
+        )
+        self.mesh_frames_coalesced_total = counter(
+            "mesh_frames_coalesced_total",
+            "mesh frames that shipped in the same scatter-gather "
+            "writelines batch as an earlier frame (one syscall + one "
+            "drain for the whole batch)",
+        )
+        self.mesh_wire_bytes_total = counter(
+            "mesh_wire_bytes_total",
+            "bytes moved over validator mesh sockets (headers + payloads)",
+            labels=("direction",),
+        )
+        self.connection_send_drops_total = counter(
+            "connection_send_drops_total",
+            "non-blocking mesh sends discarded because the peer's bounded "
+            "send queue was full (backpressure; previously silent)",
+            labels=("peer",),
+        )
+        self.mysticeti_malformed_frames_total = counter(
+            "mysticeti_malformed_frames_total",
+            "malformed mesh frames (garbage length prefix, oversized "
+            "frame, undecodable payload) that severed the delivering "
+            "connection, by peer",
+            labels=("peer",),
+        )
+        # Native data plane (native/mysticeti_native.cpp): which native
+        # functions resolved in THIS process — an info series (value
+        # constant 1) so a measurement can tell which path a run took.  The
+        # "any" row is always present: 1 with the extension, 0 on the
+        # pure-Python fallback (no toolchain, build failure,
+        # MYSTICETI_NO_NATIVE=1).
+        self.mysticeti_native_active = gauge(
+            "mysticeti_native_active",
+            "info series: native data-plane functions resolved (fn=any "
+            "summarizes extension presence)",
+            labels=("fn",),
+        )
+        from .native import active_functions
+
+        active = active_functions()
+        for fn in active:
+            self.mysticeti_native_active.labels(fn).set(1)
+        self.mysticeti_native_active.labels("any").set(1 if active else 0)
+        # Batched decode+digest batches routed off the event loop
+        # (core_task.DataPlaneOffload), timed in the offload worker.
+        self.dataplane_offload_seconds = histogram(
+            "dataplane_offload_seconds",
+            "per-batch time in each data-plane offload stage, measured in "
+            "the offload worker thread (queue wait excluded)",
+            labels=("stage",),
+        )
+        # Signature verifier: the collector (block_validator.py); aggregate
+        # mode counts its skipped and direct signatures under
+        # backend="aggregate".
         self.verified_signatures_total = counter(
             "verified_signatures_total", "batched signature verifications",
             labels=("backend", "outcome"),

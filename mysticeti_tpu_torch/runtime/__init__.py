@@ -2,7 +2,7 @@
 
 The port has no deterministic virtual-time loop yet, so the clock is the
 running asyncio loop's (monotonic) clock, or ``time.monotonic`` outside one,
-and the wall clock is ``time.time``.
+and the wall clock is ``time.time``; ``is_simulated`` is always False.
 """
 from __future__ import annotations
 
@@ -23,4 +23,14 @@ def timestamp_utc() -> float:
     return time.time()
 
 
-__all__ = ["now", "timestamp_utc"]
+def is_simulated() -> bool:
+    """True when running under the deterministic virtual-time loop.
+
+    The port has no such loop yet, so this returns False; the JAX package's
+    ``runtime.is_simulated`` checks for its ``DeterministicLoop``.  Callers
+    keep the check so the port's simulator can switch their real-thread hops
+    off when it arrives."""
+    return False
+
+
+__all__ = ["is_simulated", "now", "timestamp_utc"]

@@ -11,8 +11,10 @@ Capability parity with ``mysticeti-core/src/types.rs``:
 * ``StatementBlock.verify`` — the consensus-rule verification entry  (types.rs:315-376)
 * ``TransactionLocator`` / ``TransactionLocatorRange``  (types.rs:383-394)
 
-The port's copy of ``mysticeti_tpu.types`` with the pure-Python decoder only
-(the native C++ decoder wiring is not carried over).
+The port's copy of ``mysticeti_tpu.types``, with the native C++ decoder
+(``native/``) behind ``from_bytes`` and the batched ``from_bytes_many``, and
+the pure-Python decoder as the fallback.  The simulator's decode memo is not
+carried over: the port has no deterministic loop yet.
 
 Design notes: blocks are immutable and cache their canonical
 serialization at construction, so digesting / signing / wire framing never re-encode
@@ -315,7 +317,14 @@ class StatementBlock:
         "signature",
         "_bytes",
         "_digest_trusted",
-        # blake2b-256 over signed_bytes, cached on first computation: the
+        # Share run-length spans precomputed by the native decoder (None on
+        # locally built blocks and on the pure-Python decode path).
+        "_share_runs",
+        # Concatenated 8-byte submission stamps, also decoder-precomputed
+        # (the commit observer's latency input).
+        "_stamps",
+        # blake2b-256 over signed_bytes, precomputed by the batched native
+        # digest path (from_bytes_many) or cached on first computation: the
         # signature verifier re-derives it per block otherwise.
         "_signed_digest",
     )
@@ -340,6 +349,8 @@ class StatementBlock:
         self.epoch = epoch
         self.signature = signature
         self._bytes = _bytes
+        self._share_runs = None
+        self._stamps = None
         self._signed_digest = None
         # True only on construction paths that DERIVED the reference digest
         # from the exact cached bytes (from_bytes): re-hashing the same
@@ -437,7 +448,9 @@ class StatementBlock:
 
         This fixed-width message is what makes the batch verifier's SHA-512 input
         a constant shape (R || A || 32-byte digest = one 128-byte SHA-512 block).
-        Cached after the first computation.
+        Cached: the batched native decode path (``from_bytes_many``) precomputes it
+        alongside the block digest, one GIL round-trip per frame instead of one
+        hash pass per verified block.
         """
         if self._signed_digest is None:
             self._signed_digest = crypto.blake2b_256(self.signed_bytes())
@@ -459,6 +472,28 @@ class StatementBlock:
         downstream retains a view of the caller's buffer."""
         if type(data) is not bytes:  # memoryview/mmap callers
             data = bytes(data)
+        if _native_decode is not None:
+            # Native single-pass decoder (native/mysticeti_native.cpp):
+            # identical wire format and rejection cases, differentially
+            # tested against the pure-Python path below.
+            try:
+                decoded = _native_decode(data)
+            except ValueError as exc:
+                raise SerdeError(str(exc)) from None
+            # Unpack OUTSIDE the except: an arity mismatch here means a
+            # stale compiled extension (build skew) and must fail loudly,
+            # not masquerade as malformed wire data.
+            (authority, round_, includes, statements, meta_ns,
+             epoch_marker, epoch, signature, share_runs, stamps) = decoded
+            digest = crypto.blake2b_256(data)
+            block = cls(
+                BlockReference(authority, round_, digest), tuple(includes),
+                tuple(statements), meta_ns, epoch_marker, epoch, signature,
+                _bytes=data, _digest_trusted=True,
+            )
+            block._share_runs = share_runs
+            block._stamps = stamps
+            return block
         try:
             n = len(data)
             authority, round_ = _U64X2.unpack_from(data, 0)
@@ -555,6 +590,55 @@ class StatementBlock:
         )
         return block
 
+    @classmethod
+    def from_bytes_many(cls, raws) -> List[Optional["StatementBlock"]]:
+        """Batched decode of N serialized blocks; ``None`` marks a malformed entry.
+
+        The receive-path sibling of ``from_bytes`` for whole-frame ingest:
+        all N block digests AND signature pre-hashes are computed in ONE
+        native call with the GIL released (``block_digests``), so a K-block
+        frame costs one GIL round-trip instead of K hashlib calls.  Falls
+        back to per-raw ``from_bytes`` when the extension is absent.
+        """
+        if _native_decode is None or _native_block_digests is None:
+            out = []
+            for data in raws:
+                try:
+                    out.append(cls.from_bytes(data))
+                except SerdeError:
+                    out.append(None)
+            return out
+        datas = [data if type(data) is bytes else bytes(data) for data in raws]
+        decoded = []
+        good = []
+        for data in datas:
+            try:
+                decoded.append(_native_decode(data))
+                good.append(data)
+            except ValueError:
+                decoded.append(None)
+        digests = iter(_native_block_digests(good))
+        out: List[Optional["StatementBlock"]] = []
+        for data, dec in zip(datas, decoded):
+            if dec is None:
+                out.append(None)
+                continue
+            # Unpack OUTSIDE any except (same contract as from_bytes): an
+            # arity mismatch means extension build skew, not bad wire data.
+            (authority, round_, includes, statements, meta_ns,
+             epoch_marker, epoch, signature, share_runs, stamps) = dec
+            digest, signed_digest = next(digests)
+            block = cls(
+                BlockReference(authority, round_, digest), tuple(includes),
+                tuple(statements), meta_ns, epoch_marker, epoch, signature,
+                _bytes=data, _digest_trusted=True,
+            )
+            block._share_runs = share_runs
+            block._stamps = stamps
+            block._signed_digest = signed_digest
+            out.append(block)
+        return out
+
     # -- accessors --
 
     def author(self) -> AuthorityIndex:
@@ -585,6 +669,8 @@ class StatementBlock:
         locator per transaction: at saturation that was ~1M frozen-dataclass
         builds per reporting window, discarded immediately (round-5 profile).
         """
+        if self._stamps is not None:  # decoder-precomputed (wire blocks)
+            return self._stamps
         out = []
         for st in self.statements:
             if isinstance(st, Share):
@@ -655,3 +741,21 @@ class StatementBlock:
 
 class VerificationError(ValueError):
     """A block failed consensus-rule or signature verification."""
+
+
+# Native decoder wiring: register the statement/reference classes with the
+# C++ extension once, then resolve the fast path from_bytes dispatches to.
+from .native import native as _native_mod  # noqa: E402
+
+_native_decode = None
+_native_block_digests = None
+if _native_mod is not None and hasattr(_native_mod, "decode_block"):
+    _native_mod.decode_register(
+        BlockReference, Share, Vote, VoteRange, TransactionLocator,
+        TransactionLocatorRange,
+    )
+    _native_decode = _native_mod.decode_block
+if _native_mod is not None and hasattr(_native_mod, "block_digests"):
+    # Batched (digest, signed-prehash) pairs, held to crypto.blake2b_256 by
+    # the port's native tests.
+    _native_block_digests = _native_mod.block_digests

@@ -187,6 +187,9 @@ SHARED_FAMILIES = (
     "verifier_reconnect_total", "verify_pipeline_inflight", "verify_pipeline_depth",
     "verify_pipeline_stage_seconds", "mysticeti_verify_occupancy_fraction",
     "mysticeti_device_transfer_bytes_total", "utilization_timer_us",
+    "connection_latency", "mesh_frames_coalesced_total", "mesh_wire_bytes_total",
+    "connection_send_drops_total", "mysticeti_malformed_frames_total",
+    "mysticeti_native_active", "dataplane_offload_seconds",
 )
 BUILD_FAMILIES = {
     "mysticeti_cuda_builds_total": "mysticeti_jax_compiles_total",
@@ -209,7 +212,10 @@ def test_metrics_families_equal_the_jax_package():
         got, want = getattr(port, attr), getattr(jax, jax_attr)
         assert (type(got).__name__, got._labelnames) == (type(want).__name__, want._labelnames)
         assert got._name == attr[: -len("_total")]
-    assert not hasattr(port, "mysticeti_native_active")  # waits for the native data plane
+    # Both packages' native extensions are built here: the info series agree.
+    for fn in ("any", "decode_block", "split_frames"):
+        assert port.registry.get_sample_value("mysticeti_native_active", {"fn": fn}) == \
+            jax.registry.get_sample_value("mysticeti_native_active", {"fn": fn}) == 1
     # The scrape carries the families the collector writes.
     port.verify_pipeline_stage_seconds.labels("pack").observe(0.002)
     with port.utilization_timer("verify:dispatch"):

@@ -109,7 +109,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 10
     names = {p.relative_to(ROOT).as_posix() for p in files}
     assert {f"mysticeti_tpu_torch/{m}.py" for m in (
-        "entry", "bench", "verifier_service", "metrics", "spans", "tracing")} <= names
+        "entry", "bench", "verifier_service", "metrics", "spans", "tracing", "network",
+        "core_task", "native/__init__")} <= names
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "mysticeti_tpu"}, path
