@@ -77,17 +77,43 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    the generic one.  Then ``cuda-only`` and ``cuda-only-agg`` in turns,
    three pairs.  Also timed: the 250 blocks' decode native against the
    pure-Python fallback in this process.
-11. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
+11. Consensus (the consensus-50 cell): config 4's 50 authorities
+   (``Committee.new_for_benchmarks(50)``, the benchmark signers) as 50
+   ``Syncer``s over a ``Core``, a ``TestBlockHandler``, a
+   ``TestCommitObserver`` and a WAL each, under the port's deterministic
+   loop for 2.2 virtual seconds: each new own block goes to every peer after
+   a seeded 50-100 ms, with 1 s leader timeouts and a 0.25 s relay pump.
+   Every delivery is decoded through ``from_bytes_many`` (under the
+   simulator's decode memo that is one ``from_bytes`` a block: the batched
+   native decode of step 10 is bypassed) and awaited in the receiving
+   node's own collector (5 ms window, 256 lanes); all 50 share
+   one ``TorchSignatureVerifier`` on cuda:0; the accepted blocks go to
+   ``add_blocks``.  One delivery in 50 (seeded) is preceded by a copy with
+   a signature bit flipped.  Then the same seed over the ``cpu`` kind.
+   Checks: every node commits at least 8 leaders; the committed sequences
+   are prefixes of the longest; every forged copy is rejected and none is
+   in a store; the sequences and every node's own blocks equal the ``cpu``
+   run's; the path launches the prologue and the keyed kernel and never the
+   generic one; the signatures that reached the card equal those of the
+   deliveries verified.
+12. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
    workers, 8 iterations, 2 trials and a 30 s budget; its JSON line must
    come from rung 0 with a value above 0.
-Each path of steps 3-10 (the block path and the committee dispatch of step 3
+Each path of steps 3-11 (the block path and the committee dispatch of step 3
 apart) runs with every launch count set to 0 just before it and read just
 after; every kernel must have launched on some path.
-12. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+13. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or when any
 phase fails.
+
+One phase alone: ``python3 -c 'import chip_smoke as c; raise
+SystemExit(c.main(c.receive_only))'`` (likewise ``consensus_only``, and
+``sharded_only`` for a host with several cards).  Not in the default run:
+``receive_split`` (where the receive burst's host time goes) and
+``consensus_trace`` (the card's busy share in step 11, from a
+``torch.profiler`` trace).
 
 ``python3 chip_smoke.py --times NAMES [CHECKOUT]`` runs only the readings of
 step 2 that NAMES lists (``all``, or some of prologue, verify_generic,
@@ -166,6 +192,17 @@ RECEIVE_KINDS = ("cuda-only", "cuda-only-agg", "cuda-agg")
 RECEIVE_NATIVE = ("decode_block", "block_digests", "parse_blocks_spans", "split_frames")
 # The bench child: a short run of the benchmark's real shape.
 BENCH_ENV = {"BENCH_PROCS": "2", "BENCH_ITERS": "8", "BENCH_TRIALS": "2", "BENCH_MAX_S": "30"}
+# The consensus phase: config 4's 50 authorities as syncers under the
+# deterministic simulator, each delivery verified by the receiving node's own
+# collector before the core takes it; one-way latency of the JAX package's
+# simulated network (simulated_network.py: 50-100 ms), the syncer harness's
+# 1 s leader timeout and 0.25 s relay pump; depth cut to a virtual duration.
+CONSENSUS_VIRTUAL_S = 2.2  # 11 commits a node at SEED
+CONSENSUS_LATENCY_S = (0.05, 0.10)
+CONSENSUS_LEADER_TIMEOUT_S = 1.0
+CONSENSUS_PUMP_S = 0.25
+CONSENSUS_FORGE_ONE_IN = 50  # deliveries preceded by a copy with a flipped signature bit
+CONSENSUS_MIN_COMMITS = 8
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1253,6 +1290,254 @@ def receive_phase(committee, signers, rng, kernels):
     return launches, reading
 
 
+def forged_copy(raw: bytes, rng: random.Random) -> bytes:
+    """``raw`` with one bit of its signature (the block's last 64 bytes)
+    flipped."""
+    out = bytearray(raw)
+    out[len(out) - 64 + rng.randrange(64)] ^= 1 << rng.randrange(8)
+    return bytes(out)
+
+
+async def consensus_sim(n, tmp_dir, virtual_s, make_collector, forge_one_in):
+    """``n`` syncers of a ``Committee.new_for_benchmarks(n)`` under the
+    running deterministic loop, the harness of ``tests/test_syncer_sim.py``
+    with each delivery verified: the wire bytes are decoded through
+    ``from_bytes_many`` (one memoised ``from_bytes`` a block under the
+    simulator), awaited in the receiving node's own collector
+    (``make_collector(committee)``), and only the accepted blocks reach
+    ``add_blocks`` before the node relays.  One delivery in
+    ``forge_one_in`` (seeded) is preceded by a copy of its last block with
+    a signature bit flipped.  Every node cleans up as often as the node's
+    own periodic task does (``net_sync.CLEANUP_INTERVAL_S``).  Returns the
+    committed-leader sequences, every node's own-block references, the
+    forged copies' references, the rounds reached and the delivery counts."""
+    from mysticeti_tpu_torch.block_handler import TestBlockHandler
+    from mysticeti_tpu_torch.block_store import BlockStore
+    from mysticeti_tpu_torch.commit_observer import TestCommitObserver
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.config import Parameters
+    from mysticeti_tpu_torch.core import Core, CoreOptions
+    from mysticeti_tpu_torch.net_sync import CLEANUP_INTERVAL_S, AsyncSignals
+    from mysticeti_tpu_torch.syncer import Syncer
+    from mysticeti_tpu_torch.types import AuthoritySet, StatementBlock
+    from mysticeti_tpu_torch.wal import walf
+
+    loop = asyncio.get_running_loop()
+    rng = loop.rng
+    committee = Committee.new_for_benchmarks(n)
+    signers = Committee.benchmark_signers(n)
+    parameters = Parameters()
+    everyone = AuthoritySet()
+    for a in range(n):
+        everyone.insert(a)
+    syncers, collectors = [], []
+    for a in range(n):
+        writer, reader = walf(os.path.join(tmp_dir, f"wal-{a}"))
+        recovered, _ = BlockStore.open(a, reader, writer, committee)
+        handler = TestBlockHandler(last_transaction=a * 1_000_000, committee=committee, authority=a)
+        core = Core(block_handler=handler, authority=a, committee=committee, parameters=parameters,
+                    recovered=recovered, wal_writer=writer, options=CoreOptions.test(),
+                    signer=signers[a])
+        observer = TestCommitObserver(core.block_store, committee)
+        syncers.append(Syncer(core, parameters.wave_length, AsyncSignals(), observer))
+        collectors.append(make_collector(committee))
+    counts = {"deliveries": 0, "signatures_verified": 0, "forged": 0, "forged_rejected": 0,
+              "honest_rejected": 0}
+    forged_refs, errors, inflight = [], [], set()
+    cursors = [[0] * n for _ in range(n)]
+
+    def spawn(coro):
+        task = asyncio.ensure_future(coro)
+        inflight.add(task)
+        task.add_done_callback(landed)
+
+    def landed(task):
+        inflight.discard(task)
+        if not task.cancelled() and task.exception() is not None:
+            errors.append(task.exception())
+
+    def arrive(dst, raws, forged):
+        if forged is not None:
+            spawn(deliver(dst, [forged], True))
+        spawn(deliver(dst, raws, False))
+
+    def relay_from(src):
+        for dst in range(n):
+            if dst == src:
+                continue
+            blocks = syncers[src].core.block_store.get_own_blocks(cursors[src][dst], 100)
+            if not blocks:
+                continue
+            cursors[src][dst] = max(b.round() for b in blocks)
+            low, high = CONSENSUS_LATENCY_S
+            delay = low + rng.random() * (high - low)
+            raws = [b.to_bytes() for b in blocks]
+            forged = forged_copy(raws[-1], rng) if rng.randrange(forge_one_in) == 0 else None
+            loop.call_later(delay, arrive, dst, raws, forged)
+
+    async def deliver(dst, raws, forged):
+        blocks = StatementBlock.from_bytes_many(raws)
+        check(all(b is not None for b in blocks), "a delivered block did not decode")
+        verdicts = await collectors[dst].verify_blocks(blocks)
+        counts["deliveries"] += 1
+        counts["signatures_verified"] += len(blocks)
+        if forged:
+            counts["forged"] += 1
+            forged_refs.append(blocks[0].reference)
+            counts["forged_rejected"] += not verdicts[0]
+            return
+        counts["honest_rejected"] += verdicts.count(False)
+        syncers[dst].add_blocks([b for b, ok in zip(blocks, verdicts) if ok], everyone.copy())
+        relay_from(dst)
+
+    async def leader_timeout(idx):
+        syncer = syncers[idx]
+        while True:
+            waiter = syncer.signals.round_notify.subscribe()
+            round_at_start = syncer.signals.current_round
+            try:
+                await asyncio.wait_for(waiter.wait(), timeout=CONSENSUS_LEADER_TIMEOUT_S)
+            except asyncio.TimeoutError:
+                syncer.force_new_block(round_at_start + 1, everyone.copy())
+                relay_from(idx)
+
+    async def pump(idx):
+        while True:
+            await asyncio.sleep(CONSENSUS_PUMP_S)
+            relay_from(idx)
+
+    async def cleanup():
+        while True:
+            await asyncio.sleep(CLEANUP_INTERVAL_S)
+            for syncer in syncers:
+                syncer.cleanup()
+
+    for idx, syncer in enumerate(syncers):
+        syncer.force_new_block(1, everyone.copy())
+        relay_from(idx)
+    tasks = ([asyncio.ensure_future(leader_timeout(i)) for i in range(n)]
+             + [asyncio.ensure_future(pump(i)) for i in range(n)]
+             + [asyncio.ensure_future(cleanup())])
+    await asyncio.sleep(virtual_s)
+    for task in tasks + list(inflight):
+        task.cancel()
+    await asyncio.gather(*tasks, *inflight, return_exceptions=True)
+    check(not errors, f"a delivery failed: {errors[:3]!r}")
+    stored_forged = sum(s.core.block_store.block_exists(ref) for s in syncers for ref in forged_refs)
+    result = {
+        "sequences": [list(s.commit_observer.committed_leaders) for s in syncers],
+        "own_blocks": [[b.reference for b in s.core.block_store.get_own_blocks(0, 1 << 30)]
+                       for s in syncers],
+        "rounds": [s.core.block_store.highest_round() for s in syncers],
+        "forged_refs": forged_refs, "forged_stored": stored_forged, **counts,
+    }
+    for syncer in syncers:
+        syncer.core.wal_writer.close()
+        syncer.core.block_store.close()  # the WAL reader's mmap and descriptor
+    return result
+
+
+def consensus_run(kind, n, virtual_s, seed, backend=None, metrics=None):
+    """One seeded simulation of ``consensus_sim`` in a temporary directory:
+    ``kind`` "cuda-only" gives every node a collector over the one shared
+    ``backend`` (a ``TorchSignatureVerifier``); "cpu" gives every node the
+    ``cpu`` kind's collector (the oracle).  Returns the simulation's result
+    with its wall seconds."""
+    import tempfile
+
+    from mysticeti_tpu_torch.block_validator import BatchedSignatureVerifier
+    from mysticeti_tpu_torch.runtime.simulated import run_simulation
+    from mysticeti_tpu_torch.validator import _make_verifier
+
+    def make_collector(committee):
+        if kind == "cpu":
+            return _make_verifier("cpu", committee, metrics=metrics)
+        check(kind == "cuda-only" and backend is not None, f"no backend for {kind}")
+        return BatchedSignatureVerifier(committee, backend, metrics=metrics)
+
+    with tempfile.TemporaryDirectory(prefix="consensus-") as d:
+        t0 = time.monotonic()
+        result = run_simulation(
+            consensus_sim(n, d, virtual_s, make_collector, CONSENSUS_FORGE_ONE_IN), seed=seed)
+        result["wall_s"] = time.monotonic() - t0
+    return result
+
+
+def consensus_checks(card, cpu, min_commits) -> dict:
+    """Checks 1-4 of the consensus phase on the card run and the ``cpu``
+    run of the same seed; returns the readings they share."""
+    sequences = card["sequences"]
+    commits = [len(seq) for seq in sequences]
+    check(min(commits) >= min_commits, f"a node committed fewer than {min_commits} leaders: {commits}")
+    longest = max(sequences, key=len)
+    for seq in sequences:
+        check(seq == longest[: len(seq)], f"the committed sequences fork: {seq} vs {longest}")
+    check(card["forged"] > 0, "no forged copy was delivered")
+    check(card["forged_rejected"] == card["forged"],
+          f"{card['forged'] - card['forged_rejected']} forged copies were accepted")
+    check(card["forged_stored"] == 0, "a forged block is in a node's store")
+    check(card["honest_rejected"] == 0, f"{card['honest_rejected']} honest blocks were rejected")
+    check(card["sequences"] == cpu["sequences"], "the committed sequences differ from the cpu run's")
+    check(card["own_blocks"] == cpu["own_blocks"], "the own blocks differ from the cpu run's")
+    return {"commits_min": min(commits), "commits_max": max(commits),
+            "rounds_min": min(card["rounds"]), "rounds_max": max(card["rounds"]),
+            "deliveries": card["deliveries"], "signatures_verified": card["signatures_verified"],
+            "forged": card["forged"], "forged_rejected": card["forged_rejected"]}
+
+
+def consensus_phase(kernels):
+    """The consensus-50 cell: the same seeded simulation over the card
+    (``cuda-only`` collectors sharing one ``TorchSignatureVerifier`` on
+    cuda:0) and over the ``cpu`` kind, with the six checks (see the module
+    docstring, step 11)."""
+    from mysticeti_tpu_torch.block_validator import TorchSignatureVerifier
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.metrics import Metrics
+
+    n, virtual_s, seed = COMMITTEE, CONSENSUS_VIRTUAL_S, SEED
+    committee = Committee.new_for_benchmarks(n)
+    backend = TorchSignatureVerifier(committee_keys=committee.public_key_bytes())
+    backend.warmup()  # the kernels' first launches and the combs' upload
+    metrics = Metrics()
+    for k in kernels:
+        k.reset_counts()
+    card = consensus_run("cuda-only", n, virtual_s, seed, backend=backend, metrics=metrics)
+    launches = {k.name: k.launches for k in kernels}
+    cpu = consensus_run("cpu", n, virtual_s, seed)
+    reading = consensus_checks(card, cpu, CONSENSUS_MIN_COMMITS)
+    check(launches["prologue"] > 0 and launches["verify_keyed"] > 0,
+          f"the consensus path did not take the prologue and the keyed kernel: {launches}")
+    check(launches["verify_generic"] == 0,
+          f"the consensus path launched the generic kernel: {launches}")
+    get = metrics.registry.get_sample_value
+    label = getattr(backend, "backend_label", type(backend).__name__)
+    on_card = sum(get("verified_signatures_total", {"backend": label, "outcome": o}) or 0.0
+                  for o in ("accepted", "rejected"))
+    dispatched = get("verify_dispatch_batch_size_sum") or 0.0
+    flushes = get("verify_dispatch_batch_size_count") or 0.0
+    check(on_card == dispatched == card["signatures_verified"],
+          f"signatures on the card {on_card:.0f}, dispatched {dispatched:.0f}, deliveries "
+          f"verified {card['signatures_verified']}")
+    stages = {stage: {"sum_s": get("verify_pipeline_stage_seconds_sum", {"stage": stage}),
+                      "count": get("verify_pipeline_stage_seconds_count", {"stage": stage})}
+              for stage in ("pack", "device", "fetch")}
+    reading.update({
+        "committee": n, "virtual_s": virtual_s, "seed": seed, "card_wall_s": card["wall_s"],
+        "cpu_wall_s": cpu["wall_s"], "deliveries_per_wall_s": card["deliveries"] / card["wall_s"],
+        "signatures_on_card": on_card, "flushes": flushes,
+        "mean_live_lanes": dispatched / flushes if flushes else 0.0, "stage_seconds": stages,
+        "launches": launches, "card": card_line()})
+    print(f"consensus: {n} authorities, {virtual_s} virtual s, rounds "
+          f"{reading['rounds_min']}-{reading['rounds_max']}, commits a node "
+          f"{reading['commits_min']}-{reading['commits_max']}, prefixes agree and equal the cpu "
+          f"run's; {card['deliveries']} deliveries ({card['forged']} forged, all rejected) in "
+          f"{card['wall_s']:.1f} s on the card ({reading['deliveries_per_wall_s']:.1f}/s), "
+          f"{cpu['wall_s']:.1f} s on the cpu kind; {flushes:.0f} flushes, "
+          f"{reading['mean_live_lanes']:.2f} live lanes a flush; launches {launches} "
+          f"[{reading['card']}]", flush=True)
+    return launches, reading
+
+
 def bench_phase() -> dict:
     """``python -m mysticeti_tpu_torch.bench`` as a child, on BENCH_ENV."""
     env = dict(os.environ, **BENCH_ENV)
@@ -1329,6 +1614,7 @@ def run() -> int:
     by_path["service"], service = service_phase(committee, blocks_and_want, K.KERNELS,
                                                 rates["block_per_s"])
     by_path["receive"], receive = receive_phase(committee, signers, rng, K.KERNELS)
+    by_path["consensus"], consensus = consensus_phase(K.KERNELS)
     bench = bench_phase()
     # The block path's flushes take the keyed kernel, one key per lane, and
     # never the generic one; the committee dispatch's 8 stragglers take the
@@ -1363,7 +1649,8 @@ def run() -> int:
                       "bucket": BUCKET, "committee": COMMITTEE,
                       "block_path_blocks_per_s": rates["block_per_s"], "flush": report["flush"],
                       "flat_vs_26col": layout, "sharded": sharded, "hybrid": hybrid,
-                      "service": service, "receive": receive, "metrics": metrics_reading,
+                      "service": service, "receive": receive, "consensus": consensus,
+                      "metrics": metrics_reading,
                       "bench": bench}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1413,6 +1700,24 @@ def receive_only() -> int:
     launches, reading = receive_phase(committee, Committee.benchmark_signers(COMMITTEE),
                                       random.Random(SEED), K.KERNELS)
     print(json.dumps({"receive": reading, "launches": launches}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def consensus_only() -> int:
+    """The consensus phase alone: ``python3 -c 'import chip_smoke as c;
+    raise SystemExit(c.main(c.consensus_only))'``."""
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    launches, reading = consensus_phase(K.KERNELS)
+    print(json.dumps({"consensus": reading, "launches": launches}), flush=True)
+    print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -1501,6 +1806,73 @@ def receive_split() -> int:
                "aggregate_bookkeeping_s": aggregate_bookkeeping_s(committee, blocks, valid),
                "card": card_line()}
     print(json.dumps({"receive_split": reading}), flush=True)
+    return 0
+
+
+def device_busy(prof) -> dict:
+    """The device activity of a ``torch.profiler`` run: the union of its
+    kernel and copy intervals in seconds, their count, and the summed
+    seconds of the most costly names."""
+    from torch.autograd import DeviceType
+
+    def get(event, name):
+        value = getattr(event, name)
+        return value() if callable(value) else value
+
+    spans, by_name = [], {}
+    for event in prof.profiler.kineto_results.events():
+        if get(event, "device_type") != DeviceType.CUDA:
+            continue
+        start, end = get(event, "start_ns"), get(event, "end_ns")
+        spans.append((start, end))
+        name = get(event, "name")
+        by_name[name] = by_name.get(name, 0) + end - start
+    busy_ns, reach = 0, None
+    for start, end in sorted(spans):
+        if reach is None or start > reach:
+            busy_ns += end - start
+            reach = end
+        elif end > reach:
+            busy_ns += end - reach
+            reach = end
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"busy_s": busy_ns / 1e9, "events": len(spans),
+            "top_s": {name[:60]: ns / 1e9 for name, ns in top}}
+
+
+def consensus_trace() -> int:
+    """How busy the card is in the consensus-50 cell (not part of the
+    default run): ``python3 -c 'import chip_smoke as c; raise
+    SystemExit(c.main(c.consensus_trace))'``.  The consensus phase's card
+    run twice with one seed: as the phase runs it, and under
+    ``torch.profiler`` with device activity only.  Prints both wall times,
+    the device's busy seconds from the trace (the union of its kernel and
+    copy intervals) and the busy share of each wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mysticeti_tpu_torch.block_validator import TorchSignatureVerifier
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    committee = Committee.new_for_benchmarks(COMMITTEE)
+    backend = TorchSignatureVerifier(committee_keys=committee.public_key_bytes())
+    backend.warmup()
+    plain = consensus_run("cuda-only", COMMITTEE, CONSENSUS_VIRTUAL_S, SEED, backend=backend)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced = consensus_run("cuda-only", COMMITTEE, CONSENSUS_VIRTUAL_S, SEED, backend=backend)
+        torch.cuda.synchronize()
+    check(traced["sequences"] == plain["sequences"], "the traced run committed other leaders")
+    busy = device_busy(prof)
+    check(busy["events"] > 0, "the trace holds no device activity")
+    reading = {"virtual_s": CONSENSUS_VIRTUAL_S, "deliveries": plain["deliveries"],
+               "wall_s": plain["wall_s"], "traced_wall_s": traced["wall_s"], **busy,
+               "busy_share": busy["busy_s"] / plain["wall_s"],
+               "busy_share_traced": busy["busy_s"] / traced["wall_s"],
+               "torch": torch.__version__, "card": card_line()}
+    print(json.dumps({"consensus_trace": reading}), flush=True)
     return 0
 
 

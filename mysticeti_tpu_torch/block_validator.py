@@ -31,6 +31,7 @@ from typing import List, Optional, Sequence, Tuple
 from . import spans
 from .committee import Committee
 from .network import jittered_backoff
+from .runtime import is_simulated
 from .tracing import logger
 from .types import StatementBlock, VerificationError
 from .utils.tasks import spawn_logged
@@ -1252,6 +1253,13 @@ class BatchedSignatureVerifier(BlockVerifier):
         with self._busy():
             return self.verifier.verify_signatures_async(pks, digests, sigs)
 
+    def _dispatch_and_fetch(self, pks, digests, sigs):
+        """Single-hop dispatch (simulation path): submit + fetch in one
+        call on the loop thread."""
+        return self._fetch_dispatch(
+            self._submit_dispatch(pks, digests, sigs), len(sigs)
+        )
+
     def _fetch_dispatch(self, handle, n):
         """Fetch stage (executor thread): block until the verdicts are
         ready.  The backend label and the padded lane count are read in THIS
@@ -1286,41 +1294,63 @@ class BatchedSignatureVerifier(BlockVerifier):
         # -- bounded in-flight window, held from submission through fetch.
         async with self.pipeline.slot():
             t_dispatch = tracer.now() if tracer is not None else 0.0
-            started = time.monotonic()
-            submit_fut = loop.run_in_executor(
-                None, self._submit_dispatch, pks, digests, sigs
-            )
-            try:
-                handle = await asyncio.shield(submit_fut)
-            except asyncio.CancelledError:
-                # Cancelled mid-submit (node shutdown): the shielded job still
-                # runs, and its handle may hold per-dispatch backend state
-                # (the breaker's exclusive probe flag) that only the fetch
-                # normally releases — dispose it the moment it lands.
-                submit_fut.add_done_callback(_abandon_dispatch)
-                raise
-            device_done = time.monotonic()
-            self.pipeline.note_stage(STAGE_DEVICE, device_done - started)
             t_fetch = t_dispatch
-            if tracer is not None:
-                t_fetch = tracer.now()
-                for block in blocks:
-                    tracer.record_span(
-                        "verify_device", block.reference, t_dispatch, t1=t_fetch
-                    )
-            # Shielded for the same reason: an unshielded cancel can cancel a
-            # QUEUED executor job, and then nothing consumes the handle.
-            fetch_fut = loop.run_in_executor(None, self._fetch_dispatch, handle, len(sigs))
-            try:
-                out, label, padded = await asyncio.shield(fetch_fut)
-            except asyncio.CancelledError:
-                fetch_fut.add_done_callback(_observe_orphan)
-                raise
+            started = time.monotonic()
+            if is_simulated():
+                # Inline (no executor hop) under the virtual-time simulator:
+                # while a real thread works, the virtual clock leaps timers,
+                # so any hop would make a seeded sim's commit schedule depend
+                # on host load.  On the loop thread the virtual clock stands
+                # still for the dispatch.  The single call has no separate
+                # submit, so the device stage is an explicit zero and the
+                # fetch stage carries the whole dispatch.
+                out, label, padded = self._dispatch_and_fetch(pks, digests, sigs)
+                device_done = started
+                self.pipeline.note_stage(STAGE_DEVICE, 0.0)
+            else:
+                submit_fut = loop.run_in_executor(
+                    None, self._submit_dispatch, pks, digests, sigs
+                )
+                try:
+                    handle = await asyncio.shield(submit_fut)
+                except asyncio.CancelledError:
+                    # Cancelled mid-submit (node shutdown): the shielded job
+                    # still runs, and its handle may hold per-dispatch
+                    # backend state (the breaker's exclusive probe flag) that
+                    # only the fetch normally releases — dispose it the
+                    # moment it lands.
+                    submit_fut.add_done_callback(_abandon_dispatch)
+                    raise
+                device_done = time.monotonic()
+                self.pipeline.note_stage(STAGE_DEVICE, device_done - started)
+                if tracer is not None:
+                    t_fetch = tracer.now()
+                    for block in blocks:
+                        tracer.record_span(
+                            "verify_device", block.reference, t_dispatch, t1=t_fetch
+                        )
+                # Shielded for the same reason: an unshielded cancel can
+                # cancel a QUEUED executor job, and then nothing consumes the
+                # handle.
+                fetch_fut = loop.run_in_executor(
+                    None, self._fetch_dispatch, handle, len(sigs)
+                )
+                try:
+                    out, label, padded = await asyncio.shield(fetch_fut)
+                except asyncio.CancelledError:
+                    fetch_fut.add_done_callback(_observe_orphan)
+                    raise
             self.pipeline.note_stage(STAGE_FETCH, time.monotonic() - device_done)
-        with self._lock:
-            self._dispatch_ema_s = _update_ema(
-                self._dispatch_ema_s, time.monotonic() - started, self.EMA_OUTLIER_S
-            )
+        # Under the simulator the EMA stays unseeded: it is a wall-clock
+        # measurement, and _effective_delay_s arms a virtual-time flush timer
+        # from it, so folding it in would make a seeded sim's flush schedule
+        # depend on host load.  Sims run the fixed max_delay_s window (the
+        # arrival-gap term is loop-clocked and stays live).
+        if not is_simulated():
+            with self._lock:
+                self._dispatch_ema_s = _update_ema(
+                    self._dispatch_ema_s, time.monotonic() - started, self.EMA_OUTLIER_S
+                )
         if tracer is not None:
             t1 = tracer.now()
             for block in blocks:

@@ -1,7 +1,7 @@
 """Committee: stake table, thresholds, leader election, vote aggregation.
 
-The port's copy of ``mysticeti_tpu.committee``, trimmed to what block
-verification needs.  Capability parity with ``mysticeti-core/src/committee.rs``:
+The port's copy of ``mysticeti_tpu.committee``.  Capability parity with
+``mysticeti-core/src/committee.rs``:
 
 * ``Committee`` with validity (>1/3) and quorum (>2/3) stake thresholds
   (committee.rs:25-30,56-81) and genesis block construction (committee.rs:98-114).
@@ -10,20 +10,31 @@ verification needs.  Capability parity with ``mysticeti-core/src/committee.rs``:
   validator must compute the identical leader, so the scheme below is part of the
   protocol definition, not an implementation detail.
 * ``StakeAggregator`` over quorum/validity thresholds (committee.rs:256-330).
+* ``TransactionAggregator`` — the per-transaction fast-path vote/certification
+  engine over locator ranges (committee.rs:363-482), backed by ``RangeMap``.
+* ``VoteRangeBuilder`` — run-length compression of accept votes (committee.rs:498-524).
 """
 from __future__ import annotations
 
 import hashlib
-from typing import Callable, Iterable, List, Optional, Sequence, Tuple
+import struct
+from typing import Callable, Dict, Iterable, List, Optional, Sequence, Set, Tuple
 
 from . import crypto
+from .range_map import RangeMap
 from .serde import Reader, Writer
 from .types import (
     AuthorityIndex,
     AuthoritySet,
+    BlockReference,
     Epoch,
     MAX_COMMITTEE_SIZE,
+    Share,
     StatementBlock,
+    TransactionLocator,
+    TransactionLocatorRange,
+    Vote,
+    VoteRange,
 )
 
 Stake = int
@@ -355,3 +366,436 @@ class StakeAggregator:
         agg.stake = r.u64()
         agg.votes = AuthoritySet(int.from_bytes(r.bytes(), "little"))
         return agg
+
+
+class TransactionAggregator:
+    """Fast-path vote/certification engine over transaction locator ranges
+    (committee.rs:363-482).
+
+    ``pending`` maps a sharing block's reference to a RangeMap of offset ranges →
+    StakeAggregator.  When a range reaches the threshold it is removed and reported
+    processed.  ``handler`` hooks mirror ProcessedTransactionHandler
+    (committee.rs:297-312): by default a set of processed locators that panics on
+    votes for unknown transactions and on duplicate shares (the reference's
+    HashSet impl, committee.rs:314-330).
+    """
+
+    def __init__(self, kind: str = QUORUM, track_processed: bool = True) -> None:
+        self.kind = kind
+        self.pending: Dict[BlockReference, RangeMap] = {}
+        self.track_processed = track_processed
+        self.processed: Set[TransactionLocator] = set()
+        # Set by with_state: the processed set is NOT part of the snapshot
+        # (same as the reference, committee.rs:352-362), so after recovery
+        # votes/shares for pre-snapshot transactions are EXPECTED, not
+        # Byzantine — the duplicate/unknown oracles cannot assert what they
+        # did not persist.  Leniency is scoped by round: only locators whose
+        # sharing block's round is <= the recovery watermark (the highest
+        # round the restored state could have known about) bypass the
+        # oracles; anything first shared above the watermark is strictly
+        # checked for the aggregator's whole remaining life.
+        self.recovered = False
+        self.recovered_watermark: Optional[int] = None
+        # Native hot core (native/mysticeti_native.cpp VoteAggregator): the
+        # per-offset Python objects (locator tuples, StakeAggregator
+        # instances, set hashing) dominate the engine profile at load, so the
+        # sweep/tally/processed-set state lives in C++ when the extension is
+        # available.  Pure-Python `pending`/`processed` above are the
+        # fallback; MYSTICETI_NO_NATIVE=1 pins it.
+        from .native import native as _native
+
+        self._nat = None
+        self._nat_mod = _native
+        if _native is not None and hasattr(_native, "va_new"):
+            self._nat = _native.va_new(track_processed, 0 if kind == QUORUM else 1)
+            self._refs: Dict[bytes, BlockReference] = {}
+            self._nat_committee: Optional[Committee] = None
+
+    @staticmethod
+    def _key(block: BlockReference) -> bytes:
+        return struct.pack("<QQ", block.authority, block.round) + block.digest
+
+    def _nat_bind(self, committee: Committee) -> None:
+        if self._nat_committee is not committee:
+            threshold = (
+                committee.quorum_threshold()
+                if self.kind == QUORUM
+                else committee.validity_threshold()
+            )
+            self._nat_mod.va_bind(
+                self._nat,
+                [committee.get_stake(a) for a in committee.authority_indexes()],
+                threshold,
+            )
+            self._nat_committee = committee
+
+    def _raise_violations(self, viol_ranges, block, vote, hook) -> None:
+        """Feed native violation ranges through the overridable handler hook
+        offset-by-offset, deferring exceptions to the end — exact parity with
+        the pure path's sweep (every violating offset observes the hook; the
+        first collected exception is raised after the map update completed)."""
+        violations: List[Exception] = []
+        for s, e in viol_ranges:
+            for off in range(s, e):
+                try:
+                    hook(TransactionLocator(block, off), vote)
+                except Exception as exc:  # noqa: BLE001 - deferred, re-raised
+                    violations.append(exc)
+        if violations:
+            raise violations[0]
+
+    # handler hooks — overridable by subclasses
+    def transaction_processed(self, k: TransactionLocator) -> None:
+        # The native core records certified intervals itself; the Python set
+        # only backs the fallback path.
+        if self.track_processed and self._nat is None:
+            self.processed.add(k)
+
+    def transaction_processed_range(
+        self, block: "BlockReference", start: int, end: int
+    ) -> None:
+        """Range form of the processed hook: certification happens in
+        contiguous runs (often thousands of offsets at default block caps),
+        and building a locator object per offset was a top engine cost at
+        fleet saturation.  Subclasses that only need per-offset semantics
+        keep overriding ``transaction_processed``."""
+        if (
+            type(self).transaction_processed
+            is TransactionAggregator.transaction_processed
+            and (not self.track_processed or self._nat is not None)
+        ):
+            # Base hook would no-op per offset (the native core keeps its
+            # own intervals): skip the per-offset loop entirely.  A subclass
+            # override of the singular hook still sees every offset.
+            return
+        for off in range(start, end):
+            self.transaction_processed(TransactionLocator(block, off))
+
+    def _pre_snapshot(self, k: TransactionLocator) -> bool:
+        """True when the locator may predate the recovered snapshot — the
+        oracles cannot assert what the snapshot did not persist."""
+        return (
+            self.recovered
+            and (
+                self.recovered_watermark is None
+                or k.block.round <= self.recovered_watermark
+            )
+        )
+
+    def duplicate_transaction(self, k: TransactionLocator, from_: AuthorityIndex) -> None:
+        if (
+            self.track_processed
+            and not self._pre_snapshot(k)
+            and k not in self.processed
+        ):
+            raise RuntimeError(f"duplicate transaction {k} from {from_}")
+
+    def unknown_transaction(self, k: TransactionLocator, from_: AuthorityIndex) -> None:
+        if (
+            self.track_processed
+            and not self._pre_snapshot(k)
+            and k not in self.processed
+        ):
+            raise RuntimeError(f"vote for unknown transaction {k} from {from_}")
+
+    def is_processed(self, k: TransactionLocator) -> bool:
+        if self._nat is not None:
+            return self._nat_mod.va_is_processed(
+                self._nat, self._key(k.block), k.offset
+            )
+        return k in self.processed
+
+    # -- core operations (committee.rs:364-425) --
+
+    def register(
+        self,
+        locator_range: TransactionLocatorRange,
+        vote: AuthorityIndex,
+        committee: Committee,
+    ) -> None:
+        """A block shared these transactions; start aggregation with the author's
+        implicit self-vote.
+
+        Handler violations (duplicate shares) are collected during the sweep and
+        raised only after the RangeMap update completes — raising mid-sweep would
+        leave ``pending`` partially mutated, and unlike the reference (which aborts
+        the process on these panics) a Python caller may catch and continue, so the
+        aggregator must stay internally consistent."""
+        if self._nat is not None:
+            block = locator_range.block
+            key = self._key(block)
+            self._refs[key] = block
+            self._nat_bind(committee)
+            viol_ranges = self._nat_mod.va_register(
+                self._nat,
+                key,
+                locator_range.offset_start_inclusive,
+                locator_range.offset_end_exclusive,
+                vote,
+            )
+            self._raise_violations(
+                viol_ranges, block, vote, self.duplicate_transaction
+            )
+            return
+        range_map = self.pending.setdefault(locator_range.block, RangeMap())
+        violations: List[Exception] = []
+
+        def mutate(sub_start: int, sub_end: int, agg):
+            if agg is not None:
+                for off in range(sub_start, sub_end):
+                    try:
+                        self.duplicate_transaction(
+                            TransactionLocator(locator_range.block, off), vote
+                        )
+                    except Exception as e:  # noqa: BLE001 - deferred, re-raised below
+                        violations.append(e)
+                return agg
+            new_agg = StakeAggregator(self.kind)
+            new_agg.add(vote, committee)
+            return new_agg
+
+        range_map.mutate_range(
+            locator_range.offset_start_inclusive,
+            locator_range.offset_end_exclusive,
+            mutate,
+        )
+        if violations:
+            raise violations[0]
+
+    def vote(
+        self,
+        locator_range: TransactionLocatorRange,
+        vote: AuthorityIndex,
+        committee: Committee,
+        processed_out: List[TransactionLocatorRange],
+    ) -> None:
+        """Tally a vote range; newly certified runs are appended to
+        ``processed_out`` as RANGES (certification is contiguous — a range
+        per certified run instead of a locator per offset keeps the
+        default-cap fast path out of O(transactions) Python loops)."""
+        if self._nat is not None:
+            block = locator_range.block
+            key = self._key(block)
+            self._nat_bind(committee)
+            certified, viol_ranges, retired = self._nat_mod.va_vote(
+                self._nat,
+                key,
+                locator_range.offset_start_inclusive,
+                locator_range.offset_end_exclusive,
+                vote,
+            )
+            if retired:
+                self._refs.pop(key, None)
+            for s, e in certified:
+                self.transaction_processed_range(block, s, e)
+                processed_out.append(TransactionLocatorRange(block, s, e))
+            self._raise_violations(
+                viol_ranges, block, vote, self.unknown_transaction
+            )
+            return
+        range_map = self.pending.get(locator_range.block)
+        if range_map is None:
+            for loc in locator_range.locators():
+                self.unknown_transaction(loc, vote)
+            return
+        violations: List[Exception] = []
+
+        def mutate(sub_start: int, sub_end: int, agg):
+            if agg is None:
+                # Deferred like register(): keep the sweep atomic wrt `pending`.
+                for off in range(sub_start, sub_end):
+                    try:
+                        self.unknown_transaction(
+                            TransactionLocator(locator_range.block, off), vote
+                        )
+                    except Exception as e:  # noqa: BLE001 - deferred, re-raised below
+                        violations.append(e)
+                return None
+            if agg.add(vote, committee):
+                self.transaction_processed_range(
+                    locator_range.block, sub_start, sub_end
+                )
+                processed_out.append(
+                    TransactionLocatorRange(
+                        locator_range.block, sub_start, sub_end
+                    )
+                )
+                return None  # certified: drop from pending
+            return agg
+
+        range_map.mutate_range(
+            locator_range.offset_start_inclusive,
+            locator_range.offset_end_exclusive,
+            mutate,
+        )
+        if range_map.is_empty():
+            del self.pending[locator_range.block]
+        if violations:
+            raise violations[0]
+
+    def process_block(
+        self,
+        block: StatementBlock,
+        response: Optional[List[object]],
+        committee: Committee,
+    ) -> List[TransactionLocatorRange]:
+        """Tally one block's shares and votes (committee.rs:450-482).
+
+        Shares register new aggregations (and, if ``response`` is given, emit our own
+        VoteRange replies into it); Vote/VoteRange statements are tallied; returns
+        the locator RANGES newly certified by this block.
+        """
+        processed: List[TransactionLocatorRange] = []
+        for rng in shared_ranges(block):
+            self.register(rng, block.author(), committee)
+            if response is not None:
+                response.append(VoteRange(rng))
+        for st in block.statements:
+            if isinstance(st, Vote):
+                if st.accept:
+                    self.vote(
+                        TransactionLocatorRange(st.locator.block, st.locator.offset,
+                                                st.locator.offset + 1),
+                        block.author(), committee, processed,
+                    )
+                else:
+                    raise NotImplementedError("reject votes not implemented (parity: committee.rs:470)")
+            elif isinstance(st, VoteRange):
+                self.vote(st.range, block.author(), committee, processed)
+        return processed
+
+    def __len__(self) -> int:
+        if self._nat is not None:
+            return self._nat_mod.va_pending_len(self._nat)
+        return len(self.pending)
+
+    def is_empty(self) -> bool:
+        return len(self) == 0
+
+    # -- state snapshot (committee.rs:352-362), our own encoding --
+
+    def state(self) -> bytes:
+        if self._nat is not None:
+            if hasattr(self._nat_mod, "va_state"):
+                # Snapshot serialized entirely in C++ — the per-commit state
+                # write is the engine's top cost at deep pending backlogs
+                # (O(pending) every commit); _nat_state below is the
+                # byte-identical reference encoder it is differential-tested
+                # against.
+                return self._nat_mod.va_state(self._nat)
+            return self._nat_state()
+        w = Writer()
+        w.u32(len(self.pending))
+        for block_ref in sorted(self.pending):
+            rm = self.pending[block_ref]
+            block_ref.encode(w)
+            w.u32(len(rm))
+            for s, e, agg in rm.items():
+                w.u64(s).u64(e)
+                agg.encode(w)
+        return w.finish()
+
+    def _nat_state(self) -> bytes:
+        # Byte-identical to the pure-Python encoder: the native sweep splits
+        # ranges exactly like RangeMap.mutate_range, so the item lists match.
+        items = self._nat_mod.va_items(self._nat)
+        by_ref = sorted(
+            (self._refs[key], ranges) for key, ranges in items
+        )
+        w = Writer()
+        w.u32(len(by_ref))
+        for block_ref, ranges in by_ref:
+            block_ref.encode(w)
+            w.u32(len(ranges))
+            for s, e, stake, kind, mask in ranges:
+                w.u64(s).u64(e)
+                w.u8(kind).u64(stake)
+                w.bytes(mask)
+        return w.finish()
+
+    def with_state(
+        self, state: bytes, watermark_round: Optional[int] = None
+    ) -> None:
+        """Restore from a snapshot.  ``watermark_round`` bounds the Byzantine-
+        oracle leniency (see ``_pre_snapshot``): the caller should pass the
+        highest round durably replayed alongside the snapshot (e.g.
+        ``BlockStore.highest_round()``) so locators first shared ABOVE it stay
+        strictly checked.  When omitted the leniency is unbounded (pure
+        reference-parity behavior): the snapshot alone cannot bound what was
+        processed before it — completed transactions may sit at rounds above
+        any still-pending entry — so no safe round bound is derivable."""
+        if len(self):
+            raise RuntimeError("with_state requires an empty aggregator")
+        self.recovered = True
+        self.recovered_watermark = watermark_round
+        r = Reader(state)
+        for _ in range(r.u32()):
+            block_ref = BlockReference.decode(r)
+            rm = RangeMap()
+            n = r.u32()
+            for _ in range(n):
+                s, e = r.u64(), r.u64()
+                if self._nat is not None:
+                    kind = r.u8()
+                    stake = r.u64()
+                    mask = r.bytes()
+                    key = self._key(block_ref)
+                    self._refs[key] = block_ref
+                    self._nat_mod.va_load(self._nat, key, s, e, stake, kind, mask)
+                else:
+                    agg = StakeAggregator.decode(r)
+                    rm.mutate_range(s, e, lambda a, b, _old, agg=agg: agg)
+            if self._nat is None:
+                self.pending[block_ref] = rm
+        r.expect_done()
+
+
+def shared_ranges(block: StatementBlock) -> List[TransactionLocatorRange]:
+    """Contiguous runs of Share statements in a block as locator ranges
+    (types.rs shared_ranges equivalent used by committee.rs:455); run-length
+    compression delegated to VoteRangeBuilder so there is one copy of that logic."""
+    runs = getattr(block, "_share_runs", None)
+    if runs is None:
+        # Locally built block: walk the statements.  Wire-decoded blocks
+        # carry spans precomputed by the native decoder — re-walking 10k+
+        # statements per block here was a top interpreter cost at load.
+        builder = VoteRangeBuilder()
+        collected: List[Tuple[int, int]] = []
+        for i, st in enumerate(block.statements):
+            if isinstance(st, Share):
+                done = builder.add(i)
+                if done is not None:
+                    collected.append(done)
+        tail = builder.finish()
+        if tail is not None:
+            collected.append(tail)
+        runs = collected
+    return [TransactionLocatorRange(block.reference, s, e) for s, e in runs]
+
+
+class VoteRangeBuilder:
+    """Run-length compression of vote offsets (committee.rs:498-524)."""
+
+    __slots__ = ("_start", "_end")
+
+    def __init__(self) -> None:
+        self._start: Optional[int] = None
+        self._end = 0
+
+    def add(self, offset: int) -> Optional[Tuple[int, int]]:
+        """Feed the next offset; returns a completed (start, end) run when the new
+        offset is not contiguous with the current run."""
+        if self._start is None:
+            self._start, self._end = offset, offset + 1
+            return None
+        if self._end == offset:
+            self._end = offset + 1
+            return None
+        result = (self._start, self._end)
+        self._start, self._end = offset, offset + 1
+        return result
+
+    def finish(self) -> Optional[Tuple[int, int]]:
+        if self._start is None:
+            return None
+        return (self._start, self._end)

@@ -9,9 +9,8 @@ The port's copy of ``mysticeti_tpu.tracing``:
 * the simulator formatter: when a log record is emitted inside a
   deterministic virtual-time loop the timestamp printed is the VIRTUAL time,
   and the emitting validator's authority index (a contextvar set per
-  simulated node task) prefixes the line.  The port has no simulator yet
-  (``runtime.simulated``), so until it lands every line carries the wall
-  clock.
+  simulated node task) prefixes the line
+  (:class:`~mysticeti_tpu_torch.runtime.simulated.DeterministicLoop`).
 """
 from __future__ import annotations
 
@@ -40,18 +39,17 @@ _LEVELS = {
 }
 
 
-# Lazy module-level cache of the virtual-time loop class (an empty tuple
-# while the port has no simulator: isinstance(x, ()) is always False).
+# Lazy module-level cache of the virtual-time loop class: the import stays
+# deferred (runtime.simulated imports the package's types), and caching it
+# spares every log record a sys.modules lookup.
 _DeterministicLoop = None
 
 
 def _virtual_loop_class():
     global _DeterministicLoop
     if _DeterministicLoop is None:
-        try:
-            from .runtime.simulated import DeterministicLoop
-        except ImportError:
-            DeterministicLoop = ()
+        from .runtime.simulated import DeterministicLoop
+
         _DeterministicLoop = DeterministicLoop
     return _DeterministicLoop
 

@@ -13,8 +13,7 @@ Capability parity with ``mysticeti-core/src/types.rs``:
 
 The port's copy of ``mysticeti_tpu.types``, with the native C++ decoder
 (``native/``) behind ``from_bytes`` and the batched ``from_bytes_many``, and
-the pure-Python decoder as the fallback.  The simulator's decode memo is not
-carried over: the port has no deterministic loop yet.
+the pure-Python decoder as the fallback, and the simulator's decode memo.
 
 Design notes: blocks are immutable and cache their canonical
 serialization at construction, so digesting / signing / wire framing never re-encode
@@ -456,6 +455,23 @@ class StatementBlock:
             self._signed_digest = crypto.blake2b_256(self.signed_bytes())
         return self._signed_digest
 
+    # Decode memo, enabled ONLY by the deterministic simulator
+    # (runtime/simulated.py): all N simulated validators live in one process
+    # and each decodes the same serialized block once — memoizing turns the
+    # sim's dominant cost (N redundant decodes per block) into one.  Blocks
+    # are immutable after construction, so instance sharing across in-process
+    # nodes is safe.  Never enabled on real nodes (each is its own process).
+    _decode_memo: Optional[dict] = None
+    _DECODE_MEMO_CAP = 8192
+
+    @classmethod
+    def enable_decode_memo(cls) -> None:
+        cls._decode_memo = {}
+
+    @classmethod
+    def disable_decode_memo(cls) -> None:
+        cls._decode_memo = None
+
     @classmethod
     def from_bytes(cls, data) -> "StatementBlock":
         """Single-pass inline decoder over ``bytes`` or any buffer view.
@@ -472,6 +488,11 @@ class StatementBlock:
         downstream retains a view of the caller's buffer."""
         if type(data) is not bytes:  # memoryview/mmap callers
             data = bytes(data)
+        memo = cls._decode_memo
+        if memo is not None:
+            cached = memo.get(data)
+            if cached is not None:
+                return cached
         if _native_decode is not None:
             # Native single-pass decoder (native/mysticeti_native.cpp):
             # identical wire format and rejection cases, differentially
@@ -493,6 +514,10 @@ class StatementBlock:
             )
             block._share_runs = share_runs
             block._stamps = stamps
+            if memo is not None:
+                if len(memo) >= cls._DECODE_MEMO_CAP:
+                    memo.clear()
+                memo[block._bytes] = block
             return block
         try:
             n = len(data)
@@ -588,6 +613,10 @@ class StatementBlock:
             ref, tuple(includes), tuple(statements), meta_ns, epoch_marker,
             epoch, signature, _bytes=bytes(data), _digest_trusted=True,
         )
+        if memo is not None:
+            if len(memo) >= cls._DECODE_MEMO_CAP:
+                memo.clear()  # bulk FIFO: sims re-see bytes within a window
+            memo[block._bytes] = block
         return block
 
     @classmethod
@@ -598,9 +627,12 @@ class StatementBlock:
         all N block digests AND signature pre-hashes are computed in ONE
         native call with the GIL released (``block_digests``), so a K-block
         frame costs one GIL round-trip instead of K hashlib calls.  Falls
-        back to per-raw ``from_bytes`` when the extension is absent.
+        back to per-raw ``from_bytes`` when the extension is absent or the
+        sim decode memo is active — the memo path must stay byte-identical
+        (and instance-identical) under seeded simulation.
         """
-        if _native_decode is None or _native_block_digests is None:
+        if _native_decode is None or _native_block_digests is None \
+                or cls._decode_memo is not None:
             out = []
             for data in raws:
                 try:
