@@ -96,20 +96,60 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    run's; the path launches the prologue and the keyed kernel and never the
    generic one; the signatures that reached the card equal those of the
    deliveries verified.
-12. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
+12. Net sync: the node's own network plane in place of step 11's stand-in
+   relay.  netsync-50: the 50 authorities of step 11, each a
+   ``NetworkSyncer`` over its ``Core``, ``TestBlockHandler``,
+   ``TestCommitObserver``, WAL and flight recorder, connected through the
+   port's ``SimulatedNetwork`` (50-100 ms one way) under the deterministic
+   loop for 2.2 virtual seconds with a 1 s leader timeout; one shared
+   ``Metrics`` on every node's whole stack and collector; each node's block
+   verifier its own collector over one ``TorchSignatureVerifier`` on cuda:0.
+   A fault injector on the network (seeded) puts, before one src->dst
+   batch in 50 that carries blocks, a ``Blocks`` message with a copy of
+   that batch's last block with a signature bit flipped, and delivers one
+   such batch in 50 a second time, right behind it or up to 100 ms later.
+   Then the same seed over the ``cpu`` kind.  Checks: every node commits
+   at least 8 leaders; the committed sequences are prefixes of the
+   longest; every forged copy that reached a verifier is rejected, in no
+   store, and counted by
+   ``mysticeti_invalid_blocks_total{reason="signature"}`` and by the flight
+   recorders' ``invalid-block`` events, and no honest block is rejected;
+   the sequences and every node's own blocks equal the ``cpu`` run's; the
+   path launches the prologue and the keyed kernel and never the generic
+   one; every verdict a node acted on came back from the card, every card
+   verdict it did not act on belongs to a verify call still open at stop,
+   and the signatures on the card equal the collectors' dispatched lanes
+   (so the blocks sent to a verifier less those on the card are the open
+   calls' blocks pending at stop); re-delivered blocks were dropped before
+   a verifier and the card verified no block twice for one node.
+   netsync-tcp-10: 10 ``NetworkSyncer``s over the port's ``TcpNetwork`` on
+   127.0.0.1 on a real event loop for 10 wall seconds, each with its own
+   ``_make_verifier("cuda-only")``, every connection's sends putting a
+   forged copy before one block-carrying message in 50.  Checks: every
+   node commits at least 3 leaders; the sequences agree; the forged copies
+   are held as in netsync-50 and no honest block is rejected; the verdicts
+   and the card agree as in netsync-50; the collectors' device stage has
+   time (the executor path ran, not the inline one); the keyed kernel
+   launched and the generic one did not.  Prints the rounds, commits,
+   blocks received and verified, the blocks open at stop, forged and
+   re-delivered blocks, flushes and live lanes, stage seconds, the core
+   queue's counters, missing blocks, the frame caches' builds and reuses
+   and the wall seconds of each run.
+13. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
    workers, 8 iterations, 2 trials and a 30 s budget; its JSON line must
    come from rung 0 with a value above 0.
-Each path of steps 3-11 (the block path and the committee dispatch of step 3
+Each path of steps 3-12 (the block path and the committee dispatch of step 3
 apart) runs with every launch count set to 0 just before it and read just
 after; every kernel must have launched on some path.
-13. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+14. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Exits non-zero, printing no result, when there is no CUDA device or when any
 phase fails.
 
 One phase alone: ``python3 -c 'import chip_smoke as c; raise
-SystemExit(c.main(c.receive_only))'`` (likewise ``consensus_only``, and
+SystemExit(c.main(c.receive_only))'`` (likewise ``consensus_only``,
+``net_sync_only``, and
 ``sharded_only`` for a host with several cards).  Not in the default run:
 ``receive_split`` (where the receive burst's host time goes) and
 ``consensus_trace`` (the card's busy share in step 11, from a
@@ -203,6 +243,17 @@ CONSENSUS_LEADER_TIMEOUT_S = 1.0
 CONSENSUS_PUMP_S = 0.25
 CONSENSUS_FORGE_ONE_IN = 50  # deliveries preceded by a copy with a flipped signature bit
 CONSENSUS_MIN_COMMITS = 8
+# The net_sync phase: the node's own network plane (NetworkSyncer) in place
+# of the consensus phase's stand-in relay.  netsync-50 runs config 4's 50
+# authorities over the port's SimulatedNetwork (its 50-100 ms one way) for
+# consensus-50's virtual depth, leader timeout and minimum commits
+# (``CONSENSUS_*``), so the two cells compare; netsync-tcp-10 runs config
+# 3's shape, 10 validators on one host, over loopback TCP in real time.
+NETSYNC_FAULT_ONE_IN = 50  # src->dst batches carrying blocks: forged copy first / re-delivered
+NETSYNC_REDELIVER_S = (0.0, 0.1)  # a re-delivery's extra delay: 0, or drawn from this range
+NETSYNC_TCP_NODES = 10  # BASELINE.json config 3: 10 validators on one host
+NETSYNC_TCP_WALL_S = 10.0
+NETSYNC_TCP_MIN_COMMITS = 3
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -689,12 +740,9 @@ def metrics_line(metrics, moved_before, tracer, n_blocks) -> dict:
     from mysticeti_tpu_torch import spans
 
     get = metrics.registry.get_sample_value
-    stages = {}
-    for stage in ("pack", "device", "fetch"):
-        labels = {"stage": stage}
-        stages[stage] = {"sum_s": get("verify_pipeline_stage_seconds_sum", labels),
-                         "count": get("verify_pipeline_stage_seconds_count", labels)}
-        check(stages[stage]["count"], f"no {stage} stage seconds were observed")
+    stages = stage_seconds(metrics)
+    for stage, reading in stages.items():
+        check(reading["count"], f"no {stage} stage seconds were observed")
     moved = {d: v - moved_before[d] for d, v in transfer_bytes(metrics).items()}
     check(moved["to_device"] > 0 and moved["from_device"] > 0, f"no transfer bytes counted: {moved}")
     builds = {name: get(f"mysticeti_cuda_{name}_total") for name in
@@ -1463,15 +1511,21 @@ def consensus_run(kind, n, virtual_s, seed, backend=None, metrics=None):
     return result
 
 
-def consensus_checks(card, cpu, min_commits) -> dict:
-    """Checks 1-4 of the consensus phase on the card run and the ``cpu``
-    run of the same seed; returns the readings they share."""
-    sequences = card["sequences"]
+def commit_checks(sequences, min_commits) -> list:
+    """Every node committed at least ``min_commits`` leaders and the
+    committed sequences are prefixes of the longest; returns the commits."""
     commits = [len(seq) for seq in sequences]
     check(min(commits) >= min_commits, f"a node committed fewer than {min_commits} leaders: {commits}")
     longest = max(sequences, key=len)
     for seq in sequences:
         check(seq == longest[: len(seq)], f"the committed sequences fork: {seq} vs {longest}")
+    return commits
+
+
+def consensus_checks(card, cpu, min_commits) -> dict:
+    """Checks 1-4 of the consensus phase on the card run and the ``cpu``
+    run of the same seed; returns the readings they share."""
+    commits = commit_checks(card["sequences"], min_commits)
     check(card["forged"] > 0, "no forged copy was delivered")
     check(card["forged_rejected"] == card["forged"],
           f"{card['forged'] - card['forged_rejected']} forged copies were accepted")
@@ -1518,14 +1572,12 @@ def consensus_phase(kernels):
     check(on_card == dispatched == card["signatures_verified"],
           f"signatures on the card {on_card:.0f}, dispatched {dispatched:.0f}, deliveries "
           f"verified {card['signatures_verified']}")
-    stages = {stage: {"sum_s": get("verify_pipeline_stage_seconds_sum", {"stage": stage}),
-                      "count": get("verify_pipeline_stage_seconds_count", {"stage": stage})}
-              for stage in ("pack", "device", "fetch")}
     reading.update({
         "committee": n, "virtual_s": virtual_s, "seed": seed, "card_wall_s": card["wall_s"],
         "cpu_wall_s": cpu["wall_s"], "deliveries_per_wall_s": card["deliveries"] / card["wall_s"],
         "signatures_on_card": on_card, "flushes": flushes,
-        "mean_live_lanes": dispatched / flushes if flushes else 0.0, "stage_seconds": stages,
+        "mean_live_lanes": dispatched / flushes if flushes else 0.0,
+        "stage_seconds": stage_seconds(metrics),
         "launches": launches, "card": card_line()})
     print(f"consensus: {n} authorities, {virtual_s} virtual s, rounds "
           f"{reading['rounds_min']}-{reading['rounds_max']}, commits a node "
@@ -1536,6 +1588,535 @@ def consensus_phase(kernels):
           f"{reading['mean_live_lanes']:.2f} live lanes a flush; launches {launches} "
           f"[{reading['card']}]", flush=True)
     return launches, reading
+
+
+class FaultInjector:
+    """Forged copies and re-deliveries, seeded from ``rng``.
+
+    As ``SimulatedNetwork.fault_injector``: before one src->dst batch in
+    ``one_in`` that carries a ``Blocks`` message, deliver a new ``Blocks``
+    message holding a copy of that message's last block with one signature
+    bit flipped; and, on an independent draw, deliver one such batch's
+    block-carrying messages a second time, right behind the batch (while
+    its blocks are still in the verify pipeline: the ``inflight`` dedup's
+    case) or up to ``NETSYNC_REDELIVER_S`` later (mostly the ``processed``
+    dedup's), so the dedup has re-deliveries to keep off the card.  Over a real transport, ``wrap`` does the forging on a
+    connection's sends.  The messages given are never touched: the frame
+    cache shares one frame object across subscribers."""
+
+    def __init__(self, rng: random.Random, one_in: int) -> None:
+        self.rng = rng
+        self.one_in = one_in
+        self.forged_refs = set()
+        self.redelivered = 0  # blocks sent a second time
+
+    @staticmethod
+    def _carrying(messages):
+        from mysticeti_tpu_torch.network import Blocks, EncodedFrame
+
+        messages = [m.message if type(m) is EncodedFrame else m for m in messages]
+        return [m for m in messages if isinstance(m, Blocks) and m.blocks]
+
+    def _forge(self, carrying):
+        """A forged ``Blocks`` message for one draw in ``one_in``, else None."""
+        from mysticeti_tpu_torch.network import Blocks
+        from mysticeti_tpu_torch.types import StatementBlock
+
+        if not carrying or self.rng.randrange(self.one_in):
+            return None
+        raw = forged_copy(bytes(carrying[-1].blocks[-1]), self.rng)
+        self.forged_refs.add(StatementBlock.from_bytes(raw).reference)
+        return Blocks((raw,))
+
+    def filter_batch(self, src, dst, batch):
+        carrying = self._carrying(batch)
+        forged = self._forge(carrying)
+        groups = [(0.0, list(batch) if forged is None else [forged] + list(batch))]
+        if carrying and not self.rng.randrange(self.one_in):
+            self.redelivered += sum(len(m.blocks) for m in carrying)
+            delay = self.rng.choice((0.0, self.rng.uniform(*NETSYNC_REDELIVER_S)))
+            groups.append((delay, carrying))
+        return groups
+
+    def wrap(self, connection):
+        """``connection`` with its ``send`` putting a forged copy before one
+        block-carrying message in ``one_in``."""
+        send = connection.send
+
+        async def forging_send(msg):
+            forged = self._forge(self._carrying([msg]))
+            if forged is not None:
+                await send(forged)
+            await send(msg)
+
+        connection.send = forging_send
+        return connection
+
+
+class ForgingNetwork:
+    """The ``TcpNetwork`` surface ``NetworkSyncer`` reads (``connections``,
+    ``stop``), with every connection it hands out wrapped by ``injector``."""
+
+    def __init__(self, network, injector: FaultInjector) -> None:
+        self._network = network
+        self._injector = injector
+        self.connections = self
+
+    async def get(self):
+        return self._injector.wrap(await self._network.connections.get())
+
+    async def stop(self):
+        await self._network.stop()
+
+
+class ReceiveCounter:
+    """Counts what the watched nodes' receive stages and collectors did:
+    blocks received, fresh after ``verify_structure``, sent to the verifier,
+    and the verdicts on forged and honest blocks; and, a
+    node at a time, the references of the blocks in verify calls, with a
+    verdict, and with the card's verdict back in the collector (counted
+    where the collector's dispatch returns)."""
+
+    KEYS = ("received", "fresh", "to_verify", "forged", "forged_rejected", "honest_rejected")
+
+    def __init__(self, forged_refs) -> None:
+        self.forged_refs = forged_refs
+        self.counts = dict.fromkeys(self.KEYS, 0)
+        self._nodes = []  # (in verify calls, with a verdict, back from the card) a node
+
+    def watch(self, node) -> None:
+        from collections import Counter
+
+        counts, forged_refs = self.counts, self.forged_refs
+        opened, verdicts, on_card = Counter(), Counter(), Counter()
+        self._nodes.append((opened, verdicts, on_card))
+        decode_fresh, verify_accepted = node._decode_fresh, node._verify_accepted
+        collector = node.block_verifier
+        direct = collector._direct
+
+        async def counted_decode(serialized_blocks, transit=None, peer=None):
+            fresh = await decode_fresh(serialized_blocks, transit=transit, peer=peer)
+            counts["received"] += len(serialized_blocks)
+            counts["fresh"] += len(fresh)
+            return fresh
+
+        async def counted_verify(blocks):
+            refs = [b.reference for b in blocks]
+            counts["to_verify"] += len(blocks)
+            opened.update(refs)
+            accepted = await verify_accepted(blocks)
+            opened.subtract(refs)
+            verdicts.update(refs)
+            kept = {b.reference for b in accepted}
+            for ref in refs:
+                if ref in forged_refs:
+                    counts["forged"] += 1
+                    counts["forged_rejected"] += ref not in kept
+                else:
+                    counts["honest_rejected"] += ref not in kept
+            return accepted
+
+        async def counted_direct(blocks):
+            out = await direct(blocks)
+            on_card.update(b.reference for b in blocks)
+            return out
+
+        node._decode_fresh, node._verify_accepted = counted_decode, counted_verify
+        collector._direct = counted_direct
+
+    def settle(self) -> dict:
+        """The counts at stop, with: ``on_card`` (blocks the card gave a
+        verdict for), ``verdict_off_card`` (verdicts a node acted on that the
+        card never gave), ``card_unclaimed`` (card verdicts that no open
+        verify call explains), ``open_on_card`` / ``open_off_card`` (blocks
+        in verify calls still open at stop, with and without the card's
+        verdict back) and ``on_card_twice`` (blocks the card verified twice
+        for one node)."""
+        out = dict(self.counts, on_card=0, verdict_off_card=0, card_unclaimed=0,
+                   open_on_card=0, open_off_card=0, on_card_twice=0)
+        for opened, verdicts, on_card in self._nodes:
+            opened = +opened
+            unacted = on_card - verdicts
+            out["on_card"] += sum(on_card.values())
+            out["verdict_off_card"] += sum((verdicts - on_card).values())
+            out["card_unclaimed"] += sum((unacted - opened).values())
+            out["open_on_card"] += sum((unacted & opened).values())
+            out["open_off_card"] += sum((opened - unacted).values())
+            out["on_card_twice"] += sum(1 for times in on_card.values() if times > 1)
+        return out
+
+
+def build_netsync_node(committee, signer, authority, tmp_dir, network, parameters, verifier,
+                       metrics):
+    """One validator as ``tests/test_net_sync_sim.py`` builds it (core,
+    ``TestBlockHandler``, ``TestCommitObserver``, a WAL), its whole stack on
+    ``metrics``, its own flight recorder, ``verifier`` as its block
+    verifier."""
+    from mysticeti_tpu_torch.block_handler import TestBlockHandler
+    from mysticeti_tpu_torch.block_store import BlockStore
+    from mysticeti_tpu_torch.commit_observer import TestCommitObserver
+    from mysticeti_tpu_torch.core import Core, CoreOptions
+    from mysticeti_tpu_torch.flight_recorder import FlightRecorder
+    from mysticeti_tpu_torch.net_sync import NetworkSyncer
+    from mysticeti_tpu_torch.wal import walf
+
+    writer, reader = walf(os.path.join(tmp_dir, f"wal-{authority}"))
+    recovered, observer_recovered = BlockStore.open(authority, reader, writer, committee,
+                                                    metrics=metrics)
+    handler = TestBlockHandler(last_transaction=authority * 1_000_000, committee=committee,
+                               authority=authority, metrics=metrics)
+    core = Core(block_handler=handler, authority=authority, committee=committee,
+                parameters=parameters, recovered=recovered, wal_writer=writer,
+                options=CoreOptions.test(), signer=signer, metrics=metrics)
+    observer = TestCommitObserver(core.block_store, committee, metrics=metrics,
+                                  recovered_state=observer_recovered)
+    return NetworkSyncer(core, observer, network, parameters=parameters, block_verifier=verifier,
+                         metrics=metrics, recorder=FlightRecorder(authority=authority))
+
+
+def netsync_result(nodes, counter, injector, metrics) -> dict:
+    """What the net_sync checks and readings read off finished nodes: the
+    committed sequences, own blocks, rounds, the forged copies in stores,
+    the settled receive counts, the injected faults, the recorders' and the
+    registry's invalid blocks, the signatures verified (every backend) and
+    the collectors' dispatched lanes and flushes, read together with the
+    counts, the frame caches' builds and reuses and the core queue's
+    counters; then every node's WAL is closed."""
+    forged_refs = injector.forged_refs
+    get = metrics.registry.get_sample_value
+    invalid = {reason: sum(get("mysticeti_invalid_blocks_total",
+                               {"authority": str(a), "reason": reason}) or 0.0
+                           for a in range(len(nodes)))
+               for reason in ("signature", "structure", "malformed")}
+    recorded = [e for node in nodes for e in node.recorder.events()
+                if e["kind"] == "invalid-block" and e.get("reason") == "signature"]
+    result = {
+        "sequences": [list(node.syncer.commit_observer.committed_leaders) for node in nodes],
+        "own_blocks": [[b.reference for b in node.core.block_store.get_own_blocks(0, 1 << 30)]
+                       for node in nodes],
+        "rounds": [node.core.block_store.highest_round() for node in nodes],
+        "forged_stored": sum(node.core.block_store.block_exists(ref)
+                             for node in nodes for ref in forged_refs),
+        "forged_injected": len(forged_refs), "redelivered": injector.redelivered,
+        "invalid": invalid,
+        "recorded_signature": sum(e.get("count", 1) for e in recorded),
+        "recorder_dropped": sum(node.recorder.dropped for node in nodes),
+        "frame_cache": {"builds": sum(node.frame_cache.builds for node in nodes),
+                        "reuses": sum(node.frame_cache.reuses for node in nodes)},
+        "core_lock": {"enqueued": get("core_lock_enqueued_total"),
+                      "dequeued": get("core_lock_dequeued_total")},
+        "missing_blocks": get("missing_blocks_total"),
+        "on_backend": sum(sample.value for family in metrics.verified_signatures_total.collect()
+                          for sample in family.samples if sample.name.endswith("_total")),
+        "dispatched": get("verify_dispatch_batch_size_sum") or 0.0,
+        "flushes": get("verify_dispatch_batch_size_count") or 0.0, **counter.settle(),
+    }
+    for node in nodes:
+        node.core.wal_writer.close()
+        node.core.block_store.close()  # the WAL reader's mmap and descriptor
+    return result
+
+
+async def netsync_sim(n, tmp_dir, virtual_s, make_collector, fault_one_in, metrics):
+    """``n`` ``NetworkSyncer``s of a ``Committee.new_for_benchmarks(n)``
+    under the running deterministic loop, as ``tests/test_net_sync_sim.py``
+    runs them: the port's ``SimulatedNetwork`` (50-100 ms one way), a 1 s
+    leader timeout, each node's block verifier ``make_collector(committee)``,
+    one shared ``metrics`` and a ``FaultInjector`` on the network.  Returns
+    ``netsync_result``."""
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.config import Parameters
+    from mysticeti_tpu_torch.simulated_network import SimulatedNetwork
+
+    class NodeNetwork:
+        """The ``TcpNetwork`` surface ``NetworkSyncer`` reads, over the sim."""
+
+        def __init__(self, queue):
+            self.connections = queue
+
+        async def stop(self):
+            pass
+
+    committee = Committee.new_for_benchmarks(n)
+    signers = Committee.benchmark_signers(n)
+    parameters = Parameters(leader_timeout_s=CONSENSUS_LEADER_TIMEOUT_S)
+    sim_net = SimulatedNetwork(n)
+    injector = FaultInjector(asyncio.get_running_loop().rng, fault_one_in)
+    sim_net.fault_injector = injector
+    counter = ReceiveCounter(injector.forged_refs)
+    nodes = []
+    for a in range(n):
+        node = build_netsync_node(committee, signers[a], a, tmp_dir,
+                                  NodeNetwork(sim_net.node_connections[a]), parameters,
+                                  make_collector(committee), metrics)
+        counter.watch(node)
+        nodes.append(node)
+    for node in nodes:
+        await node.start()
+    await sim_net.connect_all()
+    await asyncio.sleep(virtual_s)
+    for node in nodes:
+        await node.stop()
+    sim_net.close()
+    return netsync_result(nodes, counter, injector, metrics)
+
+
+def netsync_run(kind, n, virtual_s, seed, backend=None, metrics=None):
+    """One seeded simulation of ``netsync_sim`` in a temporary directory:
+    ``kind`` "cuda-only" gives every node a collector over the one shared
+    ``backend``; "cpu" the ``cpu`` kind's collector.  Returns the result
+    with its wall seconds."""
+    import tempfile
+
+    from mysticeti_tpu_torch.block_validator import BatchedSignatureVerifier
+    from mysticeti_tpu_torch.metrics import Metrics
+    from mysticeti_tpu_torch.runtime.simulated import run_simulation
+    from mysticeti_tpu_torch.validator import _make_verifier
+
+    metrics = metrics if metrics is not None else Metrics()
+
+    def make_collector(committee):
+        if kind == "cpu":
+            return _make_verifier("cpu", committee, metrics=metrics)
+        check(kind == "cuda-only" and backend is not None, f"no backend for {kind}")
+        return BatchedSignatureVerifier(committee, backend, metrics=metrics)
+
+    with tempfile.TemporaryDirectory(prefix="netsync-") as d:
+        t0 = time.monotonic()
+        result = run_simulation(
+            netsync_sim(n, d, virtual_s, make_collector, NETSYNC_FAULT_ONE_IN, metrics), seed=seed)
+        result["wall_s"] = time.monotonic() - t0
+    return result
+
+
+def forged_checks(result) -> None:
+    """Every forged copy that reached a verifier was rejected, counted under
+    ``mysticeti_invalid_blocks_total{reason="signature"}`` and by the flight
+    recorders, and is in no store; no honest block was rejected."""
+    check(result["forged"] > 0, "no forged copy reached a verifier")
+    check(result["forged_rejected"] == result["forged"],
+          f"{result['forged'] - result['forged_rejected']} forged copies were accepted")
+    check(result["invalid"]["signature"] == result["recorded_signature"] == result["forged"],
+          f"forged copies verified {result['forged']}, counted invalid "
+          f"{result['invalid']['signature']:.0f}, recorded {result['recorded_signature']}")
+    check(result["recorder_dropped"] == 0, "a flight recorder dropped events")
+    check(result["forged_stored"] == 0, "a forged block is in a node's store")
+    check(result["honest_rejected"] == 0 and result["invalid"]["structure"] == 0
+          and result["invalid"]["malformed"] == 0,
+          f"honest blocks rejected: {result['honest_rejected']}, {result['invalid']}")
+
+
+def card_checks(result, metrics) -> dict:
+    """Every verdict a node acted on came back from the card for that node
+    (none skipped the card), every card verdict a node did not act on
+    belongs to a verify call still open at stop, and the signatures
+    verified equal the collectors' dispatched lanes and the blocks back from
+    the card; so the blocks sent to a verifier less those on the card are
+    exactly the open calls' blocks with no card verdict yet (pending in a
+    collector window, or in flight, at ``node.stop()``).  Returns the
+    readings."""
+    on_backend, dispatched, flushes = result["on_backend"], result["dispatched"], result["flushes"]
+    check(result["verdict_off_card"] == 0,
+          f"{result['verdict_off_card']} verdicts were acted on without the card's")
+    check(result["card_unclaimed"] == 0,
+          f"{result['card_unclaimed']} card verdicts belong to no open verify call")
+    check(on_backend == dispatched == result["on_card"] <= result["fresh"],
+          f"signatures on the verifier {on_backend:.0f}, dispatched {dispatched:.0f}, back from "
+          f"the card {result['on_card']}, fresh blocks {result['fresh']}")
+    check(result["to_verify"] - result["on_card"] == result["open_off_card"],
+          f"{result['to_verify']} blocks sent to a verifier, {result['on_card']} back from the "
+          f"card, {result['open_off_card']} in open verify calls without a card verdict")
+    return {"on_backend": on_backend, "flushes": flushes,
+            "mean_live_lanes": dispatched / flushes if flushes else 0.0,
+            "open_at_stop": {"on_card": result["open_on_card"],
+                             "off_card": result["open_off_card"]},
+            "dedup_saved": result["received"] - result["to_verify"],
+            "dedup_saved_by": {"processed": result["received"] - result["fresh"],
+                               "inflight": result["fresh"] - result["to_verify"]},
+            "stage_seconds": stage_seconds(metrics)}
+
+
+def netsync_checks(card, cpu, min_commits) -> dict:
+    """Checks 1-4 of netsync-50 on the card run and the ``cpu`` run of the
+    same seed; returns the readings they share."""
+    commits = commit_checks(card["sequences"], min_commits)
+    forged_checks(card)
+    check(card["sequences"] == cpu["sequences"], "the committed sequences differ from the cpu run's")
+    check(card["own_blocks"] == cpu["own_blocks"], "the own blocks differ from the cpu run's")
+    return {"commits_min": min(commits), "commits_max": max(commits),
+            "rounds_min": min(card["rounds"]), "rounds_max": max(card["rounds"]),
+            "blocks_received": card["received"], "fresh": card["fresh"],
+            "to_verify": card["to_verify"], "forged": card["forged"],
+            "forged_injected": card["forged_injected"], "forged_rejected": card["forged_rejected"],
+            "redelivered": card["redelivered"], "frame_cache": card["frame_cache"],
+            "core_lock": card["core_lock"], "missing_blocks": card["missing_blocks"]}
+
+
+def netsync_signatures(metrics, result) -> dict:
+    """Check 6: ``card_checks``, and the dedup kept the re-deliveries off
+    the card: some re-delivered blocks arrived and were dropped before a
+    verifier, and the card verified no block twice for one node."""
+    reading = card_checks(result, metrics)
+    check(result["redelivered"] > 0 and reading["dedup_saved"] > 0,
+          f"no re-delivery was kept off the verifier: {result['redelivered']} re-delivered, "
+          f"{reading['dedup_saved']} dropped")
+    check(result["on_card_twice"] == 0,
+          f"the card verified {result['on_card_twice']} blocks twice for one node")
+    return reading
+
+
+def stage_seconds(metrics) -> dict:
+    """The collectors' pack, device and fetch stage seconds: sum and count."""
+    get = metrics.registry.get_sample_value
+    return {stage: {"sum_s": get("verify_pipeline_stage_seconds_sum", {"stage": stage}),
+                    "count": get("verify_pipeline_stage_seconds_count", {"stage": stage})}
+            for stage in ("pack", "device", "fetch")}
+
+
+async def netsync_tcp(n, tmp_dir, run, make_collector, metrics, on_ready=None):
+    """``n`` ``NetworkSyncer``s of a ``Committee.new_for_benchmarks(n)``
+    over the port's ``TcpNetwork`` on 127.0.0.1, on the running (real)
+    event loop, each with its own ``make_collector(committee)`` and one
+    shared ``metrics``, every connection's sends wrapped by a
+    ``FaultInjector`` (one forged copy before one block-carrying message in
+    ``NETSYNC_FAULT_ONE_IN``), while ``run(nodes)`` is awaited.
+    ``on_ready()`` runs once every collector has warmed up, just before the
+    nodes start.  Returns ``netsync_result`` with the wall seconds and
+    commits a wall second."""
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.config import Parameters
+    from mysticeti_tpu_torch.network import TcpNetwork
+
+    committee = Committee.new_for_benchmarks(n)
+    signers = Committee.benchmark_signers(n)
+    parameters = Parameters(leader_timeout_s=CONSENSUS_LEADER_TIMEOUT_S)
+    collectors = [make_collector(committee) for _ in range(n)]
+    loop = asyncio.get_running_loop()
+    for collector in collectors:  # the accelerator kinds warm up in a thread
+        ready = getattr(collector, "ready", None)
+        if ready is not None:
+            await loop.run_in_executor(None, ready.wait)
+    if on_ready is not None:
+        on_ready()
+    injector = FaultInjector(random.Random(SEED), NETSYNC_FAULT_ONE_IN)
+    counter = ReceiveCounter(injector.forged_refs)
+    # Each endpoint listens on a port of the kernel's choosing, written into
+    # the shared address list as it comes up; the dialers read the list on
+    # every attempt and retry until their peer is listening.
+    addresses = [("127.0.0.1", 0)] * n
+    nodes = []
+    for a in range(n):
+        network = await TcpNetwork.start(a, addresses, metrics)
+        addresses[a] = ("127.0.0.1", network._server.sockets[0].getsockname()[1])
+        node = build_netsync_node(committee, signers[a], a, tmp_dir,
+                                  ForgingNetwork(network, injector), parameters, collectors[a],
+                                  metrics)
+        counter.watch(node)
+        nodes.append(node)
+    t0 = time.monotonic()
+    for node in nodes:
+        await node.start()
+    await run(nodes)
+    elapsed = time.monotonic() - t0
+    for node in nodes:
+        await node.stop()
+    result = netsync_result(nodes, counter, injector, metrics)
+    result["wall_s"] = elapsed
+    result["commits_per_wall_s"] = (
+        sum(len(seq) for seq in result["sequences"]) / n / elapsed)
+    return result
+
+
+def netsync_tcp_checks(result, min_commits) -> dict:
+    """Checks 1-3 of netsync-tcp-10."""
+    commits = commit_checks(result["sequences"], min_commits)
+    forged_checks(result)
+    return {"commits_min": min(commits), "commits_max": max(commits),
+            "rounds_min": min(result["rounds"]), "rounds_max": max(result["rounds"]),
+            "blocks_received": result["received"], "fresh": result["fresh"],
+            "to_verify": result["to_verify"], "forged": result["forged"],
+            "forged_injected": result["forged_injected"],
+            "forged_rejected": result["forged_rejected"], "frame_cache": result["frame_cache"],
+            "core_lock": result["core_lock"], "missing_blocks": result["missing_blocks"],
+            "wall_s": result["wall_s"], "commits_per_wall_s": result["commits_per_wall_s"]}
+
+
+def net_sync_phase(kernels):
+    """The net_sync phase: netsync-50 over the card and over the ``cpu``
+    kind, then netsync-tcp-10 (see the module docstring, step 12).  Returns
+    the launches of each part and the readings."""
+    import tempfile
+
+    from mysticeti_tpu_torch.block_validator import TorchSignatureVerifier
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.metrics import Metrics
+    from mysticeti_tpu_torch.validator import _make_verifier
+
+    n, virtual_s, seed = COMMITTEE, CONSENSUS_VIRTUAL_S, SEED
+    committee = Committee.new_for_benchmarks(n)
+    backend = TorchSignatureVerifier(committee_keys=committee.public_key_bytes())
+    backend.warmup()  # the kernels' first launches and the combs' upload
+    metrics = Metrics()
+    for k in kernels:
+        k.reset_counts()
+    card = netsync_run("cuda-only", n, virtual_s, seed, backend=backend, metrics=metrics)
+    launches = {k.name: k.launches for k in kernels}
+    cpu = netsync_run("cpu", n, virtual_s, seed)
+    reading = netsync_checks(card, cpu, CONSENSUS_MIN_COMMITS)
+    check(launches["prologue"] > 0 and launches["verify_keyed"] > 0,
+          f"the net_sync path did not take the prologue and the keyed kernel: {launches}")
+    check(launches["verify_generic"] == 0, f"the net_sync path launched the generic kernel: {launches}")
+    signatures = netsync_signatures(metrics, card)
+    reading.update({
+        "committee": n, "virtual_s": virtual_s, "seed": seed, "card_wall_s": card["wall_s"],
+        "cpu_wall_s": cpu["wall_s"], "signatures_on_card": signatures.pop("on_backend"),
+        **signatures, "launches": launches, "card": card_line()})
+    print(f"net_sync netsync-50: {n} authorities, {virtual_s} virtual s, rounds "
+          f"{reading['rounds_min']}-{reading['rounds_max']}, commits a node "
+          f"{reading['commits_min']}-{reading['commits_max']}, prefixes agree and equal the cpu "
+          f"run's; {card['received']} blocks received, {card['fresh']} fresh, "
+          f"{reading['signatures_on_card']:.0f} verified on the card, open at stop "
+          f"{reading['open_at_stop']}; {card['redelivered']} blocks re-delivered, the dedup "
+          f"saved {reading['dedup_saved']} {reading['dedup_saved_by']}; {card['forged']} forged copies verified "
+          f"({card['forged_injected']} injected), all rejected and counted; "
+          f"{reading['flushes']:.0f} flushes, {reading['mean_live_lanes']:.2f} live "
+          f"lanes a flush; core queue {card['core_lock']}, missing {card['missing_blocks']}, "
+          f"frame cache {card['frame_cache']}; {card['wall_s']:.1f} s on the card, "
+          f"{cpu['wall_s']:.1f} s on the cpu kind; launches {launches} [{reading['card']}]",
+          flush=True)
+
+    # Each node's verifier warms up (one unknown-key batch on the generic
+    # kernel, one batch a key) before the counts are set to 0.
+    tcp_metrics = Metrics()
+    with tempfile.TemporaryDirectory(prefix="netsync-tcp-") as d:
+        tcp = asyncio.run(netsync_tcp(
+            NETSYNC_TCP_NODES, d, lambda nodes: asyncio.sleep(NETSYNC_TCP_WALL_S),
+            lambda c: _make_verifier("cuda-only", c, metrics=tcp_metrics), tcp_metrics,
+            on_ready=lambda: [k.reset_counts() for k in kernels]))
+    tcp_launches = {k.name: k.launches for k in kernels}
+    tcp_reading = netsync_tcp_checks(tcp, NETSYNC_TCP_MIN_COMMITS)
+    tcp_card = card_checks(tcp, tcp_metrics)
+    stages = tcp_card["stage_seconds"]
+    tcp_reading.update({
+        "nodes": NETSYNC_TCP_NODES, "signatures_verified": tcp_card.pop("on_backend"),
+        **tcp_card, "launches": tcp_launches, "card": card_line()})
+    print(f"net_sync netsync-tcp-10: {NETSYNC_TCP_NODES} validators over loopback for "
+          f"{tcp['wall_s']:.1f} wall s, rounds {tcp_reading['rounds_min']}-"
+          f"{tcp_reading['rounds_max']}, commits a node {tcp_reading['commits_min']}-"
+          f"{tcp_reading['commits_max']} ({tcp['commits_per_wall_s']:.2f} a wall second), prefixes "
+          f"agree; {tcp['received']} blocks received, {tcp['fresh']} fresh, "
+          f"{tcp_reading['signatures_verified']:.0f} verified on the card, open at stop "
+          f"{tcp_reading['open_at_stop']}; {tcp['forged']} forged copies verified "
+          f"({tcp['forged_injected']} injected), all rejected and counted; "
+          f"{tcp_reading['flushes']:.0f} flushes, {tcp_reading['mean_live_lanes']:.2f} live lanes "
+          f"a flush; stage seconds {stages}; core queue {tcp['core_lock']}, missing "
+          f"{tcp['missing_blocks']}, frame cache {tcp['frame_cache']}; launches {tcp_launches} "
+          f"[{tcp_reading['card']}]", flush=True)
+    check((stages["device"]["count"] or 0) > 0 and (stages["device"]["sum_s"] or 0) > 0,
+          f"no dispatch took the collector's executor path: {stages}")
+    check(tcp_launches["verify_keyed"] > 0 and tcp_launches["verify_generic"] == 0,
+          f"the net_sync_tcp path did not take only the keyed kernel: {tcp_launches}")
+    return launches, tcp_launches, {"netsync_50": reading, "netsync_tcp_10": tcp_reading}
 
 
 def bench_phase() -> dict:
@@ -1615,6 +2196,7 @@ def run() -> int:
                                                 rates["block_per_s"])
     by_path["receive"], receive = receive_phase(committee, signers, rng, K.KERNELS)
     by_path["consensus"], consensus = consensus_phase(K.KERNELS)
+    by_path["net_sync"], by_path["net_sync_tcp"], net_sync = net_sync_phase(K.KERNELS)
     bench = bench_phase()
     # The block path's flushes take the keyed kernel, one key per lane, and
     # never the generic one; the committee dispatch's 8 stragglers take the
@@ -1650,6 +2232,7 @@ def run() -> int:
                       "block_path_blocks_per_s": rates["block_per_s"], "flush": report["flush"],
                       "flat_vs_26col": layout, "sharded": sharded, "hybrid": hybrid,
                       "service": service, "receive": receive, "consensus": consensus,
+                      "net_sync": net_sync,
                       "metrics": metrics_reading,
                       "bench": bench}), flush=True)
     print(card_line(), flush=True)
@@ -1717,6 +2300,26 @@ def consensus_only() -> int:
     K.build_all()
     launches, reading = consensus_phase(K.KERNELS)
     print(json.dumps({"consensus": reading, "launches": launches}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def net_sync_only() -> int:
+    """The net_sync phase alone: ``python3 -c 'import chip_smoke as c;
+    raise SystemExit(c.main(c.net_sync_only))'``."""
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    launches, tcp_launches, reading = net_sync_phase(K.KERNELS)
+    print(json.dumps({"net_sync": reading, "launches": {"net_sync": launches,
+                                                        "net_sync_tcp": tcp_launches}}),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

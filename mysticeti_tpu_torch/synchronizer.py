@@ -1,0 +1,468 @@
+"""Block dissemination (push) and missing-block fetching (pull).
+
+The port's copy of ``mysticeti_tpu.synchronizer``, without the snapshot
+catch-up stream (``BlockDisseminator.stream_snapshot``), which needs the
+storage lifecycle's GC hold; its ``snapshot_*_sent`` counters stay at 0.
+
+Capability parity with ``mysticeti-core/src/synchronizer.rs``:
+
+* ``BlockDisseminator`` (:25-164) — per-peer push stream of own blocks, batched
+  (default 100), woken by the block-ready signal; answers explicit
+  ``RequestBlocks`` with chunks + ``BlockNotFound``.
+* ``BlockFetcher`` (:216-407) — every ``sample_precision`` asks the core for
+  missing references and requests them (≤ MAXIMUM_BLOCK_REQUEST) from a
+  latency-weighted random peer (:376-406).
+"""
+from __future__ import annotations
+
+import asyncio
+import threading
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Tuple
+
+from .block_store import BlockStore
+from .config import SynchronizerParameters
+from .core_task import CoreTaskDispatcher
+from .tracing import logger
+from .utils.tasks import spawn_logged
+from .network import (
+    BlockNotFound,
+    Blocks,
+    Connection,
+    EncodedFrame,
+    RequestBlocks,
+    RequestBlocksResponse,
+    TimestampedBlocks,
+)
+from .types import BlockReference, RoundNumber
+
+
+log = logger(__name__)
+
+MAXIMUM_BLOCK_REQUEST = 50  # net_sync.rs:30
+DISSEMINATION_CHUNK = 10  # synchronizer.rs:74 send_blocks chunking
+
+
+class FrameCache:
+    """Encode-once fan-out: one built push frame per (stream, cursor).
+
+    Every ``BlockDisseminator`` of a node shares one FrameCache.  A push
+    stream about to send from cursor ``c`` first asks the cache: if another
+    subscriber already built the frame for the same stream at the same
+    cursor (and no new block has landed since — entries are keyed by the
+    ``block_ready`` notify GENERATION, so any store change invalidates by
+    key), it ships the identical immutable :class:`EncodedFrame` object —
+    N-1 subscribers at one cursor cost 1 store read + 1 serialization
+    instead of N.  Per-peer cursors are untouched: the cache only
+    deduplicates the (store read, message build, wire encode) work, never
+    the stream positions.
+
+    Entries are LRU-bounded (``CAPACITY``): a fleet's subscribers cluster
+    at the live frontier, so the working set is a handful of cursors; a
+    straggler at an old cursor simply rebuilds (a miss is the pre-cache
+    behavior, never an error).  ``dissemination_encode_reuse_total`` counts
+    the saved builds; the census test pins N subscribers → 1 build +
+    N-1 reuses.
+
+    Thread discipline: all access is on the event loop today, but the
+    entry table follows the repo's lock rule anyway (`_frame_entries` mutations
+    under ``_frame_lock`` — enforced by the static lint's GUARDED_FIELDS).
+    """
+
+    CAPACITY = 64
+    # Reuse window for STAMPED frames (timestamp_frames on): a cached
+    # TimestampedBlocks carries its build-time sender clocks, and on a
+    # quiet network the generation key never advances — without an age
+    # bound, a late (re)subscriber at an old cursor would receive a frame
+    # stamped arbitrarily earlier and the receiver would record the cache
+    # AGE as wire transit, poisoning dissemination_transit_seconds and the
+    # fleet-trace skew estimator.  Same-wake subscribers share well inside
+    # this window; anything older rebuilds with fresh stamps.  Clocked by
+    # the runtime clock, so seeded sims stay deterministic.
+    STAMPED_REUSE_WINDOW_S = 0.025
+
+    def __init__(self, metrics=None) -> None:
+        self.metrics = metrics
+        self._frame_lock = threading.Lock()
+        self._frame_entries: "OrderedDict[tuple, tuple]" = OrderedDict()
+        # Census counters (tests + the A/B artifact read these directly;
+        # the prometheus series mirrors reuses).
+        self.builds = 0
+        self.reuses = 0
+
+    def get(self, key: tuple, max_age_s: Optional[float] = None) -> Optional[tuple]:
+        """The cached ``(frame, to_cursor, block_count)`` for ``key``, or
+        None; a hit counts one saved encode.  ``max_age_s`` expires entries
+        older than the window (stamped frames) — an expired entry is
+        dropped and the caller rebuilds."""
+        with self._frame_lock:
+            cached = self._frame_entries.get(key)
+            if cached is None:
+                return None
+            entry, built_at = cached
+            if max_age_s is not None:
+                from .runtime import now as runtime_now
+
+                if runtime_now() - built_at > max_age_s:
+                    del self._frame_entries[key]
+                    return None
+            self._frame_entries.move_to_end(key)
+            self.reuses += 1
+        if self.metrics is not None:
+            self.metrics.dissemination_encode_reuse_total.inc()
+        return entry
+
+    def put(self, key: tuple, entry: tuple) -> None:
+        from .runtime import now as runtime_now
+
+        with self._frame_lock:
+            self.builds += 1
+            self._frame_entries[key] = (entry, runtime_now())
+            self._frame_entries.move_to_end(key)
+            while len(self._frame_entries) > self.CAPACITY:
+                self._frame_entries.popitem(last=False)
+
+
+class BlockDisseminator:
+    """Serves one peer connection (synchronizer.rs:25-164)."""
+
+    def __init__(
+        self,
+        connection: Connection,
+        block_store: BlockStore,
+        block_ready,  # Notify (net_sync.py): lost-wakeup-free level trigger
+        parameters: Optional[SynchronizerParameters] = None,
+        metrics=None,
+        frame_cache: Optional[FrameCache] = None,
+    ) -> None:
+        self.connection = connection
+        self.block_store = block_store
+        self.block_ready = block_ready
+        self.parameters = parameters or SynchronizerParameters()
+        self.metrics = metrics
+        # Encode-once fan-out: shared across the node's disseminators by
+        # NetworkSyncer; None (direct construction) keeps the per-peer build
+        # path.
+        self.frame_cache = frame_cache
+        self._stream_task: Optional[asyncio.Task] = None
+        # Helper streams (synchronizer.rs:169-205, dormant in the reference;
+        # live here behind SynchronizerParameters.disseminate_others_blocks):
+        # one relay task per requested authority, serving OUR stored copies
+        # of that authority's blocks to a peer that lost its direct
+        # connection.  Tests/telemetry read helper_blocks_sent to tell relay
+        # traffic from the own-block stream.
+        self._helper_tasks: Dict[int, asyncio.Task] = {}
+        self.helper_blocks_sent = 0
+        # True once any relay stream was requested on this connection: the
+        # receive path then wakes the streams on freshly STORED peer blocks
+        # (block_ready otherwise fires only on own proposals, which would
+        # delay every relayed block by up to a round — always just behind
+        # the children that reference it).
+        self.relay_serving = False
+        # Snapshot catch-up serving totals (the stream itself waits for the
+        # storage lifecycle): NetworkSyncer sums them per connection.
+        self.snapshot_blocks_sent = 0
+        self.snapshot_bytes_sent = 0
+
+    def _blocks_message(self, payload) -> Blocks:
+        """Push-frame constructor: plain ``Blocks``, or — when the
+        ``timestamp_frames`` knob is on — a :class:`TimestampedBlocks`
+        stamped with the sender's runtime+wall clocks (both virtual under
+        the deterministic simulator, so stamped sims stay reproducible)."""
+        if not self.parameters.timestamp_frames:
+            return Blocks(payload)
+        from .runtime import now as runtime_now, timestamp_utc
+
+        return TimestampedBlocks(
+            payload,
+            sent_monotonic_ns=int(runtime_now() * 1e9),
+            sent_wall_ns=int(timestamp_utc() * 1e9),
+        )
+
+    def subscribe_own_from(self, from_round: RoundNumber) -> None:
+        """Peer asked for our blocks starting after ``from_round``."""
+        if self._stream_task is not None:
+            self._stream_task.cancel()
+        self._stream_task = spawn_logged(self._stream_own(from_round), log)
+
+    def subscribe_others_from(
+        self, authority: int, from_round: RoundNumber
+    ) -> None:
+        """Peer asked us to relay ``authority``'s blocks (helper stream).
+
+        One stream per requested authority (a re-subscribe replaces it —
+        same replace-on-resubscribe contract as the own-block stream), with
+        the serving side bounded by ``absolute_maximum_helpers`` so a
+        misbehaving peer cannot fan one connection out into a store-scan
+        per committee member."""
+        existing = self._helper_tasks.pop(authority, None)
+        if existing is not None:
+            existing.cancel()
+        self.relay_serving = True
+        live = sum(1 for t in self._helper_tasks.values() if not t.done())
+        if live >= self.parameters.absolute_maximum_helpers:
+            log.warning(
+                "refusing helper stream for authority %d: %d already live",
+                authority, live,
+            )
+            return
+        self._helper_tasks[authority] = spawn_logged(
+            self._stream_others(authority, from_round), log
+        )
+
+    def _push_frame(
+        self, kind: str, authority: Optional[int], cursor: RoundNumber
+    ) -> Tuple[Optional[EncodedFrame], RoundNumber, int]:
+        """One dissemination push frame from ``cursor``: ``(frame,
+        new_cursor, block_count)``, with ``frame=None`` when the store has
+        nothing past the cursor.
+
+        Encode-once fan-out: when the shared :class:`FrameCache` is wired,
+        subscribers at the same (stream, cursor, notify generation) receive
+        the IDENTICAL immutable frame object — the store read, the message
+        build, and (on the TCP transport) the wire serialization happen
+        once per frame instead of once per peer.  The notify generation in
+        the key self-invalidates on every new block, so a cached frame can
+        never mask store changes; per-peer cursors advance exactly as the
+        uncached path would."""
+        cache = self.frame_cache
+        gen = getattr(self.block_ready, "generation", None)
+        key = None
+        if cache is not None and gen is not None:
+            key = (
+                kind, authority, cursor, self.parameters.batch_size,
+                self.parameters.timestamp_frames, gen,
+            )
+            hit = cache.get(
+                key,
+                max_age_s=(
+                    cache.STAMPED_REUSE_WINDOW_S
+                    if self.parameters.timestamp_frames
+                    else None
+                ),
+            )
+            if hit is not None:
+                return hit
+        if kind == "own":
+            blocks = self.block_store.get_own_blocks(
+                cursor, self.parameters.batch_size
+            )
+        else:
+            blocks = self.block_store.get_others_blocks(
+                cursor, authority, self.parameters.batch_size
+            )
+        if not blocks:
+            return None, cursor, 0
+        to_cursor = max(b.round() for b in blocks)
+        # The frame payload stays LAZY (EncodedFrame builds it on first
+        # wire access via network.encode_message): the sim delivers the
+        # message object and never serializes, while the TCP write path
+        # gets the native whole-frame encode (encode_blocks_frame — one
+        # GIL-released call per fan-out frame) when the extension is
+        # present, the Writer loop otherwise.  Byte-identical either way.
+        frame = EncodedFrame(
+            self._blocks_message(tuple(b.to_bytes() for b in blocks))
+        )
+        entry = (frame, to_cursor, len(blocks))
+        if key is not None:
+            cache.put(key, entry)
+        return entry
+
+    def relayed_authorities(self) -> List[int]:
+        """Authorities with a LIVE relay stream on this connection (the
+        receive path wakes streams only for batches carrying their
+        blocks)."""
+        return [
+            authority
+            for authority, task in self._helper_tasks.items()
+            if not task.done()
+        ]
+
+    async def _stream_others(
+        self, authority: int, from_round: RoundNumber
+    ) -> None:
+        """Relay loop: same batch/wake cadence as ``_stream_own`` but walks
+        the store's others-blocks cursor — the peer verifies and re-hashes
+        every relayed block (wire-format §5), so a relay cannot forge."""
+        cursor = from_round
+        while not self.connection.is_closed():
+            waiter = self.block_ready.subscribe()
+            frame, cursor, count = self._push_frame("others", authority, cursor)
+            if frame is not None:
+                self.helper_blocks_sent += count
+                await self.connection.send(frame)
+            else:
+                try:
+                    await asyncio.wait_for(
+                        waiter.wait(), timeout=self.parameters.stream_interval_s
+                    )
+                except asyncio.TimeoutError:
+                    pass
+
+    async def _stream_own(self, from_round: RoundNumber) -> None:
+        """Push loop (synchronizer.rs:131-164): batch, send, wait for new blocks."""
+        cursor = from_round
+        while not self.connection.is_closed():
+            # Subscribe BEFORE reading the store: a block landing between the
+            # read and the wait then still wakes us (no lost edge).
+            waiter = self.block_ready.subscribe()
+            frame, cursor, _count = self._push_frame("own", None, cursor)
+            if frame is not None:
+                await self.connection.send(frame)
+            else:
+                try:
+                    await asyncio.wait_for(
+                        waiter.wait(), timeout=self.parameters.stream_interval_s
+                    )
+                except asyncio.TimeoutError:
+                    pass
+
+    async def send_requested(self, references: Sequence[BlockReference]) -> None:
+        """Answer an explicit RequestBlocks (synchronizer.rs:74-112)."""
+        found: List[bytes] = []
+        missing: List[BlockReference] = []
+        for ref in references[:MAXIMUM_BLOCK_REQUEST]:
+            block = self.block_store.get_block(ref)
+            if block is None:
+                missing.append(ref)
+            else:
+                found.append(block.to_bytes())
+        for i in range(0, len(found), DISSEMINATION_CHUNK):
+            await self.connection.send(
+                RequestBlocksResponse(tuple(found[i : i + DISSEMINATION_CHUNK]))
+            )
+        if missing:
+            await self.connection.send(BlockNotFound(tuple(missing)))
+
+    def stop(self) -> None:
+        if self._stream_task is not None:
+            self._stream_task.cancel()
+        for task in self._helper_tasks.values():
+            task.cancel()
+        self._helper_tasks.clear()
+
+
+class HelperSubscriptions:
+    """Requester-side bookkeeping for helper streams (config.rs:76-100's
+    caps): which peers we asked to relay which authority, bounded per
+    authority (``maximum_helpers_per_authority``) and in total
+    (``absolute_maximum_helpers``)."""
+
+    def __init__(self, parameters: SynchronizerParameters) -> None:
+        self.parameters = parameters
+        self._by_authority: Dict[int, set] = {}
+
+    def total(self) -> int:
+        return sum(len(p) for p in self._by_authority.values())
+
+    def may_ask(self, authority: int, helper: int) -> bool:
+        helpers = self._by_authority.get(authority, set())
+        return (
+            helper not in helpers
+            and len(helpers) < self.parameters.maximum_helpers_per_authority
+            and self.total() < self.parameters.absolute_maximum_helpers
+        )
+
+    def note_asked(self, authority: int, helper: int) -> None:
+        self._by_authority.setdefault(authority, set()).add(helper)
+
+    def drop_helper(self, helper: int) -> List[int]:
+        """The helper's connection died: its streams are gone with it.
+        Returns the authorities it was relaying so the caller can re-ask
+        surviving peers — without that, one helper loss silently demotes
+        those authorities back to the pull fetcher's crawl."""
+        orphaned: List[int] = []
+        for authority, helpers in self._by_authority.items():
+            if helper in helpers:
+                helpers.discard(helper)
+                orphaned.append(authority)
+        return orphaned
+
+    def drop_authority(self, authority: int) -> None:
+        """A direct connection to the authority came (back) up: the relay
+        is redundant — forget it so a later outage can re-ask."""
+        self._by_authority.pop(authority, None)
+
+
+class BlockFetcher:
+    """Pull loop for missing causal history (synchronizer.rs:216-407)."""
+
+    def __init__(
+        self,
+        authority: int,
+        dispatcher: CoreTaskDispatcher,
+        connections: Dict[int, Connection],
+        parameters: Optional[SynchronizerParameters] = None,
+        metrics=None,
+    ) -> None:
+        self.authority = authority
+        self.dispatcher = dispatcher
+        self.connections = connections  # live view maintained by NetworkSyncer
+        self.parameters = parameters or SynchronizerParameters()
+        self.metrics = metrics
+        self._task: Optional[asyncio.Task] = None
+
+    def start(self) -> "BlockFetcher":
+        self._task = spawn_logged(self._run(), log)
+        return self
+
+    async def _run(self) -> None:
+        while True:
+            await asyncio.sleep(self.parameters.sample_precision_s)
+            try:
+                missing = await self.dispatcher.get_missing()
+            except asyncio.CancelledError:
+                raise
+            except Exception:
+                continue
+            to_request: List[BlockReference] = []
+            for authority_missing in missing:
+                to_request.extend(authority_missing)
+            if not to_request:
+                continue
+            if self.metrics is not None:
+                self.metrics.missing_blocks_total.inc(len(to_request))
+            for i in range(0, len(to_request), MAXIMUM_BLOCK_REQUEST):
+                chunk = to_request[i : i + MAXIMUM_BLOCK_REQUEST]
+                peer = self._sample_peer(exclude={self.authority})
+                if peer is None:
+                    break
+                log.debug(
+                    "fetching %d missing blocks from authority %d",
+                    len(chunk),
+                    peer,
+                )
+                await self.connections[peer].send(RequestBlocks(tuple(chunk)))
+
+    def _sample_peer(self, exclude) -> Optional[int]:
+        """Latency-weighted random choice (synchronizer.rs:376-406): weight is
+        inverse RTT; unmeasured peers get the median weight."""
+        import random as _random
+
+        loop = asyncio.get_event_loop()
+        rng = getattr(loop, "rng", _random)
+        candidates = [
+            (peer, conn)
+            for peer, conn in self.connections.items()
+            if peer not in exclude and not conn.is_closed()
+        ]
+        if not candidates:
+            return None
+        latencies = [c.latency() for _, c in candidates]
+        finite = sorted(l for l in latencies if l != float("inf"))
+        default = finite[len(finite) // 2] if finite else 1.0
+        weights = [
+            1.0 / max(1e-4, (l if l != float("inf") else default)) for l in latencies
+        ]
+        total = sum(weights)
+        point = rng.uniform(0, total)
+        acc = 0.0
+        for (peer, _), w in zip(candidates, weights):
+            acc += w
+            if point <= acc:
+                return peer
+        return candidates[-1][0]
+
+    def stop(self) -> None:
+        if self._task is not None:
+            self._task.cancel()

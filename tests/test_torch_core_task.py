@@ -1,0 +1,195 @@
+"""The port's ``CoreTaskDispatcher``: the cases of ``tests/test_core_task.py``
+against the port, then its queue accounting with a ``Metrics``.
+
+Fail-stop semantics: transient command failures keep the owner loop alive; a
+persistent run of failures halts the node instead of letting it run on
+possibly-corrupt state."""
+import asyncio
+
+import pytest
+
+from mysticeti_tpu_torch.core_task import CORE_QUEUE_SIZE, CoreTaskDispatcher
+
+
+def _dispatcher(fatal=None):
+    return CoreTaskDispatcher(syncer=None, fatal_handler=fatal).start()
+
+
+def _boom():
+    raise RuntimeError("corrupt state")
+
+
+def _boom2():
+    raise RuntimeError("corrupt state elsewhere")
+
+
+def test_single_failure_propagates_and_loop_survives():
+    async def scenario():
+        d = _dispatcher()
+        with pytest.raises(RuntimeError, match="corrupt state"):
+            await d._call(_boom)
+        # Loop is still alive and serving.
+        assert await d._call(lambda: 42) == 42
+        assert not d._task.done()
+        d.stop()
+
+    asyncio.run(scenario())
+
+
+def test_success_resets_the_failure_run():
+    async def scenario():
+        d = _dispatcher()
+        for _ in range(CoreTaskDispatcher.MAX_CONSECUTIVE_FAILURES - 1):
+            await d._queue.put((_boom, (), None, False))  # no live caller
+        assert await d._call(lambda: "ok") == "ok"
+        for _ in range(CoreTaskDispatcher.MAX_CONSECUTIVE_FAILURES - 1):
+            await d._queue.put((_boom, (), None, False))
+        assert await d._call(lambda: "ok") == "ok"
+        assert not d._task.done()
+        d.stop()
+
+    asyncio.run(scenario())
+
+
+def test_observed_failures_never_halt_the_owner():
+    """ADVICE r5: a client retry-looping one failing command observes every
+    exception itself — no amount of CALLER-OBSERVED failures may SIGTERM the
+    node (the old counter fired after 16)."""
+    fired = []
+
+    async def scenario():
+        d = _dispatcher(fatal=lambda: fired.append(True))
+        for _ in range(CoreTaskDispatcher.MAX_CONSECUTIVE_FAILURES * 2):
+            with pytest.raises(RuntimeError, match="corrupt state"):
+                await d._call(_boom)
+        assert not d._task.done()
+        assert await d._call(lambda: 7) == 7
+        d.stop()
+        await asyncio.sleep(0)
+        assert fired == []
+
+    asyncio.run(scenario())
+
+
+def test_persistent_failure_halts_the_owner_and_fires_fatal_handler():
+    """Only failures NO live caller observes count toward the fail-stop
+    halt, and the run must span more than one command type: that is the
+    poisoned-store signature (every mutation fails), not caller churn."""
+    fired = []
+
+    async def scenario():
+        d = _dispatcher(fatal=lambda: fired.append(True))
+        for i in range(CoreTaskDispatcher.MAX_CONSECUTIVE_FAILURES):
+            await d._queue.put((_boom if i % 2 else _boom2, (), None, False))
+        while not d._task.done():
+            await asyncio.sleep(0)
+        with pytest.raises(RuntimeError, match="corrupt state"):
+            d._task.result()
+        await asyncio.sleep(0)  # done-callback runs on the loop
+        # The node must TERMINATE, not zombie on with a dead owner — the
+        # default handler SIGTERMs the process; tests record instead.
+        assert fired == [True]
+
+    asyncio.run(scenario())
+
+
+def test_single_command_unobserved_run_never_halts():
+    """A cancelled-await retry loop hammering ONE failing command reads as
+    unobserved too — without the distinct-type requirement it would SIGTERM
+    the node exactly like the caller churn ADVICE r5 exempted."""
+    fired = []
+
+    async def scenario():
+        d = _dispatcher(fatal=lambda: fired.append(True))
+        for _ in range(CoreTaskDispatcher.MAX_CONSECUTIVE_FAILURES * 2):
+            await d._queue.put((_boom, (), None, False))
+        assert await d._call(lambda: 3) == 3  # owner alive and serving
+        assert not d._task.done()
+        d.stop()
+        await asyncio.sleep(0)
+        assert fired == []
+
+    asyncio.run(scenario())
+
+
+def test_observed_internal_failures_reach_the_halt():
+    """A poisoned store fails every command, but network-driven commands
+    always have live callers observing the exception — the halt must still
+    be reachable via the node's OWN periodic commands (cleanup/get_missing/
+    force_new_block), which a remote client cannot drive: their failures
+    count even when observed."""
+    fired = []
+
+    async def scenario():
+        d = _dispatcher(fatal=lambda: fired.append(True))
+        for i in range(CoreTaskDispatcher.MAX_CONSECUTIVE_FAILURES):
+            with pytest.raises(RuntimeError, match="corrupt state"):
+                await d._call(_boom if i % 2 else _boom2, internal=True)
+        while not d._task.done():
+            await asyncio.sleep(0)
+        await asyncio.sleep(0)  # done-callback runs on the loop
+        assert fired == [True]
+
+    asyncio.run(scenario())
+
+
+def test_observed_internal_single_kind_never_halts():
+    """One flaky internal command (e.g. cleanup hitting a transient store
+    error every period) is not the poisoned-store signature: without kind
+    diversity the owner stays up."""
+    fired = []
+
+    async def scenario():
+        d = _dispatcher(fatal=lambda: fired.append(True))
+        for _ in range(CoreTaskDispatcher.MAX_CONSECUTIVE_FAILURES * 2):
+            with pytest.raises(RuntimeError, match="corrupt state"):
+                await d._call(_boom, internal=True)
+        assert await d._call(lambda: 9) == 9
+        assert not d._task.done()
+        d.stop()
+        await asyncio.sleep(0)
+        assert fired == []
+
+    asyncio.run(scenario())
+
+
+def test_clean_stop_does_not_fire_fatal_handler():
+    fired = []
+
+    async def scenario():
+        d = _dispatcher(fatal=lambda: fired.append(True))
+        assert await d._call(lambda: 1) == 1
+        d.stop()
+        await asyncio.sleep(0)
+        assert fired == []
+
+    asyncio.run(scenario())
+
+
+def test_queue_accounting_and_metrics():
+    """Every command is counted in and out on ``core_lock_*``, timed on
+    ``utilization_timer{proc="core:<command>"}``, and ``queue_depth`` /
+    ``queue_capacity`` read the bounded queue."""
+    from mysticeti_tpu_torch.metrics import Metrics
+
+    metrics = Metrics()
+
+    def answer():
+        return 5
+
+    async def scenario():
+        d = CoreTaskDispatcher(syncer=None, metrics=metrics)
+        assert d.queue_capacity == CORE_QUEUE_SIZE == 32
+        for _ in range(3):
+            await d._queue.put((answer, (), None, False))
+        assert d.queue_depth() == 3
+        d.start()
+        assert await d._call(answer) == 5
+        assert d.queue_depth() == 0
+        d.stop()
+
+    asyncio.run(scenario())
+    get = metrics.registry.get_sample_value
+    assert get("core_lock_enqueued_total") == 1.0  # only _call counts in
+    assert get("core_lock_dequeued_total") == 4.0
+    assert get("utilization_timer_total", {"proc": "core:answer"}) is not None
