@@ -135,21 +135,62 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    re-delivered blocks, flushes and live lanes, stage seconds, the core
    queue's counters, missing blocks, the frame caches' builds and reuses
    and the wall seconds of each run.
-13. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
+13. Storage (storage-10): config 3's 10 validators
+   (``Committee.new_for_benchmarks(10)``), each booted by ``open_store`` from
+   its own segmented WAL directory into a ``Core`` over its
+   ``StorageLifecycle`` and a ``NetworkSyncer`` over the port's
+   ``SimulatedNetwork`` (50-100 ms one way, 1 s leader timeout), with
+   16 KiB segments, a checkpoint every 5 commits, GC 80 rounds behind the
+   last committed leader and snapshot catch-up on (threshold 50 commits),
+   for 32 virtual s.  Node 3 crashes at 3 s and restarts at 21 s, after the
+   fleet's GC pass at 20 s retired its history, so it rejoins through a
+   snapshot manifest and the streamed window; node 1 crashes at 24 s for
+   2 s with 11 bytes torn off its active segment and boots from a
+   checkpoint.  A crash stops the node, closes its WAL writer and block
+   store and tears the segment; the restart rebuilds the node from its
+   directory with a fresh collector.  Every node's every incarnation
+   verifies through its own collector (5 ms window, 256 lanes) over one
+   ``TorchSignatureVerifier`` on cuda:0; the network's fault injector forges
+   a copy ahead of one block-carrying batch in 50 and re-delivers one in
+   50, and the first snapshot chunk is preceded by a forged copy of its last
+   block.  Then the same seed over the ``cpu`` kind.  Checks: the committed
+   sequences equal the ``cpu`` run's and agree across nodes at every shared
+   height (the rejoiner's adopted anchor included), the counts equal the
+   ``cpu`` run's and ``STORAGE_SEEDED``; node 3 adopted one snapshot whose
+   floor lies above every round it had stored, resumed more than 25
+   heights past its crash height and committed more than 50 further
+   heights; node 1 booted from a checkpoint and replayed less than a fifth
+   of its lifetime WAL bytes; every node reclaimed segments (first live
+   offset above 0), keeps ``CHECKPOINT_KEEP`` checkpoint files and counted
+   its restarts in ``crash_recovery_total``; snapshot blocks were served;
+   every forged copy, the snapshot stream's included, was rejected and
+   counted; the card's verdicts are accounted for as in step 12, an
+   incarnation at a time, and no block reached the card twice within one
+   incarnation; the prologue and
+   the keyed kernel launched once a flush and the generic kernel never.
+   Prints the live lanes a flush in the rejoiner's catch-up against the
+   nodes that never crashed, the catch-up's wall seconds and the WAL bytes
+   written against those live.
+14. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
    workers, 8 iterations, 2 trials and a 30 s budget; its JSON line must
    come from rung 0 with a value above 0.
-Each path of steps 3-12 (the block path and the committee dispatch of step 3
+Each path of steps 3-13 (the block path and the committee dispatch of step 3
 apart) runs with every launch count set to 0 just before it and read just
 after; every kernel must have launched on some path.
-14. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+15. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
+
+Every phase runs under ``PYTHONHASHSEED=0`` (``main`` runs the command
+again under it when it is not set so): a simulated run's fetches follow
+the order of a set of block references, so the seeded counts hold only
+under one hash salt.
 
 Exits non-zero, printing no result, when there is no CUDA device or when any
 phase fails.
 
 One phase alone: ``python3 -c 'import chip_smoke as c; raise
 SystemExit(c.main(c.receive_only))'`` (likewise ``consensus_only``,
-``net_sync_only``, and
+``net_sync_only``, ``storage_only``, and
 ``sharded_only`` for a host with several cards).  Not in the default run:
 ``receive_split`` (where the receive burst's host time goes) and
 ``consensus_trace`` (the card's busy share in step 11, from a
@@ -254,6 +295,51 @@ NETSYNC_REDELIVER_S = (0.0, 0.1)  # a re-delivery's extra delay: 0, or drawn fro
 NETSYNC_TCP_NODES = 10  # BASELINE.json config 3: 10 validators on one host
 NETSYNC_TCP_WALL_S = 10.0
 NETSYNC_TCP_MIN_COMMITS = 3
+# The storage phase (storage-10): config 3's 10 validators over the
+# SimulatedNetwork with the storage lifecycle on
+# (``tests/test_storage_lifecycle.py``'s segment, checkpoint and catch-up
+# values; its gc_depth 20 becomes 80, so the snapshot window of ~85 rounds
+# x 10 blocks spans several 256-lane flushes).  A node's GC runs in its
+# cleanup, every 10 virtual s from its start: node 3 is down from 3 s to
+# 21 s (~95 rounds, more than the window), past the fleet's pass at 20 s
+# that retires its history, and is back for 11 s, long enough for its own
+# pass; node 1 crashes at 24 s for 2 s with an 11-byte torn tail and boots
+# from a checkpoint.  Crashes are (node, at_s, downtime_s, torn bytes).
+STORAGE_10 = {
+    "n": 10, "virtual_s": 32.0, "seed": SEED, "fault_one_in": NETSYNC_FAULT_ONE_IN,
+    "crashes": ((3, 3.0, 18.0, 0), (1, 24.0, 2.0, 11)), "rejoiner": 3, "rebooter": 1,
+    "storage": {"segment_bytes": 16 * 1024, "checkpoint_interval": 5, "gc_depth": 80,
+                "snapshot_catchup": True, "catchup_threshold_commits": 50},
+    "commits_after_rejoin": 50,
+}
+# What storage-10 counts at SEED under HASH_SEED (``storage_counts`` of a
+# ``cpu``-kind run; the card run must count the same).
+STORAGE_SEEDED = {
+    "commits": [218, 218, 218, 126, 218, 218, 218, 218, 218, 218],
+    "flushes": 16419,
+    "dispatched": 20035,
+    "catchup_flushes": 8,
+    "catchup_lanes": 856,
+    "received": 21483,
+    "fresh": 20228,
+    "to_verify": 20035,
+    "forged": 360,
+    "forged_rejected": 360,
+    "forged_injected": 363,
+    "redelivered": 403,
+    "snapshot_chunks": 86,
+    "snapshot_blocks": 855,
+    "on_card": 20035,
+    "commit_height": [218, 218, 218, 218, 218, 218, 218, 218, 218, 218],
+    "retired_round": [125, 32, 126, 137, 125, 125, 126, 125, 125, 125],
+    "wal_written": [3859593, 3810112, 3861556, 3752876, 3866448, 3861943, 3858511, 3860106,
+                    3859179, 3860686],
+    "replayed_bytes": [0, 38963, 0, 3615, 0, 0, 0, 0, 0, 0],
+}
+# A run's committed sequences hang on the process's ``bytes`` hash salt (the
+# block fetcher requests missing blocks in a set's order), so ``main`` runs
+# every phase under this one ``PYTHONHASHSEED``.
+HASH_SEED = "0"
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 
@@ -1673,23 +1759,27 @@ class ReceiveCounter:
     """Counts what the watched nodes' receive stages and collectors did:
     blocks received, fresh after ``verify_structure``, sent to the verifier,
     and the verdicts on forged and honest blocks; and, a
-    node at a time, the references of the blocks in verify calls, with a
-    verdict, and with the card's verdict back in the collector (counted
-    where the collector's dispatch returns)."""
+    node at a time (an incarnation, where nodes restart), the references of
+    the blocks in verify calls, with a verdict, and with the card's verdict
+    back in the collector (counted where the collector's dispatch returns),
+    and the peers each block came fresh from."""
 
     KEYS = ("received", "fresh", "to_verify", "forged", "forged_rejected", "honest_rejected")
 
     def __init__(self, forged_refs) -> None:
         self.forged_refs = forged_refs
+        self.forged_rejected_refs = set()
         self.counts = dict.fromkeys(self.KEYS, 0)
-        self._nodes = []  # (in verify calls, with a verdict, back from the card) a node
+        # (in verify calls, with a verdict, back from the card, fresh from
+        # which peers) a node
+        self._nodes = []
 
     def watch(self, node) -> None:
         from collections import Counter
 
-        counts, forged_refs = self.counts, self.forged_refs
-        opened, verdicts, on_card = Counter(), Counter(), Counter()
-        self._nodes.append((opened, verdicts, on_card))
+        counts, forged_refs, rejected = self.counts, self.forged_refs, self.forged_rejected_refs
+        opened, verdicts, on_card, senders = Counter(), Counter(), Counter(), {}
+        self._nodes.append((opened, verdicts, on_card, senders))
         decode_fresh, verify_accepted = node._decode_fresh, node._verify_accepted
         collector = node.block_verifier
         direct = collector._direct
@@ -1698,6 +1788,8 @@ class ReceiveCounter:
             fresh = await decode_fresh(serialized_blocks, transit=transit, peer=peer)
             counts["received"] += len(serialized_blocks)
             counts["fresh"] += len(fresh)
+            for block in fresh:
+                senders.setdefault(block.reference, set()).add(peer)
             return fresh
 
         async def counted_verify(blocks):
@@ -1712,6 +1804,8 @@ class ReceiveCounter:
                 if ref in forged_refs:
                     counts["forged"] += 1
                     counts["forged_rejected"] += ref not in kept
+                    if ref not in kept:
+                        rejected.add(ref)
                 else:
                     counts["honest_rejected"] += ref not in kept
             return accepted
@@ -1730,11 +1824,13 @@ class ReceiveCounter:
         card never gave), ``card_unclaimed`` (card verdicts that no open
         verify call explains), ``open_on_card`` / ``open_off_card`` (blocks
         in verify calls still open at stop, with and without the card's
-        verdict back) and ``on_card_twice`` (blocks the card verified twice
-        for one node)."""
+        verdict back), ``on_card_twice`` (blocks the card verified twice
+        for one node) and ``on_card_twice_one_peer`` (of those, blocks the
+        card verified more often than peers sent them fresh: the
+        per-connection dedup's misses)."""
         out = dict(self.counts, on_card=0, verdict_off_card=0, card_unclaimed=0,
-                   open_on_card=0, open_off_card=0, on_card_twice=0)
-        for opened, verdicts, on_card in self._nodes:
+                   open_on_card=0, open_off_card=0, on_card_twice=0, on_card_twice_one_peer=0)
+        for opened, verdicts, on_card, senders in self._nodes:
             opened = +opened
             unacted = on_card - verdicts
             out["on_card"] += sum(on_card.values())
@@ -1743,6 +1839,8 @@ class ReceiveCounter:
             out["open_on_card"] += sum((unacted & opened).values())
             out["open_off_card"] += sum((opened - unacted).values())
             out["on_card_twice"] += sum(1 for times in on_card.values() if times > 1)
+            out["on_card_twice_one_peer"] += sum(
+                1 for ref, times in on_card.items() if times > max(1, len(senders.get(ref, ()))))
         return out
 
 
@@ -1906,7 +2004,7 @@ def forged_checks(result) -> None:
           f"honest blocks rejected: {result['honest_rejected']}, {result['invalid']}")
 
 
-def card_checks(result, metrics) -> dict:
+def card_checks(result) -> dict:
     """Every verdict a node acted on came back from the card for that node
     (none skipped the card), every card verdict a node did not act on
     belongs to a verify call still open at stop, and the signatures
@@ -1932,8 +2030,7 @@ def card_checks(result, metrics) -> dict:
                              "off_card": result["open_off_card"]},
             "dedup_saved": result["received"] - result["to_verify"],
             "dedup_saved_by": {"processed": result["received"] - result["fresh"],
-                               "inflight": result["fresh"] - result["to_verify"]},
-            "stage_seconds": stage_seconds(metrics)}
+                               "inflight": result["fresh"] - result["to_verify"]}}
 
 
 def netsync_checks(card, cpu, min_commits) -> dict:
@@ -1956,7 +2053,7 @@ def netsync_signatures(metrics, result) -> dict:
     """Check 6: ``card_checks``, and the dedup kept the re-deliveries off
     the card: some re-delivered blocks arrived and were dropped before a
     verifier, and the card verified no block twice for one node."""
-    reading = card_checks(result, metrics)
+    reading = dict(card_checks(result), stage_seconds=stage_seconds(metrics))
     check(result["redelivered"] > 0 and reading["dedup_saved"] > 0,
           f"no re-delivery was kept off the verifier: {result['redelivered']} re-delivered, "
           f"{reading['dedup_saved']} dropped")
@@ -2095,7 +2192,7 @@ def net_sync_phase(kernels):
             on_ready=lambda: [k.reset_counts() for k in kernels]))
     tcp_launches = {k.name: k.launches for k in kernels}
     tcp_reading = netsync_tcp_checks(tcp, NETSYNC_TCP_MIN_COMMITS)
-    tcp_card = card_checks(tcp, tcp_metrics)
+    tcp_card = dict(card_checks(tcp), stage_seconds=stage_seconds(tcp_metrics))
     stages = tcp_card["stage_seconds"]
     tcp_reading.update({
         "nodes": NETSYNC_TCP_NODES, "signatures_verified": tcp_card.pop("on_backend"),
@@ -2117,6 +2214,488 @@ def net_sync_phase(kernels):
     check(tcp_launches["verify_keyed"] > 0 and tcp_launches["verify_generic"] == 0,
           f"the net_sync_tcp path did not take only the keyed kernel: {tcp_launches}")
     return launches, tcp_launches, {"netsync_50": reading, "netsync_tcp_10": tcp_reading}
+
+
+class CommitLog:
+    """Every node's committed anchors by height, across restarts: a height
+    seen again (a WAL replay) keeps its anchor, heights are contiguous
+    except wholly below an adopted snapshot baseline, and every node commits
+    the same anchor at every height it shares with another (the JAX
+    package's ``chaos.SafetyChecker`` on commits)."""
+
+    def __init__(self) -> None:
+        self.anchors = {}
+        self.adopted = {}  # authority -> (height, anchor, floor) of its snapshot baseline
+        self.violations = []
+
+    def note(self, authority, height, anchor) -> None:
+        mine = self.anchors.setdefault(authority, {})
+        prev = mine.setdefault(height, anchor)
+        if prev != anchor:
+            self.violations.append((authority, height, prev, anchor))
+
+    def observer_class(self, base):
+        """``base`` (a ``TestCommitObserver``) feeding this log."""
+        log = self
+
+        class Observer(base):
+            def handle_commit(self, committed_leaders):
+                committed = super().handle_commit(committed_leaders)
+                for commit in committed:
+                    log.note(self.logged_authority, commit.height, commit.anchor)
+                return committed
+
+            def adopt_snapshot(self, manifest):
+                super().adopt_snapshot(manifest)
+                log.adopted[self.logged_authority] = (manifest.commit_height,
+                                                      manifest.last_committed_leader,
+                                                      manifest.gc_round)
+                log.note(self.logged_authority, manifest.commit_height,
+                         manifest.last_committed_leader)
+
+        return Observer
+
+    def sequences(self, n) -> list:
+        """Each node's anchors in height order, checked for contiguity (a
+        gap only wholly below its adopted baseline) and for agreement across
+        nodes at every shared height."""
+        check(not self.violations, f"a node committed two anchors at one height: "
+                                   f"{self.violations[:2]}")
+        golden, out = {}, []
+        for a in range(n):
+            mine = self.anchors.get(a, {})
+            baseline = self.adopted.get(a, (0, None))[0]
+            expect = 1
+            for height in sorted(mine):
+                check(height == expect or height - 1 <= baseline,
+                      f"node {a} has a commit gap at height {expect}")
+                expect = height + 1
+                check(golden.setdefault(height, mine[height]) == mine[height],
+                      f"the nodes fork at height {height}")
+            out.append([mine[h] for h in sorted(mine)])
+        return out
+
+
+def build_storage_node(committee, signer, authority, wal_path, network, parameters, verifier,
+                       metrics, recorder, observer_class):
+    """One validator as the JAX package's ``chaos.ChaosSimHarness`` boots
+    it: ``open_store`` on its WAL directory, a ``Core`` over the storage
+    lifecycle, a ``TestBlockHandler``, ``observer_class`` (a
+    ``TestCommitObserver``), ``verifier`` as its block verifier, and the
+    ``metrics`` and ``recorder`` that outlive its restarts."""
+    from mysticeti_tpu_torch.block_handler import TestBlockHandler
+    from mysticeti_tpu_torch.core import Core, CoreOptions
+    from mysticeti_tpu_torch.net_sync import NetworkSyncer
+    from mysticeti_tpu_torch.storage import open_store
+
+    recovered, observer_recovered, wal_writer, lifecycle = open_store(
+        authority, wal_path, committee, parameters, metrics)
+    handler = TestBlockHandler(last_transaction=authority * 1_000_000, committee=committee,
+                               authority=authority)
+    core = Core(block_handler=handler, authority=authority, committee=committee,
+                parameters=parameters, recovered=recovered, wal_writer=wal_writer,
+                options=CoreOptions.test(), signer=signer, metrics=metrics, storage=lifecycle)
+    observer = observer_class(core.block_store, committee, recovered_state=observer_recovered)
+    observer.logged_authority = authority
+    lifecycle.recorder = recorder
+    return NetworkSyncer(core, observer, network, parameters=parameters, block_verifier=verifier,
+                         metrics=metrics, recorder=recorder)
+
+
+class SnapshotWatch:
+    """Forges a copy of the last block of the first snapshot chunk a node
+    sends (delivered just ahead of that chunk), and records the snapshot
+    streams: the chunks and the blocks sent."""
+
+    def __init__(self, injector: FaultInjector) -> None:
+        self.injector = injector
+        self.forged = None  # the forged copy's reference
+        self.streamed = set()
+        self.chunks = 0
+
+    def disseminators(self, node):
+        """A ``_disseminators`` map for ``node`` that wraps each
+        disseminator's snapshot chunk send as it is registered."""
+        watch = self
+
+        class Wrapping(dict):
+            def __setitem__(self, peer, disseminator):
+                watch._wrap(disseminator)
+                super().__setitem__(peer, disseminator)
+
+        return Wrapping(node._disseminators)
+
+    def _wrap(self, disseminator) -> None:
+        from mysticeti_tpu_torch.network import Blocks
+        from mysticeti_tpu_torch.types import StatementBlock
+
+        send_chunk = disseminator._send_snapshot_chunk
+
+        async def watched(chunk):
+            if self.forged is None:
+                raw = forged_copy(bytes(chunk[-1]), self.injector.rng)
+                self.forged = StatementBlock.from_bytes(raw).reference
+                self.injector.forged_refs.add(self.forged)
+                await disseminator.connection.send(Blocks((raw,)))
+            self.chunks += 1
+            self.streamed.update(StatementBlock.from_bytes(bytes(raw)).reference
+                                 for raw in chunk)
+            await send_chunk(chunk)
+
+        disseminator._send_snapshot_chunk = watched
+
+
+async def storage_sim(config, tmp_dir, make_collector):
+    """``config``'s fleet (``STORAGE_10``'s shape) under the running
+    deterministic loop: ``config["n"]`` validators of a
+    ``Committee.new_for_benchmarks`` built by ``build_storage_node`` over
+    the port's ``SimulatedNetwork``, a ``FaultInjector`` on the network and
+    a ``SnapshotWatch`` on every node, each node's block verifier
+    ``make_collector(committee, metrics)`` (a fresh one for every
+    incarnation); each crash stops the node, closes its WAL writer and
+    block store and tears its active segment, and the restart rebuilds it
+    from its directory.  Returns ``storage_result``."""
+    from mysticeti_tpu_torch.commit_observer import TestCommitObserver
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.config import Parameters, StorageParameters
+    from mysticeti_tpu_torch.flight_recorder import FlightRecorder
+    from mysticeti_tpu_torch.metrics import Metrics
+    from mysticeti_tpu_torch.simulated_network import SimulatedNetwork
+    from mysticeti_tpu_torch.storage import active_wal_file
+
+    class NodeNetwork:
+        def __init__(self, queue):
+            self.connections = queue
+
+        async def stop(self):
+            pass
+
+    n = config["n"]
+    committee = Committee.new_for_benchmarks(n)
+    signers = Committee.benchmark_signers(n)
+    parameters = Parameters(leader_timeout_s=CONSENSUS_LEADER_TIMEOUT_S,
+                            storage=StorageParameters(**config["storage"]))
+    loop = asyncio.get_running_loop()
+    sim_net = SimulatedNetwork(n)
+    injector = FaultInjector(loop.rng, config["fault_one_in"])
+    sim_net.fault_injector = injector
+    counter = ReceiveCounter(injector.forged_refs)
+    watch = SnapshotWatch(injector)
+    commits = CommitLog()
+    observer_class = commits.observer_class(TestCommitObserver)
+    metrics = [Metrics() for _ in range(n)]
+    recorders = [FlightRecorder(authority=a) for a in range(n)]
+    nodes, served = [None] * n, [0] * n
+    flushes = []  # (authority, virtual time, wall time, block references) a flush
+    events = []  # (kind, authority, virtual time, wall time, height, highest round) a fault
+
+    def wal_path(a):
+        return os.path.join(tmp_dir, f"wal-{a}")
+
+    def build(a):
+        collector = make_collector(committee, metrics[a])
+        node = build_storage_node(committee, signers[a], a, wal_path(a),
+                                  NodeNetwork(sim_net.node_connections[a]), parameters,
+                                  collector, metrics[a], recorders[a], observer_class)
+        node._disseminators = watch.disseminators(node)
+        counter.watch(node)
+        direct = collector._direct
+
+        async def timed(blocks):
+            out = await direct(blocks)
+            flushes.append((a, loop.time(), time.monotonic(), [b.reference for b in blocks]))
+            return out
+
+        collector._direct = timed
+        nodes[a] = node
+        return node
+
+    async def schedule():
+        plan = sorted([(at, "crash", a, torn) for a, at, _down, torn in config["crashes"]]
+                      + [(at + down, "restart", a, 0) for a, at, down, _ in config["crashes"]])
+        for t, kind, a, torn in plan:
+            if t > loop.time():
+                await asyncio.sleep(t - loop.time())
+            node = nodes[a]
+            events.append((kind, a, loop.time(), time.monotonic(),
+                           max(commits.anchors.get(a, {0: 0})),
+                           node.core.block_store.highest_round() if node else None))
+            if kind == "crash":
+                nodes[a] = None
+                sim_net.crash(a)
+                await node.stop()
+                served[a] += snapshot_served(node)
+                node.core.wal_writer.close()
+                node.core.block_store.close()
+                target = active_wal_file(wal_path(a))
+                with open(target, "r+b") as f:
+                    f.truncate(max(0, os.path.getsize(target) - torn))
+            else:
+                await build(a).start()
+                await sim_net.restart(a)
+
+    for a in range(n):
+        await build(a).start()
+    await sim_net.connect_all()
+    task = asyncio.ensure_future(schedule())
+    await asyncio.sleep(config["virtual_s"])
+    task.cancel()
+    for node in nodes:
+        if node is not None:
+            await node.stop()
+    sim_net.close()
+    for a, node in enumerate(nodes):
+        served[a] += snapshot_served(node)
+    return storage_result(config, nodes, commits, counter, injector, watch, metrics, recorders,
+                          flushes, events, served)
+
+
+def snapshot_served(node) -> int:
+    """Snapshot blocks ``node`` has sent: on connections gone and live."""
+    return node.snapshot_blocks_served + sum(
+        d.snapshot_blocks_sent for d in node._disseminators.values())
+
+
+def storage_result(config, nodes, commits, counter, injector, watch, metrics, recorders,
+                   flushes, events, served) -> dict:
+    """What the storage checks and readings read off the finished fleet:
+    the committed sequences and adopted baselines, each node's storage
+    readings (its lifecycle's boot and adoption counts, WAL bytes written
+    and live, first live offset, checkpoint files, reclaimed bytes,
+    recoveries), the snapshot blocks served, the settled receive counts, the
+    forged copies, the registries' invalid blocks and verified signatures,
+    and the flushes in and out of the rejoiner's catch-up; then every
+    node's WAL is closed."""
+    from mysticeti_tpu_torch.storage import checkpoint_files
+
+    n, rejoiner = config["n"], config["rejoiner"]
+
+    def total(name):
+        return sum(m.registry.get_sample_value(name) or 0.0 for m in metrics)
+
+    per_node = []
+    for a, node in enumerate(nodes):
+        lifecycle, writer = node.core.storage, node.core.wal_writer
+        get = metrics[a].registry.get_sample_value
+        per_node.append({
+            "snapshots_adopted": lifecycle.snapshots_adopted,
+            "recovered_checkpoint_height": lifecycle.recovered_checkpoint_height,
+            "replay_start": lifecycle.replay_start, "replayed_bytes": lifecycle.replayed_bytes,
+            "commit_height": lifecycle.commit_height, "retired_round": lifecycle.retired_round,
+            "wal_written": writer.position(), "wal_live": writer.size_bytes(),
+            "first_base": writer.first_base(),
+            "checkpoint_files": len(checkpoint_files(lifecycle.directory)),
+            "reclaimed": get("wal_reclaimed_bytes_total") or 0.0,
+            "checkpoint_index": get("checkpoint_last_commit_index") or 0.0,
+            "recoveries": get("crash_recovery_total") or 0.0, "served": served[a],
+        })
+    restart = next(e for e in events if e[0] == "restart" and e[1] == rejoiner)
+    crash = next(e for e in events if e[0] == "crash" and e[1] == rejoiner)
+    # The rejoiner's catch-up: from its restart to its last flush holding a
+    # block of the snapshot stream.
+    rejoined = [f for f in flushes if f[0] == rejoiner and f[1] >= restart[2]]
+    streamed = [f for f in rejoined if watch.streamed.intersection(f[3])]
+    end = streamed[-1] if streamed else None
+    in_catchup = [f for f in rejoined if end is not None and f[1] <= end[1]]
+    crashed = {a for a, *_ in config["crashes"]}
+    steady = [f for f in flushes if f[0] not in crashed]
+    recorded = [e for r in recorders for e in r.events()
+                if e["kind"] == "invalid-block" and e.get("reason") == "signature"]
+    result = {
+        "sequences": commits.sequences(n), "adopted": commits.adopted, "nodes": per_node,
+        "crashed_at_height": crash[4], "crashed_at_round": crash[5],
+        "forged_stored": sum(node.core.block_store.block_exists(ref)
+                             for node in nodes for ref in injector.forged_refs),
+        "forged_injected": len(injector.forged_refs), "redelivered": injector.redelivered,
+        "snapshot_chunks": watch.chunks,
+        "snapshot_blocks": len(watch.streamed),
+        "snapshot_forged_rejected": int(watch.forged is not None
+                                        and watch.forged in counter.forged_rejected_refs),
+        "invalid": {reason: sum(sample.value for m in metrics
+                                for family in m.mysticeti_invalid_blocks_total.collect()
+                                for sample in family.samples
+                                if sample.name.endswith("_total")
+                                and sample.labels["reason"] == reason)
+                    for reason in ("signature", "structure", "malformed")},
+        "recorded_signature": sum(e.get("count", 1) for e in recorded),
+        "recorder_dropped": sum(r.dropped for r in recorders),
+        "on_backend": sum(sample.value for m in metrics
+                          for family in m.verified_signatures_total.collect()
+                          for sample in family.samples if sample.name.endswith("_total")),
+        "dispatched": total("verify_dispatch_batch_size_sum"),
+        "flushes": total("verify_dispatch_batch_size_count"),
+        "catchup": {"flushes": len(in_catchup),
+                    "lanes": sum(len(f[3]) for f in in_catchup),
+                    "virtual_s": end[1] - restart[2] if end else None,
+                    "wall_s": end[2] - restart[3] if end else None},
+        "steady": {"flushes": len(steady), "lanes": sum(len(f[3]) for f in steady)},
+        **counter.settle(),
+    }
+    for node in nodes:
+        node.core.wal_writer.close()
+        node.core.block_store.close()
+    return result
+
+
+def storage_run(kind, config, backend=None) -> dict:
+    """One seeded simulation of ``storage_sim`` in a temporary directory:
+    ``kind`` "cuda-only" gives every node's every incarnation a collector
+    over the one shared ``backend``; "cpu" the ``cpu`` kind's collector.
+    Returns the result with its wall seconds."""
+    import tempfile
+
+    from mysticeti_tpu_torch.block_validator import BatchedSignatureVerifier
+    from mysticeti_tpu_torch.runtime.simulated import run_simulation
+    from mysticeti_tpu_torch.validator import _make_verifier
+
+    def make_collector(committee, metrics):
+        if kind == "cpu":
+            return _make_verifier("cpu", committee, metrics=metrics)
+        check(kind == "cuda-only" and backend is not None, f"no backend for {kind}")
+        return BatchedSignatureVerifier(committee, backend, metrics=metrics)
+
+    with tempfile.TemporaryDirectory(prefix="storage-") as d:
+        t0 = time.monotonic()
+        result = run_simulation(storage_sim(config, d, make_collector), seed=config["seed"])
+        result["wall_s"] = time.monotonic() - t0
+    return result
+
+
+def storage_counts(result) -> dict:
+    """The integers a seeded run must reproduce on any host and backend."""
+    keys = ("received", "fresh", "to_verify", "forged", "forged_rejected", "forged_injected",
+            "redelivered", "snapshot_chunks", "snapshot_blocks", "on_card")
+    return {"commits": [len(seq) for seq in result["sequences"]],
+            "flushes": int(result["flushes"]), "dispatched": int(result["dispatched"]),
+            "catchup_flushes": result["catchup"]["flushes"],
+            "catchup_lanes": result["catchup"]["lanes"],
+            **{key: result[key] for key in keys},
+            **{key: [node[key] for node in result["nodes"]] for key in (
+                "commit_height", "retired_round", "wal_written", "replayed_bytes")}}
+
+
+def storage_checks(card, cpu, config) -> dict:
+    """The storage phase's checks on the card run and the ``cpu`` run of the
+    same seed (see the module docstring, step 13); returns the readings."""
+    from mysticeti_tpu_torch.storage import CHECKPOINT_KEEP
+
+    check(card["sequences"] == cpu["sequences"], "the committed sequences differ from the cpu run's")
+    check(storage_counts(card) == storage_counts(cpu),
+          f"the counts differ from the cpu run's: {storage_counts(card)} vs {storage_counts(cpu)}")
+    rejoiner, rebooter = config["rejoiner"], config["rebooter"]
+    threshold = config["storage"]["catchup_threshold_commits"]
+    nodes = card["nodes"]
+    check(nodes[rejoiner]["snapshots_adopted"] == 1
+          and sum(node["snapshots_adopted"] for node in nodes) == 1,
+          f"snapshots adopted: {[node['snapshots_adopted'] for node in nodes]}")
+    adopted_height, _, floor = card["adopted"][rejoiner]
+    check(floor > card["crashed_at_round"],
+          f"the snapshot's floor (round {floor}) is not above node {rejoiner}'s last stored round "
+          f"({card['crashed_at_round']}): its history was not GC'd")
+    crashed_at = card["crashed_at_height"]
+    check(adopted_height > crashed_at + threshold // 2,
+          f"node {rejoiner} resumed at height {adopted_height}, crashed at {crashed_at}")
+    final = nodes[rejoiner]["commit_height"]
+    check(final > adopted_height + config["commits_after_rejoin"],
+          f"node {rejoiner} committed up to {final} after adopting {adopted_height}")
+    boot = nodes[rebooter]
+    check(boot["recovered_checkpoint_height"] > 0 and boot["replay_start"] > 0
+          and boot["replayed_bytes"] * 5 < boot["wal_written"],
+          f"node {rebooter} did not boot from a checkpoint replaying < 1/5 of its WAL: {boot}")
+    for a, node in enumerate(nodes):
+        check(node["first_base"] > 0 and node["reclaimed"] > 0 and node["checkpoint_index"] > 0,
+              f"node {a} reclaimed no segment or wrote no checkpoint: {node}")
+        check(node["checkpoint_files"] == CHECKPOINT_KEEP,
+              f"node {a} keeps {node['checkpoint_files']} checkpoint files")
+    recoveries = [node["recoveries"] for node in nodes]
+    check(recoveries == [float(sum(c[0] == a for c in config["crashes"]))
+                         for a in range(config["n"])], f"recoveries {recoveries}")
+    served = sum(node["served"] for node in nodes)
+    check(served > 0 and card["snapshot_blocks"] > 0, "no snapshot block was served")
+    forged_checks(card)
+    check(card["snapshot_forged_rejected"] == 1,
+          "the forged copy ahead of the snapshot stream was not verified and rejected")
+    catchup, steady = card["catchup"], card["steady"]
+    check(catchup["flushes"] > 0, "the rejoiner verified no snapshot block")
+    return {
+        "nodes": config["n"], "virtual_s": config["virtual_s"], "seed": config["seed"],
+        "commits": [len(seq) for seq in card["sequences"]],
+        "rejoiner": {"crashed_at_height": crashed_at, "crashed_at_round": card["crashed_at_round"],
+                     "adopted_height": adopted_height, "adopted_floor": floor,
+                     "final_height": final},
+        "rebooter": {key: boot[key] for key in (
+            "recovered_checkpoint_height", "replay_start", "replayed_bytes", "wal_written")},
+        "snapshot": {"served": served, "chunks": card["snapshot_chunks"],
+                     "blocks": card["snapshot_blocks"]},
+        "forged": card["forged"], "forged_injected": card["forged_injected"],
+        "forged_rejected": card["forged_rejected"],
+        "snapshot_forged_rejected": card["snapshot_forged_rejected"],
+        "catchup": dict(catchup, mean_live_lanes=(
+            catchup["lanes"] / catchup["flushes"] if catchup["flushes"] else 0.0)),
+        "steady": dict(steady, mean_live_lanes=(
+            steady["lanes"] / steady["flushes"] if steady["flushes"] else 0.0)),
+        "wal_bytes": {"written": sum(node["wal_written"] for node in nodes),
+                      "live": sum(node["wal_live"] for node in nodes)},
+        "counts": storage_counts(card),
+    }
+
+
+def storage_phase(kernels):
+    """storage-10 over the card (``cuda-only`` collectors, every node's
+    every incarnation over one ``TorchSignatureVerifier`` on cuda:0) and
+    over the ``cpu`` kind, with the checks of the module docstring, step
+    13.  Returns the launches and the readings."""
+    from mysticeti_tpu_torch.block_validator import TorchSignatureVerifier
+    from mysticeti_tpu_torch.committee import Committee
+
+    config = STORAGE_10
+    committee = Committee.new_for_benchmarks(config["n"])
+    backend = TorchSignatureVerifier(committee_keys=committee.public_key_bytes())
+    backend.warmup()  # the kernels' first launches and the combs' upload
+    for k in kernels:
+        k.reset_counts()
+    card = storage_run("cuda-only", config, backend=backend)
+    launches = {k.name: k.launches for k in kernels}
+    cpu = storage_run("cpu", config)
+    reading = storage_checks(card, cpu, config)
+    check(reading["counts"] == STORAGE_SEEDED,
+          f"the counts differ from the seeded ones: {reading['counts']}")
+    check(launches["prologue"] == launches["verify_keyed"] == card["flushes"]
+          and launches["verify_generic"] == 0,
+          f"the storage path's launches {launches} are not one prologue and one keyed "
+          f"launch a flush ({card['flushes']:.0f})")
+    accounted = card_checks(card)
+    check(card["on_card_twice"] == 0,
+          f"the card verified {card['on_card_twice']} blocks twice for one incarnation "
+          f"({card['on_card_twice_one_peer']} of them sent fresh by one peer only)")
+    catchup, steady, wal = reading["catchup"], reading["steady"], reading["wal_bytes"]
+    reading.update({"card_wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"],
+                    "signatures_on_card": accounted["on_backend"],
+                    "open_at_stop": accounted["open_at_stop"],
+                    "dedup_saved": accounted["dedup_saved"],
+                    "launches": launches,
+                    "card": card_line()})
+    print(f"storage storage-10: {config['n']} validators, {config['virtual_s']} virtual s, "
+          f"commits a node {reading['commits']}, prefixes agree and equal the cpu run's and the "
+          f"seeded counts; node {config['rejoiner']} crashed at height "
+          f"{reading['rejoiner']['crashed_at_height']}, adopted a snapshot at "
+          f"{reading['rejoiner']['adopted_height']} ({reading['snapshot']['blocks']} blocks in "
+          f"{reading['snapshot']['chunks']} chunks) and reached {reading['rejoiner']['final_height']}; "
+          f"node {config['rebooter']} booted from checkpoint "
+          f"{reading['rebooter']['recovered_checkpoint_height']} replaying "
+          f"{reading['rebooter']['replayed_bytes']} of {reading['rebooter']['wal_written']} WAL "
+          f"bytes; {card['forged']} forged copies verified ({card['forged_injected']} injected, "
+          f"the snapshot stream's included), all rejected and counted; "
+          f"{accounted['flushes']:.0f} flushes; launches {launches} [{reading['card']}]",
+          flush=True)
+    print(f"storage readings: live lanes a flush in the rejoiner's catch-up "
+          f"{catchup['mean_live_lanes']:.2f} ({catchup['flushes']} flushes) against "
+          f"{steady['mean_live_lanes']:.2f} in steady state ({steady['flushes']} flushes); "
+          f"catch-up {catchup['wall_s']:.3f} wall s on the card ({catchup['virtual_s']:.3f} "
+          f"virtual s); WAL bytes written {wal['written']} against {wal['live']} live; "
+          f"{card['wall_s']:.1f} s on the card, {cpu['wall_s']:.1f} s on the cpu kind "
+          f"[{reading['card']}]", flush=True)
+    return launches, reading
 
 
 def bench_phase() -> dict:
@@ -2197,6 +2776,7 @@ def run() -> int:
     by_path["receive"], receive = receive_phase(committee, signers, rng, K.KERNELS)
     by_path["consensus"], consensus = consensus_phase(K.KERNELS)
     by_path["net_sync"], by_path["net_sync_tcp"], net_sync = net_sync_phase(K.KERNELS)
+    by_path["storage"], storage = storage_phase(K.KERNELS)
     bench = bench_phase()
     # The block path's flushes take the keyed kernel, one key per lane, and
     # never the generic one; the committee dispatch's 8 stragglers take the
@@ -2232,7 +2812,7 @@ def run() -> int:
                       "block_path_blocks_per_s": rates["block_per_s"], "flush": report["flush"],
                       "flat_vs_26col": layout, "sharded": sharded, "hybrid": hybrid,
                       "service": service, "receive": receive, "consensus": consensus,
-                      "net_sync": net_sync,
+                      "net_sync": net_sync, "storage": storage,
                       "metrics": metrics_reading,
                       "bench": bench}), flush=True)
     print(card_line(), flush=True)
@@ -2320,6 +2900,24 @@ def net_sync_only() -> int:
     print(json.dumps({"net_sync": reading, "launches": {"net_sync": launches,
                                                         "net_sync_tcp": tcp_launches}}),
           flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def storage_only() -> int:
+    """The storage phase alone: ``python3 -c 'import chip_smoke as c;
+    raise SystemExit(c.main(c.storage_only))'``."""
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    launches, reading = storage_phase(K.KERNELS)
+    print(json.dumps({"storage": reading, "launches": launches}, default=str), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2539,7 +3137,18 @@ def kernel_times(which: str = "all", root=None) -> int:
     return 0
 
 
+def pin_hash_seed() -> None:
+    """Run this command again under ``PYTHONHASHSEED=HASH_SEED`` unless it
+    already is: the storage phase's counts are held to a run of the same
+    seed on another host, and the run's fetches follow the hash salt."""
+    if os.environ.get("PYTHONHASHSEED") != HASH_SEED:
+        sys.stdout.flush()
+        os.execve(sys.executable, [sys.executable, *sys.orig_argv[1:]],
+                  dict(os.environ, PYTHONHASHSEED=HASH_SEED))
+
+
 def main(entry=run, *args) -> int:
+    pin_hash_seed()
     try:
         return entry(*args)
     except SmokeFailure as exc:

@@ -88,6 +88,16 @@ class BlockHandler:
     def cleanup(self) -> None:
         pass
 
+    def note_catchup(self, floor_round: int) -> None:
+        """Snapshot catch-up (storage.py): blocks below ``floor_round`` are
+        history this node will never process — the transaction oracles must
+        treat votes/shares referencing it as expected, not Byzantine.
+        Handlers carrying a TransactionAggregator forward to its
+        ``relax_below``; stateless handlers ignore it."""
+        votes = getattr(self, "transaction_votes", None)
+        if votes is not None:
+            votes.relax_below(floor_round)
+
 
 class _LoggingAggregator(TransactionAggregator):
     """TransactionAggregator whose processed-hook appends to a TransactionLog

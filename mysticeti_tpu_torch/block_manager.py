@@ -29,10 +29,32 @@ class BlockManager:
         self.missing: List[Set[BlockReference]] = [set() for _ in range(num_authorities)]
         self.block_store = block_store
         self._metrics = metrics
-        # Recovered floor (a WAL that holds a snapshot baseline): includes
-        # strictly below it are treated as satisfied — the blocks are not
-        # on disk here, so parking/fetching on them would wait forever.
+        # Storage-GC floor (storage.py): includes strictly below it are
+        # treated as satisfied — the blocks were retired from disk here
+        # (and from well-behaved peers), so parking/fetching on them would
+        # wait forever.  Raised by Core.cleanup and by snapshot adoption.
         self.gc_floor = 0
+
+    def set_gc_floor(
+        self, gc_floor: int, block_writer: BlockWriter
+    ) -> Tuple[List[Tuple[WalPosition, StatementBlock]], Set[BlockReference]]:
+        """Raise the floor, forget sub-floor missing refs, and re-evaluate
+        every parked block against the new rule (a snapshot-streamed block
+        whose parents sit below the adopted floor releases here).  Returns
+        the same shape as :meth:`add_blocks` so the caller can ingest the
+        released blocks through its normal path."""
+        if gc_floor <= self.gc_floor:
+            return [], set()
+        self.gc_floor = gc_floor
+        for refs in self.missing:
+            stale = {r for r in refs if r.round < gc_floor}
+            refs -= stale
+        parked = list(self.blocks_pending.values())
+        self.blocks_pending.clear()
+        self.block_references_waiting.clear()
+        if not parked:
+            return [], set()
+        return self.add_blocks(parked, block_writer)
 
     def add_blocks(
         self, blocks: Sequence[StatementBlock], block_writer: BlockWriter

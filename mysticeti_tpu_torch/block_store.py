@@ -145,22 +145,58 @@ class BlockStore:
         wal_writer: WalWriter,
         committee,
         metrics=None,
+        checkpoint=None,
     ):
         """Replay the WAL, building the index and the recovered core/observer state.
 
         Returns ``(CoreRecoveredState, CommitObserverRecoveredState)``; the block
         store itself rides inside the core state (state.rs:72-94).
 
-        The JAX package's checkpoints (a replay that starts past byte zero)
-        are not in the port yet: replay starts at byte zero.
+        With a ``checkpoint`` (storage.py), the index and recovery fold are
+        seeded from it and replay starts at its recorded WAL position instead
+        of byte zero — the O(recent) boot the lifecycle plane exists for.
         """
         from .state import RecoveredStateBuilder
 
         store = cls(authority, len(committee), wal_reader, metrics)
         builder = RecoveredStateBuilder()
-        replayed_end: WalPosition = 0
+        replay_start: WalPosition = 0
+        if checkpoint is not None:
+            builder.seed_checkpoint(checkpoint)
+            replay_start = checkpoint.wal_position
+            floor = (
+                wal_writer.first_base()
+                if hasattr(wal_writer, "first_base")
+                else 0
+            )
+            dropped = 0
+            dropped_max_round: RoundNumber = 0
+            for reference, position, proposed in sorted(
+                checkpoint.index, key=lambda entry: entry[1]
+            ):
+                if position < floor:
+                    # The segment holding it was deleted by a GC pass AFTER
+                    # this checkpoint was written (GC only guarantees the
+                    # kept checkpoints' REPLAY positions, not their whole
+                    # index).  The block is settled history.
+                    dropped += 1
+                    dropped_max_round = max(dropped_max_round, reference.round)
+                    continue
+                store._add_unloaded(reference, position, proposed=proposed)
+                wal_writer.note_round(reference.round, position)
+            if dropped:
+                # Raise the recovered floor over the known-gone rounds so
+                # nothing re-fetches or re-parks on them — they are exactly
+                # the rounds the deleting GC pass retired.
+                log.warning(
+                    "%d checkpoint index entries below the retired WAL "
+                    "floor dropped (rounds <= %d); recovered DAG floor "
+                    "raised accordingly", dropped, dropped_max_round,
+                )
+                builder.note_retired_floor(dropped_max_round + 1)
+        replayed_end: WalPosition = replay_start
         for pos, tag, payload in wal_reader.iter_from(
-            0, wal_writer.position()
+            replay_start, wal_writer.position()
         ):
             replayed_end = pos + HEADER_SIZE + len(payload)
             if tag == WAL_ENTRY_BLOCK:
@@ -194,7 +230,7 @@ class BlockStore:
                 block.reference, pos, proposed=tag == WAL_ENTRY_OWN_BLOCK
             )
             wal_writer.note_round(block.reference.round, pos)
-        builder.note_replayed(replayed_end)
+        builder.note_replayed(max(0, replayed_end - replay_start))
         if replayed_end < wal_writer.position():
             # Torn tail (crash mid-write): replay stopped at the tear.  The
             # torn bytes must be truncated away before the first new append —
@@ -446,6 +482,49 @@ class BlockStore:
             if not parents:
                 break
         return parents
+
+    # -- storage lifecycle (storage.py) --
+
+    def retire_below_round(self, gc_round: RoundNumber) -> int:
+        """GC: drop every index entry with round strictly below ``gc_round``
+        (the blocks' WAL segments are about to be deleted).  Unlike
+        :meth:`cleanup` this is not an eviction — retired references are gone
+        from this store; the linearizer/block-manager floors guarantee
+        nothing asks for them again.  Returns entries removed."""
+        removed = 0
+        with self._lock:
+            for round_ in [r for r in self._index if r < gc_round]:
+                removed += len(self._index.pop(round_))
+            for round_ in [r for r in self._own_blocks if r < gc_round]:
+                del self._own_blocks[round_]
+        if removed:
+            log.debug(
+                "retired %d index entries below round %d", removed, gc_round
+            )
+        return removed
+
+    def index_entries_snapshot(
+        self, from_round: RoundNumber = 0
+    ) -> List[Tuple[BlockReference, WalPosition, bool]]:
+        """Checkpoint payload: every (reference, wal position, is-own-
+        proposal) at ``from_round`` or above, in WAL-position order (so a
+        checkpoint-seeded index rebuilds with the same first-indexed
+        semantics as replay)."""
+        out: List[Tuple[BlockReference, WalPosition, bool]] = []
+        with self._lock:
+            for round_, entries in self._index.items():
+                if round_ < from_round:
+                    continue
+                for (a, digest), (position, _block) in entries.items():
+                    proposed = (
+                        a == self._authority
+                        and self._own_blocks.get(round_) == digest
+                    )
+                    out.append(
+                        (BlockReference(a, round_, digest), position, proposed)
+                    )
+        out.sort(key=lambda entry: entry[1])
+        return out
 
     # -- cache eviction (block_store.rs:207-218,374-396) --
 

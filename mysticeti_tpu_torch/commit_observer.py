@@ -78,6 +78,42 @@ class CommitObserver:
     def aggregator_state(self) -> bytes:
         raise NotImplementedError
 
+    # -- storage lifecycle seams (storage.py; default: forward to the
+    #    linearizer both concrete observers own) --
+
+    def note_gc_round(self, gc_round: int) -> None:
+        """The store's retired floor moved: references below it are settled
+        and must stop the linearizer's DFS (they are no longer on disk)."""
+        interpreter = getattr(self, "commit_interpreter", None)
+        if interpreter is not None:
+            interpreter.set_gc_round(gc_round)
+
+    def adopt_snapshot(self, manifest) -> None:
+        """Snapshot catch-up: adopt a remote commit baseline — the
+        linearizer resumes sequencing at ``manifest.commit_height + 1``.
+        The transaction aggregator is deliberately NOT transferred
+        (application-level, per-node); commits below the baseline are
+        outside this node's observation window."""
+        interpreter = getattr(self, "commit_interpreter", None)
+        if interpreter is not None:
+            interpreter.adopt_snapshot(
+                manifest.commit_height,
+                manifest.committed_refs,
+                manifest.gc_round,
+            )
+        votes = getattr(self, "transaction_votes", None)
+        if votes is not None and hasattr(votes, "relax_below"):
+            # The observer aggregator only learns shares when their block is
+            # processed in a commit — and every commit at or below the
+            # adopted height was skipped.  Those sub-dags reach up to the
+            # adopted leader's round, so the leniency watermark must too
+            # (the handler's stays at the lower GC floor: it handled every
+            # RECEIVED block, which covers [floor, frontier]).
+            watermark = manifest.gc_round
+            if manifest.last_committed_leader is not None:
+                watermark = max(watermark, manifest.last_committed_leader.round)
+            votes.relax_below(watermark)
+
 
 class TestCommitObserver(CommitObserver):
     """Benchmark/test observer (commit_observer.rs:42-198)."""

@@ -713,6 +713,24 @@ class TransactionAggregator:
                 w.bytes(mask)
         return w.finish()
 
+    def relax_below(self, watermark_round: int) -> None:
+        """Snapshot catch-up (storage.py): the node adopted a remote commit
+        baseline, so every block below the adopted floor is history it will
+        NEVER process — votes and shares referencing that history are
+        expected, not Byzantine.  Raises (never lowers) the pre-snapshot
+        leniency watermark; locators first shared above it stay strictly
+        checked, exactly as after a with_state recovery."""
+        if not self.recovered:
+            self.recovered = True
+            self.recovered_watermark = watermark_round
+        elif (
+            self.recovered_watermark is not None
+            and watermark_round > self.recovered_watermark
+        ):
+            # None means unbounded leniency (pure reference parity) — never
+            # narrow it here.
+            self.recovered_watermark = watermark_round
+
     def with_state(
         self, state: bytes, watermark_round: Optional[int] = None
     ) -> None:

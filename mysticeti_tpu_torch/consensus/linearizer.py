@@ -60,10 +60,11 @@ class Linearizer:
         self.block_store = block_store
         self.committed: Set[BlockReference] = set()
         self.last_height = 0
-        # Recovered floor: a WAL that holds a snapshot baseline (written by
-        # the JAX package's storage lifecycle) lacks all history below it,
-        # so the DFS treats references strictly below it like
-        # already-committed blocks.
+        # Storage-GC floor (storage.py): references strictly below it are
+        # settled — retired from disk, guaranteed inside some committed
+        # history — so the DFS treats them like already-committed blocks.
+        # Also the snapshot catch-up seam: a node that adopted a remote
+        # commit baseline lacks all history below the served floor.
         self.gc_round = 0
 
     def recover_state(self, recovered: CommitObserverRecoveredState) -> None:
@@ -76,6 +77,24 @@ class Linearizer:
             self.last_height = commit.height
             self.committed.update(commit.sub_dag)
             assert commit.leader in self.committed
+
+    def set_gc_round(self, gc_round: int) -> None:
+        """Raise the floor and prune the committed set below it (the set
+        otherwise grows with the whole run — the GC'd node's memory bound)."""
+        if gc_round <= self.gc_round:
+            return
+        self.gc_round = gc_round
+        self.committed = {r for r in self.committed if r.round >= gc_round}
+
+    def adopt_snapshot(
+        self, height: int, committed_refs, gc_round: int
+    ) -> None:
+        """Snapshot catch-up: jump the sequencer to the remote baseline —
+        heights at or below ``height`` are the adopted prefix, the committed
+        set becomes the baseline's (everything below its floor is settled)."""
+        self.last_height = max(self.last_height, height)
+        self.committed.update(committed_refs)
+        self.set_gc_round(gc_round)
 
     def collect_sub_dag(self, leader_block: StatementBlock) -> CommittedSubDag:
         to_commit: List[StatementBlock] = []

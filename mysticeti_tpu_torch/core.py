@@ -87,12 +87,14 @@ class Core:
         options: Optional[CoreOptions] = None,
         signer: Optional[Signer] = None,
         metrics=None,
+        storage=None,
     ) -> None:
         """Equivalent of ``Core::open`` (core.rs:69-161).
 
-        The JAX package's ``storage`` lifecycle (checkpoint cadence, GC
-        floor, snapshot catch-up) is not in the port yet: this core evicts
-        its cache and keeps an unbounded log."""
+        ``storage`` is the node's :class:`~mysticeti_tpu_torch.storage.
+        StorageLifecycle` (checkpoint cadence, GC floor, snapshot baseline);
+        ``None`` (bare test cores) keeps the seed behavior: cache eviction
+        only, no checkpoints, unbounded log."""
         block_store: BlockStore = recovered.block_store
         pending = recovered.pending
         threshold_clock = ThresholdClockAggregator(0, metrics)
@@ -104,7 +106,9 @@ class Core:
         # committee before anything below touches stake arithmetic.
         # reconfig.py and execution.py are not in the port yet: these two
         # branches raise ModuleNotFoundError naming the missing module, and
-        # the default Parameters never reach them.
+        # the default Parameters never reach them.  So a snapshot manifest
+        # this core serves or adopts carries no epoch chain and no execution
+        # state.
         self.reconfig = None
         if parameters.reconfig:
             from .reconfig import EpochChain, ReconfigState
@@ -155,9 +159,8 @@ class Core:
             )
 
         self.block_manager = BlockManager(block_store, len(committee), metrics)
-        # A store recovered from a WAL that holds a snapshot baseline lacks
-        # everything below its floor; the manager must never park on those
-        # references.
+        # A checkpoint/snapshot-recovered store lacks everything below its
+        # baseline floor; the manager must never park on those references.
         self.block_manager.gc_floor = recovered.gc_round
         self.pending: Deque[Tuple[WalPosition, MetaStatement]] = pending
         self.last_own_block: OwnBlockData = last_own_block
@@ -186,6 +189,7 @@ class Core:
         # leader -> last leader_round whose liveness skip was counted (the
         # metric counts skipped SLOTS, not readiness polls).
         self._leader_skip_marked: Dict[AuthorityIndex, RoundNumber] = {}
+        self.storage = storage
         self.parameters = parameters
         # Called on every epoch switch with (new_committee, records): the
         # sync layer re-derives peer/relay/verifier state, the chaos checker
@@ -542,7 +546,8 @@ class Core:
             if self.reconfig is not None:
                 # Scan this commit's sub-dag (in linearized order) for
                 # finalized committee changes; the switch happens HERE —
-                # before any later slot is decided (try_commit is slot-sequential
+                # before the checkpoint below embeds the chain, and before
+                # any later slot is decided (try_commit is slot-sequential
                 # under reconfig, so `committed` holds at most one commit).
                 transition = self.reconfig.observe_commit(
                     commit.height, commit.anchor.round, commit.blocks
@@ -551,7 +556,9 @@ class Core:
                     self._switch_epoch(transition)
             if self.execution is not None:
                 # Fold the sub-dag into the account state machine and
-                # advance the root chain before the commit is persisted.
+                # advance the root chain BEFORE the checkpoint below embeds
+                # the state — a checkpoint must never be ahead of or behind
+                # the commits it is anchored to.
                 result = self.execution.observe_commit(
                     commit.height, commit.blocks
                 )
@@ -560,6 +567,10 @@ class Core:
                         listener(result)
         self.write_state()
         self.write_commits(commit_data, state)
+        if self.storage is not None and commit_data:
+            self.storage.note_commits(commit_data)
+            if self.storage.should_checkpoint():
+                self.storage.write_checkpoint(self, state)
         return commit_data
 
     def write_state(self) -> None:
@@ -573,13 +584,79 @@ class Core:
         w.bytes(state)
         self.wal_writer.write(WAL_ENTRY_COMMIT, w.finish())
 
+    # -- snapshot catch-up (storage.py; driven by the syncer) --
+
+    def apply_snapshot(self, manifest) -> bool:
+        """Adopt a remote commit baseline: persist the manifest (crash-safe
+        re-adoption on replay), jump the decided-leader cursor, raise the
+        block manager's floor, and release any parked blocks the new floor
+        satisfies.  Returns False when the manifest is stale/duplicate."""
+        if self.storage is None or not self.storage.wants_snapshot(manifest):
+            return False
+        from .block_store import WAL_ENTRY_SNAPSHOT
+
+        self.wal_writer.write(WAL_ENTRY_SNAPSHOT, manifest.to_bytes())
+        self.storage.adopt(manifest)
+        leader = manifest.last_committed_leader
+        if leader is not None and (
+            leader.round > self.last_decided_leader.round
+        ):
+            self.last_decided_leader = AuthorityRound(
+                leader.authority, leader.round
+            )
+        log.info(
+            "adopted snapshot baseline: commit height %d, floor round %d",
+            manifest.commit_height, manifest.gc_round,
+        )
+        # Transactions first shared below the floor are history we will
+        # never process; the handler's oracles must expect their votes.
+        self.block_handler.note_catchup(self.storage.retired_round)
+        self._raise_dag_floor(self.storage.retired_round)
+        return True
+
+    def _raise_dag_floor(self, floor: RoundNumber) -> None:
+        """Blocks parked on sub-floor parents release here; they enter the
+        pipeline exactly as ``add_blocks`` would have entered them."""
+        writer = BlockWriter(self.wal_writer, self.block_store)
+        released, _missing = self.block_manager.set_gc_floor(floor, writer)
+        if not released:
+            return
+        result = []
+        for position, block in sorted(released, key=lambda pb: pb[1].round()):
+            self.threshold_clock.add_block(block.reference, self.committee)
+            self.pending.append((position, Include(block.reference)))
+            result.append(block)
+        self.run_block_handler(result)
+
     # -- maintenance --
 
     def cleanup(self) -> None:
         self.block_store.cleanup(
             max(0, self.last_decided_leader.round - self.store_retain_rounds)
         )
+        if self.storage is not None:
+            before = self.storage.retired_round
+            self.storage.collect(self.block_store)
+            if self.storage.retired_round > before:
+                self._raise_dag_floor(self.storage.retired_round)
         self.block_handler.cleanup()
+
+    def dag_floor(self) -> RoundNumber:
+        """The round below which this store holds nothing (GC/adoption)."""
+        return self.storage.retired_round if self.storage is not None else 0
+
+    def commit_height(self) -> int:
+        return self.storage.commit_height if self.storage is not None else 0
+
+    def snapshot_manifest_for(self, peer_height: int):
+        """Server side of snapshot catch-up: a manifest when the peer is far
+        enough behind (and the knob is on), else None."""
+        if self.storage is None or not self.storage.serves_snapshot_for(
+            peer_height
+        ):
+            return None
+        manifest = self.storage.build_manifest()
+        return manifest
 
     def wal_syncer(self) -> WalSyncer:
         return self.wal_writer.syncer()

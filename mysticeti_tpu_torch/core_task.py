@@ -1,9 +1,8 @@
 """Single-owner consensus dispatcher — the L7 concurrency bridge.
 
 The port's copy of ``mysticeti_tpu.core_task``: ``CoreTaskDispatcher`` and
-``DataPlaneOffload``.  The dispatcher's ``apply_snapshot`` command waits for
-the storage lifecycle that gives ``Syncer.apply_snapshot``, and its
-``blocking_monitor`` hook for the host attribution plane (``hostattr``).
+``DataPlaneOffload``.  The dispatcher's ``blocking_monitor`` hook waits for
+the host attribution plane (``hostattr``).
 
 Capability parity with ``mysticeti-core/src/core_thread/spawned.rs``: all
 consensus state mutation is serialized through ONE owner; network tasks submit
@@ -186,6 +185,11 @@ class CoreTaskDispatcher:
         # syncer so the observer's settled floor moves in the same owner
         # step as the store's GC (see Syncer.cleanup).
         return await self._call(self.syncer.cleanup, internal=True)
+
+    async def apply_snapshot(self, manifest) -> bool:
+        """Adopt a snapshot catch-up baseline (storage.py) on the owner —
+        commit-chain state and the observer's linearizer move together."""
+        return await self._call(self.syncer.apply_snapshot, manifest)
 
     async def get_missing(self) -> List[Set[BlockReference]]:
         # internal: driven by the synchronizer's periodic task.

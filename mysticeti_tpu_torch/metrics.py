@@ -12,7 +12,8 @@ core (syncer, core, threshold clock, block manager and store, committers'
 decision ledger, commit observer, block handlers, with the exact-percentile
 channels and ``observe_latency_batch``), and the network plane (the
 core-task dispatcher's queue, the synchronizer's fetches and frame cache,
-``NetworkSyncer``'s receive path and WAL gauges).  Every family keeps the JAX
+``NetworkSyncer``'s receive path and WAL gauges), and the storage
+lifecycle (``wal_reclaimed_bytes_total``, ``checkpoint_last_commit_index``).  Every family keeps the JAX
 package's name, help, labels and buckets, except the JAX compile and
 compile-cache families, which become the kernels' build families
 (``mysticeti_cuda_build*``, see ``ops.ed25519.install_device_attribution``).
@@ -184,8 +185,19 @@ class Metrics:
             "live write-ahead log bytes across all surviving segments "
             "(storage lifecycle: bounded by GC, not lifetime bytes written)",
         )
+        # Storage lifecycle plane (storage.py).
         self.wal_segments = gauge(
             "wal_segments", "live WAL segment files (1 = single-file log)"
+        )
+        self.wal_reclaimed_bytes_total = counter(
+            "wal_reclaimed_bytes_total",
+            "WAL bytes deleted by segment garbage collection below the "
+            "retired round floor",
+        )
+        self.checkpoint_last_commit_index = gauge(
+            "checkpoint_last_commit_index",
+            "commit height anchoring the newest durable checkpoint "
+            "(recovery replays only WAL entries after it)",
         )
 
         # Epoch and committee (core.py).

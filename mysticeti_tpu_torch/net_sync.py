@@ -1,14 +1,12 @@
 """Node-level orchestration: connections, verify-then-add pipeline, timeouts.
 
-The port's copy of ``mysticeti_tpu.net_sync``.  It differs in three places:
+The port's copy of ``mysticeti_tpu.net_sync``.  It differs in two places:
 the shared ``FrameCache`` is always on (the port has no
-``MYSTICETI_MESH_LEGACY`` knob); snapshot catch-up needs the storage
-lifecycle, which the port does not have yet, so the node behaves as a JAX
-node built without storage (a ``RequestSnapshot`` draws no answer, a
-``RequestSnapshotStream`` is never armed, a ``SnapshotResponse`` is dropped)
-and construction raises when ``parameters.storage.snapshot_catchup`` is set;
-and the epoch-switch listener with its ``EpochInfo`` send waits for the
-port's reconfiguration plane (a received ``EpochInfo`` is still recorded).
+``MYSTICETI_MESH_LEGACY`` knob); and the epoch-switch listener with its
+``EpochInfo`` send waits for the port's reconfiguration plane (a received
+``EpochInfo`` is still recorded).  Snapshot catch-up is served and adopted
+as in the JAX package: a node whose core has no storage lifecycle answers no
+``RequestSnapshot`` (``Core.snapshot_manifest_for`` gives ``None``).
 
 Capability parity with ``mysticeti-core/src/net_sync.rs``:
 
@@ -136,11 +134,6 @@ class NetworkSyncer:
         recorder=None,
     ) -> None:
         self.parameters = parameters or Parameters()
-        if self.parameters.storage.snapshot_catchup:
-            raise NotImplementedError(
-                "snapshot catch-up needs the storage lifecycle, which the "
-                "port does not have yet (ROADMAP A 6(b))"
-            )
         self.signals = AsyncSignals()
         self.syncer = Syncer(
             core,
@@ -195,8 +188,8 @@ class NetworkSyncer:
         self._wal_sync_thread: Optional[threading.Thread] = None
         self._start_wal_sync_thread = start_wal_sync_thread
         # Snapshot catch-up serving totals, surviving connection teardown
-        # (the per-connection disseminator dies with its peer); they stay 0
-        # until the port serves snapshot streams.
+        # (the per-connection disseminator dies with its peer): the artifact
+        # and tests read how much bootstrap data this node shipped.
         self.snapshot_blocks_served = 0
         self.snapshot_bytes_served = 0
         # Flight recorder (flight_recorder.py): connection churn, leader
@@ -329,6 +322,12 @@ class NetworkSyncer:
         self._helper_subs.drop_authority(peer)
         if self.parameters.synchronizer.disseminate_others_blocks:
             await self._request_helper_streams(connection)
+        if self.parameters.storage.snapshot_catchup:
+            # Snapshot catch-up ask (storage.py): tell the peer our commit
+            # height; a peer far enough ahead answers with its manifest +
+            # the retained block window, anyone else ignores it.  Cheap (one
+            # small frame per connect) and self-gating on both sides.
+            await connection.send(RequestSnapshot(self.core.commit_height()))
         # Per-connection verification pipeline: the reader overlaps many
         # in-flight signature batches (the accelerator's round-trip would
         # otherwise serialize the connection at one batch per RTT), while the
@@ -343,6 +342,12 @@ class NetworkSyncer:
         inflight: Set[bytes] = set()
         # Last sender stamp pair per tag-12 frame (wall-jump detection).
         last_stamp: Optional[tuple] = None
+        # One-shot arming for the snapshot bulk stream: serving a manifest
+        # to this peer arms exactly one RequestSnapshotStream (re-arming
+        # requires another gap-checked RequestSnapshot), so a caught-up or
+        # misbehaving peer cannot turn the one-u64 ask into a repeated
+        # full-window push.
+        snapshot_armed_floor: Optional[int] = None
         accept_task = asyncio.ensure_future(
             self._accept_ordered(pipeline, connection, inflight)
         )
@@ -419,16 +424,46 @@ class NetworkSyncer:
                         except asyncio.CancelledError:
                             fut.cancel()
                             raise
-                elif isinstance(msg, (RequestSnapshot, RequestSnapshotStream)):
-                    # Serving snapshot catch-up needs the storage lifecycle:
-                    # like a node without storage, this one has no manifest
-                    # to answer with, so the stream is never armed.
-                    pass
+                elif isinstance(msg, RequestSnapshot):
+                    # Serving side: answer a genuinely far-behind peer with
+                    # the MANIFEST only (cheap — every connected server may
+                    # answer).  The bulk block window ships on an explicit
+                    # RequestSnapshotStream from the one peer that adopted
+                    # our manifest, so a rejoiner never receives N-1
+                    # redundant copies of the whole retained window.
+                    manifest = self.core.snapshot_manifest_for(
+                        msg.commit_height
+                    )
+                    if manifest is not None:
+                        log.info(
+                            "serving snapshot manifest to authority %d (its "
+                            "height %d, ours %d)", peer, msg.commit_height,
+                            manifest.commit_height,
+                        )
+                        self._record(
+                            "snapshot-served", peer=peer,
+                            peer_height=msg.commit_height,
+                            height=manifest.commit_height,
+                        )
+                        snapshot_armed_floor = manifest.gc_round
+                        await connection.send(
+                            SnapshotResponse(manifest.to_bytes())
+                        )
+                elif isinstance(msg, RequestSnapshotStream):
+                    if (
+                        self.parameters.storage.snapshot_catchup
+                        and snapshot_armed_floor is not None
+                    ):
+                        # Serve from the floor we actually advertised (the
+                        # peer's value cannot widen the walk), and hold GC
+                        # so the window cannot be holed mid-stream.
+                        disseminator.stream_snapshot(
+                            max(msg.from_round, snapshot_armed_floor),
+                            gc_hold=self.core.storage,
+                        )
+                        snapshot_armed_floor = None
                 elif isinstance(msg, SnapshotResponse):
-                    # We never asked: an unsolicited manifest with a huge
-                    # baseline would otherwise poison the commit chain and
-                    # raise the DAG floor.
-                    log.warning("ignoring unsolicited snapshot manifest from peer")
+                    await self._handle_snapshot_response(connection, msg)
                 elif isinstance(msg, EpochInfo):
                     # Advisory (tag 17): a skewed peer is probably mid-
                     # boundary — never a reason to sever; the committed
@@ -501,6 +536,40 @@ class NetworkSyncer:
                     live = self.connections.get(authority)
                     if live is None or live.is_closed():
                         self._ask_relays_for(authority)
+
+    async def _handle_snapshot_response(
+        self, connection: Connection, msg: SnapshotResponse
+    ) -> None:
+        """Client side of snapshot catch-up: decode the manifest and adopt
+        it on the consensus owner (which also releases any blocks already
+        parked on sub-floor parents).  Stale/duplicate manifests — every
+        connected peer may answer — are rejected by the owner's gap check;
+        only the ADOPTED manifest's sender is asked to stream the bulk
+        block window."""
+        from .storage import SnapshotManifest
+
+        if not self.parameters.storage.snapshot_catchup:
+            # We never asked: an unsolicited manifest with a huge baseline
+            # would otherwise poison the commit chain and raise the DAG
+            # floor on a node that opted out of catch-up entirely.
+            log.warning("ignoring unsolicited snapshot manifest from peer")
+            return
+        try:
+            manifest = SnapshotManifest.from_bytes(msg.manifest)
+        except Exception:  # noqa: BLE001 - byzantine peer: drop, don't die
+            log.warning("dropping malformed snapshot manifest from peer")
+            return
+        adopted = await self.dispatcher.apply_snapshot(manifest)
+        if adopted:
+            log.info(
+                "snapshot catch-up adopted: commit height %d, floor %d",
+                manifest.commit_height, manifest.gc_round,
+            )
+            self._record(
+                "snapshot-adopted", peer=connection.peer,
+                height=manifest.commit_height, floor=manifest.gc_round,
+            )
+            await connection.send(RequestSnapshotStream(manifest.gc_round))
 
     def _ask_relays_for(self, authority: int) -> None:
         """Ask connected peers to relay ``authority``'s blocks (its direct

@@ -78,13 +78,15 @@ class CoreRecoveredState:
     state: Optional[bytes]
     unprocessed_blocks: List[StatementBlock]
     last_committed_leader: Optional[BlockReference]
-    # Commit baseline (storage.py): the commit chain as of the end of
-    # replay, from a snapshot-adoption entry plus every replayed commit,
-    # and how many WAL bytes the replay read.
+    # Storage-lifecycle baseline (storage.py): the commit chain as of the end
+    # of replay, and how much replay actually cost — checkpointed boots
+    # assert replayed_bytes << lifetime WAL bytes.
     commit_height: int = 0
     chain_digest: bytes = b""
     gc_round: int = 0
+    replay_start: WalPosition = 0
     replayed_bytes: int = 0
+    checkpoint_height: int = 0
     # Reconfiguration (reconfig.py): the serialized epoch chain from the
     # recovering checkpoint/snapshot, plus the commits replayed AFTER that
     # baseline — Core re-scans them so a crash between a boundary commit and
@@ -123,16 +125,37 @@ class RecoveredStateBuilder:
         self._last_committed_leader: Optional[BlockReference] = None
         self._committed_sub_dags: List[CommitData] = []
         self._committed_state: Optional[bytes] = None
-        # Commit chain state (storage.py): folded from a snapshot baseline
-        # plus every replayed commit entry.
+        # Storage-lifecycle chain state (storage.py): folded from the
+        # checkpoint/snapshot baseline plus every replayed commit entry.
         self._commit_height = 0
         self._chain_digest = b"\x00" * 32
         self._gc_round = 0
         self._base_height = 0
         self._base_committed: List[BlockReference] = []
+        self._checkpoint_height = 0
+        self._replay_start: WalPosition = 0
         self._replayed_bytes = 0
         self._epoch_chain = b""
         self._exec_state = b""
+
+    def seed_checkpoint(self, checkpoint) -> None:
+        """Boot the fold from a durable checkpoint instead of genesis: the
+        pending queue, own proposal, handler state, and commit baseline come
+        from the checkpoint; replay then starts at its WAL position."""
+        self._pending = dict(checkpoint.pending)
+        self._last_own_block = checkpoint.last_own_block
+        self._state = checkpoint.handler_state
+        self._last_committed_leader = checkpoint.last_committed_leader
+        self._committed_state = checkpoint.committed_state
+        self._commit_height = checkpoint.commit_height
+        self._chain_digest = checkpoint.chain_digest
+        self._gc_round = checkpoint.gc_round
+        self._base_height = checkpoint.commit_height
+        self._base_committed = list(checkpoint.committed_refs)
+        self._checkpoint_height = checkpoint.commit_height
+        self._replay_start = checkpoint.wal_position
+        self._epoch_chain = checkpoint.epoch_chain
+        self._exec_state = checkpoint.exec_state
 
     def snapshot(self, manifest) -> None:
         """Fold a persisted snapshot-adoption entry (WAL_ENTRY_SNAPSHOT): the
@@ -153,6 +176,12 @@ class RecoveredStateBuilder:
 
     def note_replayed(self, replayed_bytes: int) -> None:
         self._replayed_bytes = replayed_bytes
+
+    def note_retired_floor(self, floor: int) -> None:
+        """Blocks below ``floor`` are known-gone (their segments were GC'd
+        after the recovering checkpoint was written): the recovered DAG
+        floor must cover them so nothing re-fetches settled history."""
+        self._gc_round = max(self._gc_round, floor)
 
     def block(self, pos: WalPosition, block: StatementBlock) -> None:
         self._pending[pos] = Include(block.reference)
@@ -204,7 +233,9 @@ class RecoveredStateBuilder:
             commit_height=self._commit_height,
             chain_digest=self._chain_digest,
             gc_round=self._gc_round,
+            replay_start=self._replay_start,
             replayed_bytes=self._replayed_bytes,
+            checkpoint_height=self._checkpoint_height,
             epoch_chain=self._epoch_chain,
             recovered_commits=list(self._committed_sub_dags),
             exec_state=self._exec_state,

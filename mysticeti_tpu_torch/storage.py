@@ -1,20 +1,76 @@
-"""Storage lifecycle plane: the parts the consensus core reaches.
+"""Storage lifecycle plane: segmented WAL, commit-anchored checkpoints, DAG GC,
+and snapshot catch-up.
 
-The port's copy of ``mysticeti_tpu.storage``, trimmed to what the block
-store, the recovery fold and the snapshot catch-up wire payload need: the
-file-name and magic constants, the committed-leader digest chain
-(:func:`fold_leader_digest`) and :class:`SnapshotManifest`.  The segmented
-WAL, commit-anchored checkpoints, DAG garbage collection and
-``StorageLifecycle`` are not in the port yet: a node of the port runs on the
-single-file ``walf`` log (no rolling, no checkpoints, unbounded log).
+The port's copy of ``mysticeti_tpu.storage``: the files it writes (segments,
+``MANIFEST.json``, checkpoints) are byte for byte the JAX package's, so
+either package boots the other's directory.
+
+The reference prototype (mysticeti-core) runs benchmarks measured in minutes
+and leaves storage lifecycle open: one append-only WAL file, recovery replays
+from byte zero, and a fresh/long-crashed validator pulls all history
+block-by-block.  At sustained load an unbounded log fills a disk in hours and
+bootstrap cost is O(history).  This module closes that gap with four pieces:
+
+* **Segmented WAL** — :class:`SegmentedWalWriter` rolls to a new
+  ``wal.NNNNNN`` segment when the active one would exceed
+  ``StorageParameters.segment_bytes``, under an atomically-rewritten
+  ``MANIFEST.json`` (tmp + rename + dir fsync).  A :data:`WalPosition` stays
+  one u64 — a *logical* byte offset, contiguous across segments — so every
+  downstream consumer (``OwnBlockData.next_entry``, index entries, pending
+  cursors) is untouched; the manifest maps offsets to (segment, local
+  offset).  The torn-tail truncation contract is preserved on the active
+  segment; a tear discovered in a sealed segment drops every later segment
+  (the entries after it were never replayable anyway) and reopens the torn
+  segment as active.
+* **Commit-anchored checkpoints** — every ``checkpoint_interval`` committed
+  leaders, :class:`StorageLifecycle` writes a crc-framed
+  ``checkpoint.HHHHHHHHHHHH`` file: the WAL replay position, the commit
+  height + committed-leader digest chain, the serialized recovery state
+  above the GC floor (pending queue, last own block, handler state, observer
+  aggregator state, committed refs, block index).  ``open_store`` boots from
+  the newest *valid* checkpoint and replays only WAL entries after it,
+  falling back to the previous checkpoint (we keep :data:`CHECKPOINT_KEEP`)
+  on a torn/corrupt one, and to full replay when none survives.
+* **DAG garbage collection** — ``gc_depth`` rounds behind the last committed
+  leader becomes the *retired floor*: index entries below it leave the block
+  store, sealed segments whose every block is below it (and which no kept
+  checkpoint still needs for replay) are deleted, reclaiming disk.  The
+  linearizer and block manager treat references below the floor as settled
+  (the standard Mysticeti GC semantic: commits never reach below gc_round).
+* **Snapshot catch-up** — a :class:`SnapshotManifest` (commit height, last
+  committed leader, digest chain, retired floor, committed refs above it)
+  served over wire tags 9/10/11 (docs/wire-format.md §5) lets a far-behind peer
+  adopt the fleet's commit baseline and fetch only the O(recent) block
+  window above the floor instead of replaying history.
+
+Single-file logs remain first-class: ``open_wal`` with
+``segment_bytes <= 0`` returns the plain ``walf`` pair (no rolling, no
+checkpoints, no GC) and an existing single-file log is migrated into a
+segment directory on first segmented open.
 """
 from __future__ import annotations
 
+import json
+import os
+import threading
+import zlib
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
+from .config import StorageParameters
 from .serde import Reader, SerdeError, Writer
+from .tracing import logger
 from .types import BlockReference
+from .wal import (
+    HEADER_SIZE,
+    WalError,
+    WalPosition,
+    WalReader,
+    WalWriter,
+    walf,
+)
+
+log = logger(__name__)
 
 MANIFEST_NAME = "MANIFEST.json"
 SEGMENT_PREFIX = "wal."
@@ -44,6 +100,551 @@ def fold_leader_digest(digest: bytes, leader: BlockReference) -> bytes:
     return h.digest()
 
 
+def _atomic_write(path: str, data: bytes) -> None:
+    """tmp + fsync + rename + dir fsync: the file is either the old content
+    or the complete new content, never a tear."""
+    tmp = path + ".tmp"
+    with open(tmp, "wb") as f:
+        f.write(data)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, path)
+    dfd = os.open(os.path.dirname(path) or ".", os.O_RDONLY)
+    try:
+        os.fsync(dfd)
+    finally:
+        os.close(dfd)
+
+
+# ---------------------------------------------------------------------------
+# Segmented WAL
+
+
+class _Segment:
+    """Bookkeeping for one ``wal.NNNNNN`` file."""
+
+    __slots__ = ("name", "base", "size", "max_round", "path", "reader")
+
+    def __init__(self, name: str, base: int, size: int, max_round: int,
+                 path: str) -> None:
+        self.name = name
+        self.base = base
+        self.size = size  # sealed size; the active segment's live size is
+        self.max_round = max_round  # tracked by its writer
+        self.path = path
+        self.reader: Optional[WalReader] = None
+
+    def to_manifest(self) -> dict:
+        return {"name": self.name, "base": self.base,
+                "max_round": self.max_round}
+
+
+class SegmentedWalWriter:
+    """Single-owner appender over a directory of size-bounded segments.
+
+    Drop-in for :class:`~mysticeti_tpu_torch.wal.WalWriter`: same append surface
+    (``write``/``writev``/``position``/``flush``/``pending``/``sync``/
+    ``truncate_to``/``syncer``/``close``), positions are global logical
+    offsets.  Adds the lifecycle surface: ``note_round`` (per-segment max
+    block round, the GC predicate), ``retire_below`` (delete retired
+    segments), ``size_bytes``/``segment_count``/``first_base``.
+
+    Thread shape: appends come from the consensus owner only (like the plain
+    writer); the segment table is read by the paired reader, the metrics
+    thread, and the fsync thread, so every table access holds ``_seg_lock``.
+    """
+
+    def __init__(self, directory: str, params: StorageParameters,
+                 async_writes: Optional[bool] = None) -> None:
+        self._dir = directory
+        self._params = params
+        self._async = async_writes
+        self._seg_lock = threading.Lock()
+        self._segments: List[_Segment] = []
+        self._next_seq = 0
+        self._active_writer: Optional[WalWriter] = None
+        os.makedirs(directory, exist_ok=True)
+        self._recover_manifest()
+
+    # -- recovery --
+
+    def _manifest_path(self) -> str:
+        return os.path.join(self._dir, MANIFEST_NAME)
+
+    def _recover_manifest(self) -> None:
+        manifest_path = self._manifest_path()
+        tmp = manifest_path + ".tmp"
+        if os.path.exists(tmp):
+            # A crash mid-rewrite: the rename never happened, so the real
+            # manifest (if any) is the authoritative old one.
+            log.warning("discarding torn manifest rewrite %s", tmp)
+            os.unlink(tmp)
+        segments: List[_Segment] = []
+        if os.path.exists(manifest_path):
+            try:
+                with open(manifest_path, "r", encoding="utf-8") as f:
+                    raw = json.load(f)
+                entries = raw["segments"]
+                self._next_seq = int(raw.get("next_seq", len(entries)))
+            except (ValueError, KeyError, TypeError) as exc:
+                raise WalError(f"corrupt WAL manifest {manifest_path}: {exc}")
+            for entry in entries:
+                path = os.path.join(self._dir, entry["name"])
+                if not os.path.exists(path):
+                    raise WalError(
+                        f"WAL manifest lists missing segment {entry['name']}"
+                    )
+                segments.append(
+                    _Segment(
+                        entry["name"], int(entry["base"]),
+                        os.path.getsize(path),
+                        int(entry.get("max_round", 0)), path,
+                    )
+                )
+            # Base contiguity: a sealed segment's recorded base must equal the
+            # previous base + its on-disk size.  A mismatch means a tear
+            # landed between a truncation and its manifest rewrite — every
+            # segment past the inconsistency is unreachable; drop them.
+            kept: List[_Segment] = []
+            for seg in segments:
+                if kept and seg.base != kept[-1].base + kept[-1].size:
+                    log.warning(
+                        "WAL segment %s base %d disagrees with predecessor "
+                        "end %d; dropping it and %d later segment(s)",
+                        seg.name, seg.base, kept[-1].base + kept[-1].size,
+                        len(segments) - len(kept) - 1,
+                    )
+                    break
+                kept.append(seg)
+            for seg in segments[len(kept):]:
+                os.unlink(seg.path)
+            segments = kept
+            if not segments:
+                raise WalError(f"WAL manifest {manifest_path} lists no usable segments")
+        else:
+            listed = sorted(
+                n for n in os.listdir(self._dir)
+                if n.startswith(SEGMENT_PREFIX)
+            )
+            first = f"{SEGMENT_PREFIX}{0:06d}"
+            if listed and listed != [first]:
+                raise WalError(
+                    f"WAL directory {self._dir} has segments but no manifest"
+                )
+            path = os.path.join(self._dir, first)
+            size = os.path.getsize(path) if os.path.exists(path) else 0
+            if not os.path.exists(path):
+                open(path, "ab").close()
+            segments = [_Segment(first, 0, size, 0, path)]
+            self._next_seq = 1
+        # Orphan segment files (a crash between creating the next segment and
+        # the manifest rewrite, or between a GC unlink batch and its rewrite):
+        # not addressable, safe to delete — the roll recreates its file.
+        known = {seg.name for seg in segments}
+        for name in os.listdir(self._dir):
+            if name.startswith(SEGMENT_PREFIX) and name not in known:
+                log.warning("removing orphan WAL segment %s", name)
+                os.unlink(os.path.join(self._dir, name))
+        with self._seg_lock:
+            self._segments = segments
+        self._open_active(segments[-1])
+        self._write_manifest()
+
+    def _open_active(self, seg: _Segment) -> None:
+        fd = os.open(seg.path, os.O_RDWR | os.O_CREAT, 0o644)
+        writer = WalWriter(fd, os.fstat(fd).st_size, seg.path,
+                           async_writes=self._async)
+        reader = WalReader(seg.path)
+        reader._inflight = writer.inflight_get
+        reader._writer_flush = writer.flush
+        seg.reader = reader
+        self._active_writer = writer
+
+    def _write_manifest(self) -> None:
+        with self._seg_lock:
+            segs = list(self._segments)
+            active = segs[-1]
+        active.size = self._active_writer.position()
+        data = json.dumps(
+            {
+                "version": 1,
+                "next_seq": self._next_seq,
+                "segments": [seg.to_manifest() for seg in segs],
+            },
+            sort_keys=True,
+        ).encode()
+        _atomic_write(self._manifest_path(), data)
+
+    # -- the append surface (WalWriter parity) --
+
+    def write(self, tag: int, payload: bytes) -> WalPosition:
+        return self.writev(tag, (payload,))
+
+    def writev(self, tag: int, parts: Sequence[bytes]) -> WalPosition:
+        framed = HEADER_SIZE + sum(len(p) for p in parts)
+        active = self._active()
+        if (
+            self._active_writer.position() + framed > self._params.segment_bytes
+            and self._active_writer.position() > 0
+        ):
+            self._roll()
+            active = self._active()
+        local = self._active_writer.writev(tag, parts)
+        return active.base + local
+
+    def _active(self) -> _Segment:
+        with self._seg_lock:
+            return self._segments[-1]
+
+    def _roll(self) -> None:
+        """Seal the active segment and open the next one.
+
+        Seal order is the crash-safety argument: (1) drain + fsync the
+        active segment so its recorded size is durable, (2) create the new
+        segment file, (3) rewrite the manifest.  A crash after (2) leaves an
+        orphan file recovery deletes; a crash before (2) changes nothing."""
+        old = self._active()
+        self._active_writer.sync()
+        sealed_size = self._active_writer.position()
+        self._active_writer.close()
+        old.size = sealed_size
+        name = f"{SEGMENT_PREFIX}{self._next_seq:06d}"
+        self._next_seq += 1
+        path = os.path.join(self._dir, name)
+        open(path, "wb").close()
+        seg = _Segment(name, old.base + sealed_size, 0, 0, path)
+        self._open_active(seg)
+        with self._seg_lock:
+            self._segments = self._segments + [seg]
+        self._write_manifest()
+        log.debug("rolled WAL to segment %s at base %d", name, seg.base)
+
+    def note_round(self, round_: int, position: Optional[WalPosition] = None) -> None:
+        """Record that a block of ``round_`` lives at ``position`` (default:
+        the active segment).  The per-segment running max is the GC
+        predicate; recovery replay re-feeds it so a segment sealed without a
+        manifest rewrite (crash mid-roll) still reports its true max."""
+        seg = self._segment_at(position) if position is not None else self._active()
+        if seg is not None and round_ > seg.max_round:
+            seg.max_round = round_
+
+    def _segment_at(self, position: WalPosition) -> Optional[_Segment]:
+        with self._seg_lock:
+            candidate = None
+            for seg in self._segments:
+                if seg.base <= position:
+                    candidate = seg
+                else:
+                    break
+            return candidate
+
+    def position(self) -> WalPosition:
+        return self._active().base + self._active_writer.position()
+
+    def pending(self) -> bool:
+        return self._active_writer.pending()
+
+    def flush(self) -> None:
+        self._active_writer.flush()
+
+    def sync(self) -> None:
+        self._active_writer.sync()
+
+    def inflight_get(self, position: WalPosition) -> Optional[bytes]:
+        active = self._active()
+        if position >= active.base:
+            return self._active_writer.inflight_get(position - active.base)
+        return None
+
+    def truncate_to(self, position: WalPosition) -> None:
+        """Discard a torn tail found during recovery.
+
+        Within the active segment this is the plain single-file contract.  A
+        tear in a *sealed* segment (an OS crash that outran the seal fsync)
+        makes every later segment unreachable on replay: they are deleted and
+        the torn segment is reopened as the active one, truncated at the
+        tear, so appends resume exactly where replay stops."""
+        assert position <= self.position()
+        with self._seg_lock:
+            segs = list(self._segments)
+        idx = 0
+        for i, seg in enumerate(segs):
+            if seg.base <= position:
+                idx = i
+        if idx == len(segs) - 1:
+            self._active_writer.truncate_to(position - segs[idx].base)
+            self._write_manifest()
+            return
+        log.warning(
+            "torn WAL tail inside sealed segment %s: dropping %d later "
+            "segment(s)", segs[idx].name, len(segs) - idx - 1,
+        )
+        self._active_writer.close()
+        torn = segs[idx]
+        if torn.reader is not None:
+            torn.reader.close()
+            torn.reader = None
+        with self._seg_lock:
+            self._segments = segs[: idx + 1]
+        self._open_active(torn)
+        self._active_writer.truncate_to(position - torn.base)
+        torn.size = position - torn.base
+        # Manifest BEFORE unlinking the dropped segments: a crash in between
+        # leaves orphan files recovery deletes — never a manifest naming
+        # files that no longer exist.  (A crash before the rewrite changes
+        # nothing: all files still exist and replay re-detects the tear.)
+        self._write_manifest()
+        for seg in segs[idx + 1:]:
+            if seg.reader is not None:
+                seg.reader.close()
+                seg.reader = None
+            os.unlink(seg.path)
+
+    # -- lifecycle surface --
+
+    def retire_below(self, gc_round: int, keep_from_position: WalPosition
+                     ) -> Tuple[int, int]:
+        """Delete sealed segments whose every block round is ``< gc_round``
+        and which end at or before ``keep_from_position`` (the oldest kept
+        checkpoint's replay start — replay never reaches below it).  Returns
+        ``(bytes_reclaimed, segments_removed)``.
+
+        Only a PREFIX of the segment list is eligible: stopping at the first
+        non-retirable segment keeps the surviving bases contiguous, which
+        the recovery contiguity check relies on to tell a GC'd head from a
+        mid-log tear.  Crash-safety order: the manifest is rewritten WITHOUT
+        the victims FIRST, then the files are unlinked — a crash in between
+        leaves orphan files recovery already deletes, never a manifest
+        naming files that no longer exist."""
+        with self._seg_lock:
+            segs = list(self._segments)
+        victims = []
+        for seg in segs[:-1]:
+            if (
+                seg.max_round < gc_round
+                and seg.base + seg.size <= keep_from_position
+            ):
+                victims.append(seg)
+            else:
+                break
+        if not victims:
+            return 0, 0
+        gone = set(id(seg) for seg in victims)
+        with self._seg_lock:
+            self._segments = [s for s in self._segments if id(s) not in gone]
+        self._write_manifest()
+        reclaimed = 0
+        for seg in victims:
+            if seg.reader is not None:
+                seg.reader.close()
+                seg.reader = None
+            os.unlink(seg.path)
+            reclaimed += seg.size
+        log.info(
+            "WAL GC below round %d: removed %d segment(s), %d bytes",
+            gc_round, len(victims), reclaimed,
+        )
+        return reclaimed, len(victims)
+
+    def size_bytes(self) -> int:
+        with self._seg_lock:
+            sealed = sum(seg.size for seg in self._segments[:-1])
+        return sealed + self._active_writer.position()
+
+    def segment_count(self) -> int:
+        with self._seg_lock:
+            return len(self._segments)
+
+    def first_base(self) -> WalPosition:
+        with self._seg_lock:
+            return self._segments[0].base
+
+    def segments_snapshot(self) -> List[Tuple[str, int, int, int]]:
+        """(name, base, size, max_round) per live segment (active last)."""
+        with self._seg_lock:
+            segs = list(self._segments)
+        out = []
+        for seg in segs:
+            size = seg.size
+            if seg is segs[-1]:
+                size = self._active_writer.position()
+            out.append((seg.name, seg.base, size, seg.max_round))
+        return out
+
+    def syncer(self) -> "SegmentedWalSyncer":
+        return SegmentedWalSyncer(self)
+
+    def close(self) -> None:
+        self._active_writer.close()
+
+
+class SegmentedWalSyncer:
+    """Fsync handle that follows the active segment across rolls (the
+    1 s wal-sync thread holds one of these; a plain per-file descriptor
+    would keep fsyncing a sealed file forever after the first roll)."""
+
+    __slots__ = ("_writer", "_fd", "_path")
+
+    def __init__(self, writer: SegmentedWalWriter) -> None:
+        self._writer = writer
+        self._fd: Optional[int] = None
+        self._path: Optional[str] = None
+
+    def sync(self) -> None:
+        try:
+            self._writer.flush()
+        except (WalError, OSError):
+            pass  # append-path failures surface on the append path
+        path = self._writer._active().path
+        if path != self._path:
+            if self._fd is not None:
+                os.close(self._fd)
+            self._fd = os.open(path, os.O_RDWR)
+            self._path = path
+        os.fsync(self._fd)
+
+    def close(self) -> None:
+        if self._fd is not None:
+            os.close(self._fd)
+            self._fd = None
+
+
+class SegmentedWalReader:
+    """Random-access reader over the segment table; thread-safe.
+
+    Positions are global logical offsets; the reader resolves them through
+    the writer's segment table (shared, under its lock) and delegates to a
+    per-segment :class:`~mysticeti_tpu_torch.wal.WalReader` (lazily opened).  The
+    active segment's reader is pre-wired to the writer's in-flight queue so
+    read-after-write holds exactly as in the single-file log."""
+
+    def __init__(self, writer: SegmentedWalWriter) -> None:
+        self._writer = writer
+
+    def _resolve(self, position: WalPosition) -> Tuple[_Segment, int]:
+        seg = self._writer._segment_at(position)
+        if seg is None:
+            raise WalError(
+                f"wal position {position} is below the GC-retired floor"
+            )
+        return seg, position - seg.base
+
+    def _reader_for(self, seg: _Segment) -> WalReader:
+        with self._writer._seg_lock:
+            if seg.reader is None:
+                seg.reader = WalReader(seg.path)
+            return seg.reader
+
+    def read(self, position: WalPosition) -> Tuple[int, bytes]:
+        seg, local = self._resolve(position)
+        return self._reader_for(seg).read(local)
+
+    def iter_until(self, end: Optional[WalPosition] = None):
+        yield from self.iter_from(0, end)
+
+    def iter_from(self, start: WalPosition,
+                  end: Optional[WalPosition] = None):
+        """Replay from ``start`` to ``end`` across segments.
+
+        A torn entry terminates iteration for the WHOLE log, not just its
+        segment: entries in later segments were appended after the torn one
+        and are exactly the unreachable tail ``truncate_to`` discards."""
+        if end is None:
+            end = self._writer.position()
+        with self._writer._seg_lock:
+            segs = list(self._writer._segments)
+        for seg in segs:
+            size = seg.size
+            if seg is segs[-1]:
+                size = self._writer._active_writer.position()
+            seg_end = seg.base + size
+            if seg_end <= start or size == 0:
+                continue
+            if seg.base >= end:
+                break
+            local_start = max(0, start - seg.base)
+            local_end = min(size, end - seg.base)
+            consumed = local_start
+            reader = self._reader_for(seg)
+            for pos, tag, payload in reader.iter_from(local_start, local_end):
+                consumed = pos + HEADER_SIZE + len(payload)
+                yield seg.base + pos, tag, payload
+            if consumed < local_end:
+                return  # torn entry: everything after is unreachable
+
+    def cleanup(self) -> int:
+        with self._writer._seg_lock:
+            segs = list(self._writer._segments)
+        for seg in segs:
+            if seg.reader is not None:
+                seg.reader.cleanup()
+        return 0
+
+    def close(self) -> None:
+        with self._writer._seg_lock:
+            segs = list(self._writer._segments)
+        for seg in segs:
+            if seg.reader is not None:
+                seg.reader.close()
+                seg.reader = None
+
+
+# ---------------------------------------------------------------------------
+# Opening
+
+
+def open_wal(path: str, params: Optional[StorageParameters] = None):
+    """Open the node's WAL at ``path``: segmented (directory) when
+    ``params.segment_bytes > 0``, the legacy single file otherwise.  An
+    existing single-file log is migrated into segment 0 of a fresh directory
+    (rename-only; the bytes never move)."""
+    if params is None or params.segment_bytes <= 0:
+        return walf(path)
+    stash = path + ".migrate"
+    if os.path.exists(stash):
+        # A crash interrupted a previous migration after the log moved to
+        # the stash: resume it — the stash IS the node's entire WAL, and
+        # booting without it would re-propose already-broadcast rounds.
+        log.warning("resuming interrupted WAL migration from %s", stash)
+        os.makedirs(path, exist_ok=True)
+        os.replace(stash, os.path.join(path, f"{SEGMENT_PREFIX}{0:06d}"))
+    elif os.path.isfile(path):
+        os.replace(path, stash)
+        os.makedirs(path, exist_ok=True)
+        os.replace(stash, os.path.join(path, f"{SEGMENT_PREFIX}{0:06d}"))
+        log.info("migrated single-file WAL %s into a segment directory", path)
+    writer = SegmentedWalWriter(path, params)
+    reader = SegmentedWalReader(writer)
+    return writer, reader
+
+
+def active_wal_file(path: str) -> str:
+    """The file new appends land in: the path itself for a single-file log,
+    the manifest's last segment for a directory (fault injectors tear this
+    one)."""
+    if os.path.isfile(path):
+        return path
+    with open(os.path.join(path, MANIFEST_NAME), "r", encoding="utf-8") as f:
+        manifest = json.load(f)
+    return os.path.join(path, manifest["segments"][-1]["name"])
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints
+
+
+def _write_opt_bytes(w: Writer, data: Optional[bytes]) -> None:
+    if data is None:
+        w.u8(0)
+    else:
+        w.u8(1)
+        w.bytes(data)
+
+
+def _read_opt_bytes(r: Reader) -> Optional[bytes]:
+    return r.bytes() if r.u8() else None
+
+
 def _write_opt_ref(w: Writer, ref: Optional[BlockReference]) -> None:
     if ref is None:
         w.u8(0)
@@ -56,6 +657,196 @@ def _read_opt_ref(r: Reader) -> Optional[BlockReference]:
     return BlockReference.decode(r) if r.u8() else None
 
 
+@dataclass
+class Checkpoint:
+    """One durable recovery anchor (see the module docstring for framing)."""
+
+    wal_position: WalPosition
+    commit_height: int
+    gc_round: int
+    last_committed_leader: Optional[BlockReference]
+    chain_digest: bytes
+    committed_state: Optional[bytes]
+    handler_state: Optional[bytes]
+    last_own_block: Optional[object]  # OwnBlockData (lazy import, no cycle)
+    pending: List[Tuple[WalPosition, object]]  # (position, Include|Payload)
+    committed_refs: List[BlockReference]
+    index: List[Tuple[BlockReference, WalPosition, bool]]
+    path: str = ""
+    # Reconfiguration (reconfig.py): the serialized epoch chain as of this
+    # checkpoint.  Soft serialization tail — absent on pre-reconfig files
+    # (they decode as "still epoch 0") and omitted when empty, so frozen-
+    # committee deployments keep byte-identical checkpoints.
+    epoch_chain: bytes = b""
+    # Execution plane (execution.py): the serialized account state as of
+    # this checkpoint.  Second soft tail — writing it forces the epoch
+    # chain to be written explicitly (possibly empty) so the tail order is
+    # unambiguous; with both planes off the file stays byte-identical.
+    exec_state: bytes = b""
+
+    def to_bytes(self) -> bytes:
+        from .state import Include, encode_payload
+
+        w = Writer()
+        w.u32(CHECKPOINT_MAGIC).u32(1)
+        w.u64(self.wal_position).u64(self.commit_height).u64(self.gc_round)
+        _write_opt_ref(w, self.last_committed_leader)
+        w.fixed(self.chain_digest)
+        _write_opt_bytes(w, self.committed_state)
+        _write_opt_bytes(w, self.handler_state)
+        _write_opt_bytes(
+            w,
+            self.last_own_block.to_bytes()
+            if self.last_own_block is not None
+            else None,
+        )
+        w.u32(len(self.pending))
+        for position, meta in self.pending:
+            w.u64(position)
+            if isinstance(meta, Include):
+                w.u8(0)
+                meta.reference.encode(w)
+            else:
+                w.u8(1)
+                w.bytes(encode_payload(meta.statements))
+        w.u32(len(self.committed_refs))
+        for ref in self.committed_refs:
+            ref.encode(w)
+        w.u32(len(self.index))
+        for ref, position, proposed in self.index:
+            w.u64(position)
+            w.u8(1 if proposed else 0)
+            ref.encode(w)
+        if self.exec_state:
+            w.bytes(self.epoch_chain)
+            w.bytes(self.exec_state)
+        elif self.epoch_chain:
+            w.bytes(self.epoch_chain)
+        body = w.finish()
+        return zlib.crc32(body).to_bytes(4, "little") + body
+
+    @staticmethod
+    def from_bytes(data: bytes) -> "Checkpoint":
+        from .block_store import OwnBlockData
+        from .state import Include, Payload, decode_payload
+
+        if len(data) < 4 + 8:
+            raise WalError("checkpoint file truncated")
+        crc = int.from_bytes(data[:4], "little")
+        body = data[4:]
+        if zlib.crc32(body) != crc:
+            raise WalError("checkpoint crc mismatch (torn or corrupt)")
+        r = Reader(body)
+        if r.u32() != CHECKPOINT_MAGIC:
+            raise WalError("bad checkpoint magic")
+        version = r.u32()
+        if version != 1:
+            raise WalError(f"unsupported checkpoint version {version}")
+        wal_position = r.u64()
+        commit_height = r.u64()
+        gc_round = r.u64()
+        leader = _read_opt_ref(r)
+        chain_digest = r.fixed(32)
+        committed_state = _read_opt_bytes(r)
+        handler_state = _read_opt_bytes(r)
+        own_raw = _read_opt_bytes(r)
+        own = OwnBlockData.from_bytes(own_raw) if own_raw is not None else None
+        pending: List[Tuple[WalPosition, object]] = []
+        for _ in range(r.u32()):
+            position = r.u64()
+            kind = r.u8()
+            if kind == 0:
+                pending.append((position, Include(BlockReference.decode(r))))
+            elif kind == 1:
+                pending.append((position, Payload(decode_payload(r.bytes()))))
+            else:
+                raise WalError(f"unknown pending kind {kind} in checkpoint")
+        committed_refs = [BlockReference.decode(r) for _ in range(r.u32())]
+        index = []
+        for _ in range(r.u32()):
+            position = r.u64()
+            proposed = bool(r.u8())
+            index.append((BlockReference.decode(r), position, proposed))
+        epoch_chain = r.bytes() if not r.done() else b""
+        exec_state = r.bytes() if not r.done() else b""
+        r.expect_done()
+        return Checkpoint(
+            wal_position=wal_position,
+            commit_height=commit_height,
+            gc_round=gc_round,
+            last_committed_leader=leader,
+            chain_digest=chain_digest,
+            committed_state=committed_state,
+            handler_state=handler_state,
+            last_own_block=own,
+            pending=pending,
+            committed_refs=committed_refs,
+            index=index,
+            epoch_chain=epoch_chain,
+            exec_state=exec_state,
+        )
+
+
+def checkpoint_brief(path: str) -> Optional[Tuple[int, WalPosition]]:
+    """(commit_height, wal_position) from a checkpoint file's fixed-offset
+    header — 28 bytes, no full decode.  The values are bookkeeping only
+    (checkpoint cadence, the segment-GC keep floor); boot-time validation
+    still runs the full crc-checked parse.  None on a file too short or
+    with the wrong magic."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(28)
+    except OSError:
+        return None
+    # Layout: u32 crc ‖ u32 magic ‖ u32 version ‖ u64 wal_position ‖
+    # u64 commit_height ...
+    if len(head) < 28 or int.from_bytes(head[4:8], "little") != CHECKPOINT_MAGIC:
+        return None
+    position = int.from_bytes(head[12:20], "little")
+    height = int.from_bytes(head[20:28], "little")
+    return height, position
+
+
+def checkpoint_files(directory: str) -> List[str]:
+    """Checkpoint file paths, newest (highest commit height) first."""
+    if not os.path.isdir(directory):
+        return []
+    names = sorted(
+        (n for n in os.listdir(directory) if n.startswith(CHECKPOINT_PREFIX)),
+        reverse=True,
+    )
+    return [os.path.join(directory, n) for n in names]
+
+
+def load_latest_checkpoint(
+    directory: str, wal_end: WalPosition, first_base: WalPosition = 0
+) -> Tuple[Optional[Checkpoint], int]:
+    """Newest checkpoint that parses, crc-verifies, and whose replay
+    position lies inside the live WAL; returns ``(checkpoint, skipped)``
+    where ``skipped`` counts torn/corrupt/stale files that were passed over
+    (the fallback a torn or corrupt newest checkpoint takes)."""
+    skipped = 0
+    for path in checkpoint_files(directory):
+        try:
+            with open(path, "rb") as f:
+                ckpt = Checkpoint.from_bytes(f.read())
+        except (WalError, SerdeError, OSError) as exc:
+            log.warning("skipping unusable checkpoint %s: %s", path, exc)
+            skipped += 1
+            continue
+        if ckpt.wal_position > wal_end or ckpt.wal_position < first_base:
+            log.warning(
+                "skipping checkpoint %s: replay position %d outside live "
+                "WAL [%d, %d]", path, ckpt.wal_position, first_base, wal_end,
+            )
+            skipped += 1
+            continue
+        ckpt.path = path
+        return ckpt, skipped
+    return None, skipped
+
+
+# ---------------------------------------------------------------------------
 # Snapshot catch-up manifest (wire payload, tags 9/10/11)
 
 
@@ -122,3 +913,313 @@ class SnapshotManifest:
             epoch_chain=epoch_chain,
             exec_state=exec_state,
         )
+
+
+# ---------------------------------------------------------------------------
+# The lifecycle manager
+
+
+def _ref_sort_key(ref: BlockReference):
+    return (ref.round, ref.authority, ref.digest)
+
+
+class StorageLifecycle:
+    """Owns the node's storage lifecycle policy: the committed-leader digest
+    chain, checkpoint cadence, the GC floor, and the snapshot manifest.
+
+    Single-writer like the :class:`~mysticeti_tpu_torch.core.Core` that owns it —
+    every mutation comes from the consensus owner task; other tasks on the
+    same event loop may read."""
+
+    def __init__(
+        self,
+        directory: Optional[str],
+        params: StorageParameters,
+        wal_writer,
+        recovered,
+        observer_recovered,
+        metrics=None,
+        boot_checkpoint=None,
+    ) -> None:
+        self.directory = directory
+        self.params = params
+        self.wal_writer = wal_writer
+        self.metrics = metrics
+        self.commit_height: int = recovered.commit_height
+        self.chain_digest: bytes = recovered.chain_digest or ZERO_DIGEST
+        self.last_committed_leader = recovered.last_committed_leader
+        # The floor already applied to this store (checkpoint/adoption
+        # baseline + own GC passes): references below it are gone here.
+        self.retired_round: int = recovered.gc_round
+        # The committed-ref set feeds checkpoints and snapshot manifests and
+        # is pruned below the GC floor.  On configurations where neither
+        # consumer can ever run AND no floor ever rises (legacy single-file
+        # log, or gc_depth=0 without catch-up) it would be a new unbounded
+        # set duplicating the linearizer's — skip tracking entirely there.
+        segmented = isinstance(wal_writer, SegmentedWalWriter)
+        self._track_committed = (
+            segmented and params.checkpoint_interval > 0
+        ) or params.snapshot_catchup
+        self._committed: Set[BlockReference] = set()
+        if self._track_committed:
+            self._committed.update(observer_recovered.base_committed)
+            for commit in observer_recovered.sub_dags:
+                self._committed.update(commit.sub_dag)
+        self.checkpoints_written = 0
+        self.snapshots_adopted = 0
+        # Live snapshot streams currently serving this node's retained
+        # window (net_sync/synchronizer increment around each stream, on the
+        # event loop): GC must not advance the floor under a window a
+        # manifest already promised.
+        self.gc_holds = 0
+        # Flight recorder (flight_recorder.py), wired post-construction by
+        # the node assembly: GC passes and checkpoint writes are incident-
+        # ring events.
+        self.recorder = None
+        # Boot-cost evidence (the acceptance criterion "replay bytes <<
+        # lifetime WAL bytes"): how much replay this boot actually paid.
+        self.replay_start = recovered.replay_start
+        self.replayed_bytes = recovered.replayed_bytes
+        self.recovered_checkpoint_height = recovered.checkpoint_height
+        # (commit_height, wal_position) of kept on-disk checkpoints, newest
+        # last; the OLDEST kept position is the segment-GC keep floor (a
+        # fallback boot from the older checkpoint must still find every
+        # segment it replays).
+        self._kept_checkpoints: List[Tuple[int, WalPosition]] = []
+        if directory is not None:
+            # Files NEWER than the checkpoint boot actually recovered from
+            # were examined and rejected (torn body, replay position outside
+            # the live WAL): they must not drive the checkpoint cadence or
+            # occupy a keep slot — delete them so the keep set only ever
+            # holds files a future boot could use.  With no usable boot
+            # checkpoint at all (full replay), every file on disk is junk.
+            used_height = (
+                boot_checkpoint.commit_height
+                if boot_checkpoint is not None
+                else -1
+            )
+            for path in reversed(checkpoint_files(directory)):
+                brief = checkpoint_brief(path)
+                if brief is not None and brief[0] <= used_height:
+                    self._kept_checkpoints.append(brief)
+                else:
+                    log.warning(
+                        "removing unusable checkpoint %s (rejected at boot)",
+                        path,
+                    )
+                    os.unlink(path)
+        if metrics is not None:
+            if self._kept_checkpoints:
+                metrics.checkpoint_last_commit_index.set(
+                    self._kept_checkpoints[-1][0]
+                )
+            metrics.wal_segments.set(self._segment_count())
+
+    # -- helpers --
+
+    def _segmented(self) -> bool:
+        return self.directory is not None and isinstance(
+            self.wal_writer, SegmentedWalWriter
+        )
+
+    def _segment_count(self) -> int:
+        try:
+            return self.wal_writer.segment_count()
+        except AttributeError:
+            return 1
+
+    # -- commit tracking --
+
+    def note_commits(self, commit_data: Sequence) -> None:
+        """Fold freshly persisted commits (List[CommitData]) into the chain:
+        height, leader digest chain, committed-ref set."""
+        for commit in commit_data:
+            self.commit_height = commit.height
+            self.last_committed_leader = commit.leader
+            self.chain_digest = fold_leader_digest(
+                self.chain_digest, commit.leader
+            )
+            if self._track_committed:
+                self._committed.update(commit.sub_dag)
+
+    # -- checkpoints --
+
+    def should_checkpoint(self) -> bool:
+        if not self._segmented() or self.params.checkpoint_interval <= 0:
+            return False
+        last = self._kept_checkpoints[-1][0] if self._kept_checkpoints else 0
+        return self.commit_height - last >= self.params.checkpoint_interval
+
+    def write_checkpoint(self, core, committed_state: bytes) -> str:
+        """One durable recovery anchor.  The WAL is fsynced FIRST: a
+        checkpoint must never reference bytes that could be lost behind it
+        (replay starts at its recorded position)."""
+        self.wal_writer.sync()
+        ckpt = Checkpoint(
+            wal_position=self.wal_writer.position(),
+            commit_height=self.commit_height,
+            gc_round=self.retired_round,
+            last_committed_leader=self.last_committed_leader,
+            chain_digest=self.chain_digest,
+            committed_state=committed_state,
+            handler_state=core.block_handler.state(),
+            last_own_block=core.last_own_block,
+            pending=list(core.pending),
+            committed_refs=sorted(self._committed, key=_ref_sort_key),
+            index=core.block_store.index_entries_snapshot(self.retired_round),
+            epoch_chain=(
+                core.reconfig.chain.to_bytes()
+                if getattr(core, "reconfig", None) is not None
+                else b""
+            ),
+            exec_state=(
+                core.execution.to_bytes()
+                if getattr(core, "execution", None) is not None
+                else b""
+            ),
+        )
+        name = f"{CHECKPOINT_PREFIX}{self.commit_height:012d}"
+        path = os.path.join(self.directory, name)
+        _atomic_write(path, ckpt.to_bytes())
+        self._kept_checkpoints.append((self.commit_height, ckpt.wal_position))
+        while len(self._kept_checkpoints) > CHECKPOINT_KEEP:
+            height, _ = self._kept_checkpoints.pop(0)
+            stale = os.path.join(
+                self.directory, f"{CHECKPOINT_PREFIX}{height:012d}"
+            )
+            if os.path.exists(stale):
+                os.unlink(stale)
+        self.checkpoints_written += 1
+        if self.metrics is not None:
+            self.metrics.checkpoint_last_commit_index.set(self.commit_height)
+        if self.recorder is not None:
+            self.recorder.record(
+                "checkpoint", height=self.commit_height,
+                wal_position=ckpt.wal_position,
+            )
+        log.info(
+            "checkpoint at commit height %d (wal position %d, %d index "
+            "entries)", self.commit_height, ckpt.wal_position, len(ckpt.index),
+        )
+        return path
+
+    # -- garbage collection --
+
+    def gc_target(self) -> int:
+        """The round strictly below which the DAG may be retired."""
+        if self.params.gc_depth <= 0 or self.last_committed_leader is None:
+            return 0
+        return max(0, self.last_committed_leader.round - self.params.gc_depth)
+
+    def collect(self, block_store) -> int:
+        """One GC pass: raise the retired floor, drop index entries below
+        it, delete fully-retired sealed segments.  Returns bytes reclaimed.
+
+        A no-op on the legacy single-file log: the documented contract for
+        ``segment_bytes <= 0`` is "no rolling, no checkpoints, no GC" —
+        retiring index entries there would make the node forget history
+        that is still on disk (and resurrect it on the next full replay)."""
+        if not self._segmented():
+            return 0
+        if self.gc_holds > 0:
+            return 0  # a snapshot stream is serving the promised window
+        target = self.gc_target()
+        if target <= self.retired_round:
+            return 0
+        block_store.retire_below_round(target)
+        self._committed = {
+            ref for ref in self._committed if ref.round >= target
+        }
+        self.retired_round = target
+        keep = (
+            min(pos for _h, pos in self._kept_checkpoints)
+            if self._kept_checkpoints
+            else 0
+        )
+        reclaimed, _removed = self.wal_writer.retire_below(target, keep)
+        if self.metrics is not None:
+            if reclaimed:
+                self.metrics.wal_reclaimed_bytes_total.inc(reclaimed)
+            self.metrics.wal_segments.set(self._segment_count())
+        if self.recorder is not None:
+            self.recorder.record(
+                "gc", floor=target, reclaimed_bytes=reclaimed
+            )
+        return reclaimed
+
+    # -- snapshot catch-up --
+
+    def build_manifest(self) -> SnapshotManifest:
+        return SnapshotManifest(
+            commit_height=self.commit_height,
+            last_committed_leader=self.last_committed_leader,
+            gc_round=self.retired_round,
+            chain_digest=self.chain_digest,
+            committed_refs=sorted(self._committed, key=_ref_sort_key),
+        )
+
+    def serves_snapshot_for(self, peer_height: int) -> bool:
+        """Server-side gate: only a peer genuinely far behind gets a
+        snapshot; anything closer catches up over the ordinary streams."""
+        if not self.params.snapshot_catchup or self.commit_height <= 0:
+            return False
+        gap = self.commit_height - peer_height
+        return gap >= max(1, self.params.catchup_threshold_commits)
+
+    def wants_snapshot(self, manifest: SnapshotManifest) -> bool:
+        """Client-side gate (also the duplicate-manifest dedup): adopt only
+        a baseline meaningfully ahead of where we already are."""
+        gap = manifest.commit_height - self.commit_height
+        return gap >= max(1, self.params.catchup_threshold_commits // 2)
+
+    def adopt(self, manifest: SnapshotManifest) -> None:
+        """Adopt a remote commit baseline (the caller has already persisted
+        the manifest as a WAL entry so a crash re-adopts it on replay)."""
+        self.commit_height = manifest.commit_height
+        self.last_committed_leader = manifest.last_committed_leader
+        self.chain_digest = manifest.chain_digest
+        floor = max(self.retired_round, manifest.gc_round)
+        self._committed = {
+            ref for ref in self._committed if ref.round >= floor
+        } | set(manifest.committed_refs)
+        self.retired_round = floor
+        self.snapshots_adopted += 1
+
+
+# ---------------------------------------------------------------------------
+# One-call node storage boot
+
+
+def open_store(authority, wal_path, committee, parameters=None, metrics=None):
+    """The node's storage boot: open (segmented) WAL, find the newest valid
+    checkpoint, replay only what follows it.  Returns
+    ``(core_recovered, observer_recovered, wal_writer, lifecycle)``.
+
+    Raises :class:`~mysticeti_tpu_torch.wal.WalError` when the log is
+    genuinely unreplayable: history below the first live segment was
+    garbage-collected and no surviving checkpoint covers it."""
+    from .block_store import BlockStore
+
+    params = parameters.storage if parameters is not None else StorageParameters()
+    wal_writer, wal_reader = open_wal(wal_path, params)
+    checkpoint = None
+    if isinstance(wal_writer, SegmentedWalWriter):
+        first_base = wal_writer.first_base()
+        checkpoint, _skipped = load_latest_checkpoint(
+            wal_path, wal_writer.position(), first_base
+        )
+        if checkpoint is None and first_base > 0:
+            raise WalError(
+                f"WAL at {wal_path} starts at offset {first_base} (history "
+                "garbage-collected) but no valid checkpoint covers it"
+            )
+    recovered, observer_recovered = BlockStore.open(
+        authority, wal_reader, wal_writer, committee, metrics,
+        checkpoint=checkpoint,
+    )
+    directory = wal_path if isinstance(wal_writer, SegmentedWalWriter) else None
+    lifecycle = StorageLifecycle(
+        directory, params, wal_writer, recovered, observer_recovered, metrics,
+        boot_checkpoint=checkpoint,
+    )
+    return recovered, observer_recovered, wal_writer, lifecycle

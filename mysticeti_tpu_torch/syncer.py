@@ -88,10 +88,24 @@ class Syncer:
         return False
 
     def cleanup(self) -> None:
-        """Periodic maintenance on the consensus owner: the core's cache
-        eviction (the JAX package's GC floor comes with its storage
-        lifecycle, not in the port yet)."""
+        """Periodic maintenance on the consensus owner: cache eviction + GC
+        (core) AND the observer's settled floor, in ONE step — the
+        linearizer must never run a commit DFS with a floor older than the
+        store's (a ref retired by this pass but below the linearizer's
+        stale floor would fail the 'whole sub-dag must be stored' check)."""
         self.core.cleanup()
+        floor = self.core.dag_floor()
+        if floor:
+            self.commit_observer.note_gc_round(floor)
+
+    def apply_snapshot(self, manifest) -> bool:
+        """Snapshot catch-up (storage.py): adopt the remote commit baseline
+        on the core, then jump the observer's linearizer to the same
+        baseline — both or neither, on the single consensus owner."""
+        if not self.core.apply_snapshot(manifest):
+            return False
+        self.commit_observer.adopt_snapshot(manifest)
+        return True
 
     def try_new_block(self, connected_authorities: AuthoritySet) -> None:
         if self.force_new_block_flag or self.core.ready_new_block(

@@ -1,8 +1,6 @@
 """Block dissemination (push) and missing-block fetching (pull).
 
-The port's copy of ``mysticeti_tpu.synchronizer``, without the snapshot
-catch-up stream (``BlockDisseminator.stream_snapshot``), which needs the
-storage lifecycle's GC hold; its ``snapshot_*_sent`` counters stay at 0.
+The port's copy of ``mysticeti_tpu.synchronizer``.
 
 Capability parity with ``mysticeti-core/src/synchronizer.rs``:
 
@@ -159,8 +157,10 @@ class BlockDisseminator:
         # delay every relayed block by up to a round — always just behind
         # the children that reference it).
         self.relay_serving = False
-        # Snapshot catch-up serving totals (the stream itself waits for the
-        # storage lifecycle): NetworkSyncer sums them per connection.
+        # Snapshot catch-up stream (storage.py): one-shot push of the whole
+        # retained block window to a far-behind peer that adopted our
+        # manifest; counters feed the catch-up artifact/telemetry.
+        self._snapshot_task: Optional[asyncio.Task] = None
         self.snapshot_blocks_sent = 0
         self.snapshot_bytes_sent = 0
 
@@ -317,6 +317,54 @@ class BlockDisseminator:
                 except asyncio.TimeoutError:
                     pass
 
+    def stream_snapshot(self, from_round: RoundNumber, gc_hold=None) -> None:
+        """Serve the snapshot block window: every stored block from
+        ``from_round`` (the manifest's floor) up to the current frontier,
+        round-ascending so parents precede children at the receiver.  A
+        re-request replaces a stream still in flight (reconnect semantics,
+        like the subscribe streams); blocks that land after the walk reach
+        the peer through the ordinary subscribe streams.
+
+        ``gc_hold`` (the serving node's StorageLifecycle) pauses garbage
+        collection for the stream's lifetime: a GC pass advancing the
+        retired floor mid-walk would silently hole the bottom of the window
+        the manifest promised, wedging the rejoiner on unfetchable parents."""
+        if self._snapshot_task is not None:
+            self._snapshot_task.cancel()
+        self._snapshot_task = spawn_logged(
+            self._stream_snapshot(from_round, gc_hold), log
+        )
+
+    async def _stream_snapshot(self, from_round: RoundNumber, gc_hold) -> None:
+        if gc_hold is not None:
+            gc_hold.gc_holds += 1
+        try:
+            chunk: List[bytes] = []
+            # Genesis is axiomatic on every node — never shipped.
+            for round_ in range(max(1, from_round), self.block_store.highest_round() + 1):
+                if self.connection.is_closed():
+                    return
+                for block in self.block_store.get_blocks_by_round(round_):
+                    chunk.append(block.to_bytes())
+                    if len(chunk) >= DISSEMINATION_CHUNK:
+                        await self._send_snapshot_chunk(chunk)
+                        chunk = []
+            if chunk:
+                await self._send_snapshot_chunk(chunk)
+            log.info(
+                "snapshot stream to authority %d done: %d blocks, %d bytes",
+                self.connection.peer, self.snapshot_blocks_sent,
+                self.snapshot_bytes_sent,
+            )
+        finally:
+            if gc_hold is not None:
+                gc_hold.gc_holds -= 1
+
+    async def _send_snapshot_chunk(self, chunk: List[bytes]) -> None:
+        self.snapshot_blocks_sent += len(chunk)
+        self.snapshot_bytes_sent += sum(len(b) for b in chunk)
+        await self.connection.send(Blocks(tuple(chunk)))
+
     async def send_requested(self, references: Sequence[BlockReference]) -> None:
         """Answer an explicit RequestBlocks (synchronizer.rs:74-112)."""
         found: List[bytes] = []
@@ -337,6 +385,8 @@ class BlockDisseminator:
     def stop(self) -> None:
         if self._stream_task is not None:
             self._stream_task.cancel()
+        if self._snapshot_task is not None:
+            self._snapshot_task.cancel()
         for task in self._helper_tasks.values():
             task.cancel()
         self._helper_tasks.clear()

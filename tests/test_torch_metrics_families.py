@@ -161,11 +161,13 @@ def test_every_metric_the_port_reads_resolves_on_Metrics():
             reads.setdefault(name, []).append(str(path.relative_to(ROOT)))
     missing = {name: where for name, where in reads.items() if not hasattr(metrics, name)}
     assert not missing, missing
-    # The walk sees the families of the consensus core and the network plane.
+    # The walk sees the families of the consensus core, the network plane
+    # and the storage lifecycle.
     assert {"quorum_receive_latency", "threshold_clock_round", "committed_leaders_total",
             "blocks_suspended", "mysticeti_invalid_blocks_total", "core_lock_enqueued",
             "dissemination_encode_reuse_total", "wal_size_bytes",
-            "observe_latency_batch"} <= set(reads)
+            "observe_latency_batch", "wal_segments", "wal_reclaimed_bytes_total",
+            "checkpoint_last_commit_index", "crash_recovery_total"} <= set(reads)
 
 
 def test_each_family_equals_the_jax_packages():

@@ -9,7 +9,7 @@ accept-all and with each package's ``cpu`` kind.  Then the port's
 counterparts of the reference's whole-stack tests, with the reference's
 thresholds; ``chip_smoke.py``'s ``net_sync`` phase in small through the
 plain kernels; and the snapshot tags a node without the storage lifecycle
-ignores.
+leaves unanswered.
 """
 import asyncio
 import importlib
@@ -362,46 +362,67 @@ def test_net_sync_phase_in_small_through_the_plain_kernels():
     assert plain["received"] - plain["to_verify"] == signatures["dedup_saved"] > 0
 
 
-def test_snapshot_tags_draw_no_answer_and_catchup_refuses(tmp_path):
-    """A node without the storage lifecycle: a ``RequestSnapshot`` and a
-    ``RequestSnapshotStream`` draw nothing, a ``SnapshotResponse`` is dropped
-    (the node keeps serving), and ``snapshot_catchup=True`` raises at
-    construction, naming what is missing.  An ``EpochInfo`` from a skewed
-    peer is recorded, not answered."""
-    from mysticeti_tpu_torch.config import Parameters, StorageParameters
-    from mysticeti_tpu_torch.flight_recorder import FlightRecorder
-    from mysticeti_tpu_torch.network import (
-        Connection, EpochInfo, RequestSnapshot, RequestSnapshotStream, SnapshotResponse,
-        SubscribeOwnFrom)
-    from mysticeti_tpu_torch.runtime.simulated import run_simulation
-    from mysticeti_tpu_torch.simulated_network import SimulatedNetwork
+def test_snapshot_tags_without_storage_draw_no_answer_as_the_jax_package(tmp_path):
+    """A node whose core has no storage lifecycle: a ``RequestSnapshot`` and
+    a ``RequestSnapshotStream`` draw nothing, a ``SnapshotResponse`` is
+    dropped (the node keeps serving), and an ``EpochInfo`` from a skewed
+    peer is recorded, not answered.  Built with ``snapshot_catchup=True`` it
+    constructs, asks with ``RequestSnapshot(0)`` at connect, and adopts no
+    manifest (``Core.apply_snapshot`` refuses without storage), so it never
+    asks for the stream: the JAX package's node does the same, message for
+    message."""
+    from mysticeti_tpu_torch.network import RequestSnapshot
+    from mysticeti_tpu_torch.storage import SnapshotManifest
+    from mysticeti_tpu_torch.types import BlockReference
 
-    committee = _mod(PORT, "committee").Committee.new_test([1] * 4)
-    signers = _mod(PORT, "committee").Committee.benchmark_signers(4)
+    manifest = SnapshotManifest(commit_height=500, last_committed_leader=BlockReference(
+        2, 900, b"\x07" * 32), gc_round=880, chain_digest=bytes(32)).to_bytes()
 
-    async def scenario():
-        sim_net = SimulatedNetwork(4)
-        node = build_node(PORT, committee, signers, 0, str(tmp_path), sim_net, Parameters())
-        node.recorder = FlightRecorder(authority=0)
-        await node.start()
-        conn = Connection(peer=1)
-        await sim_net.node_connections[0].put(conn)
-        await asyncio.sleep(0.1)
-        hello = [conn.sender.get_nowait() for _ in range(conn.sender.qsize())]
-        assert [type(m) for m in hello] == [SubscribeOwnFrom]
-        for msg in (RequestSnapshot(0), RequestSnapshotStream(0), SnapshotResponse(b"\x00" * 9),
-                    EpochInfo(3, bytes(32))):
-            await conn.receiver.put(msg)
-        await asyncio.sleep(0.5)
-        assert conn.sender.empty() and not conn.is_closed()
-        assert (node.snapshot_blocks_served, node.snapshot_bytes_served) == (0, 0)
-        assert node.peer_epochs == {1: 3}
-        skew = [e for e in node.recorder.events() if e["kind"] == "epoch-skew"]
-        assert skew == [{"t": skew[0]["t"], "kind": "epoch-skew", "peer": 1, "peer_epoch": 3,
-                         "local_epoch": 0}]
-        await node.stop()
+    def scenario(pkg, catchup):
+        config, network = _mod(pkg, "config"), _mod(pkg, "network")
+        committee = _mod(pkg, "committee").Committee.new_test([1] * 4)
+        signers = _mod(pkg, "committee").Committee.benchmark_signers(4)
+        parameters = config.Parameters(storage=config.StorageParameters(snapshot_catchup=catchup))
 
-    run_simulation(scenario(), seed=1)
-    with pytest.raises(NotImplementedError, match=r"6\(b\)"):
-        _mod(PORT, "net_sync").NetworkSyncer(
-            None, None, None, parameters=Parameters(storage=StorageParameters(snapshot_catchup=True)))
+        directory = tmp_path / f"{pkg}-{catchup}"
+        directory.mkdir()
+
+        async def run():
+            sim_net = _mod(pkg, "simulated_network").SimulatedNetwork(4)
+            node = build_node(pkg, committee, signers, 0, str(directory), sim_net, parameters)
+            node.recorder = _mod(pkg, "flight_recorder").FlightRecorder(authority=0)
+            await node.start()
+            conn = network.Connection(peer=1)
+            await sim_net.node_connections[0].put(conn)
+            await asyncio.sleep(0.1)
+            hello = [conn.sender.get_nowait() for _ in range(conn.sender.qsize())]
+            for msg in (network.RequestSnapshot(0), network.RequestSnapshotStream(0),
+                        network.SnapshotResponse(b"\x00" * 9), network.SnapshotResponse(manifest),
+                        network.EpochInfo(3, bytes(32))):
+                await conn.receiver.put(msg)
+            await asyncio.sleep(0.5)
+            answered = [type(m).__name__ for m in
+                        (conn.sender.get_nowait() for _ in range(conn.sender.qsize()))]
+            skew = [{k: v for k, v in e.items() if k != "t"} for e in node.recorder.events()
+                    if e["kind"] == "epoch-skew"]
+            out = ([type(m).__name__ for m in hello], hello[1:], answered, conn.is_closed(),
+                   (node.snapshot_blocks_served, node.snapshot_bytes_served), node.peer_epochs,
+                   skew, node.core.commit_height(), node.core.dag_floor())
+            await node.stop()
+            return out
+
+        return _mod(pkg, "runtime.simulated").run_simulation(run(), seed=1)
+
+    plain = scenario(PORT, False)
+    assert plain[:3] == (["SubscribeOwnFrom"], [], [])
+    assert plain[3:] == (False, (0, 0), {1: 3},
+                         [{"kind": "epoch-skew", "peer": 1, "peer_epoch": 3, "local_epoch": 0}],
+                         0, 0)
+    asking = scenario(PORT, True)
+    assert asking[0] == ["SubscribeOwnFrom", "RequestSnapshot"]
+    assert asking[1] == [RequestSnapshot(0)] and asking[2] == []
+    assert asking[3:] == plain[3:]
+    for catchup, got in ((False, plain), (True, asking)):
+        want = scenario("mysticeti_tpu", catchup)
+        assert got[0] == want[0] and got[2:] == want[2:]
+        assert [m.commit_height for m in got[1]] == [m.commit_height for m in want[1]]
