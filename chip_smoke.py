@@ -171,13 +171,41 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    Prints the live lanes a flush in the rejoiner's catch-up against the
    nodes that never crashed, the catch-up's wall seconds and the WAL bytes
    written against those live.
-14. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
+14. Epoch (epoch-10): step 13's fleet shape (10 validators, each booted by
+   ``open_store`` from its own segmented WAL, 16 KiB segments, a checkpoint
+   every 5 commits) with ``Parameters(reconfig=True, execution=True,
+   leader_liveness_horizon_rounds=4)`` for 12 virtual s: node 1 is
+   reweighted to stake 3 through node 0 at 2 s, node 4 removed through node
+   0 at 5 s and stopped for good at 7 s; every 0.5 s each live node plants
+   an execution batch (a CREATE, two TRANSFERs and an overdraft) on its
+   block handler; node 2 is down from 8 s to 9.5 s and boots from its
+   checkpoint.  Every incarnation of every node verifies through its own
+   ``_make_verifier("cuda-only")`` on cuda:0, made and warmed before the
+   launch counts are set to 0; the network's fault injector forges and
+   re-delivers as in step 12.  Then the same seed over the ``cpu`` kind.
+   Checks: every live node ends in epoch 2 and node 4 saw at least epoch
+   1, with the same boundaries (height, round, committee digest) fleet-wide
+   and in both runs; the committed sequences agree and equal the ``cpu``
+   run's; the execution roots agree at every height nodes share and equal
+   the ``cpu`` run's, the verdict counts equal, every node holds each
+   committed planted account at (400, 3) and, where it never restarted,
+   counts 3 applied and 1 ``insufficient_balance`` a batch; node 2's
+   checkpoint boot is in epoch 2 on the fleet's root at its height; every
+   forged copy is rejected and counted; the counts equal the ``cpu`` run's
+   and ``EPOCH_SEEDED``; the generic kernel never launched, the prologue
+   and the keyed kernel once a flush; the verdicts are accounted for as in
+   step 12; each collector saw one ``note_committee`` a boundary it
+   crossed; and ``FinalizationInterpreter`` over each node's first 50
+   rounds (past both boundaries, below its last committed leader) finds
+   finalized transactions, each with a certifying block in that leader's
+   causal history.
+15. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
    workers, 8 iterations, 2 trials and a 30 s budget; its JSON line must
    come from rung 0 with a value above 0.
-Each path of steps 3-13 (the block path and the committee dispatch of step 3
+Each path of steps 3-14 (the block path and the committee dispatch of step 3
 apart) runs with every launch count set to 0 just before it and read just
 after; every kernel must have launched on some path.
-15. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+16. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Every phase runs under ``PYTHONHASHSEED=0`` (``main`` runs the command
@@ -190,7 +218,7 @@ phase fails.
 
 One phase alone: ``python3 -c 'import chip_smoke as c; raise
 SystemExit(c.main(c.receive_only))'`` (likewise ``consensus_only``,
-``net_sync_only``, ``storage_only``, and
+``net_sync_only``, ``storage_only``, ``epoch_only``, and
 ``sharded_only`` for a host with several cards).  Not in the default run:
 ``receive_split`` (where the receive burst's host time goes) and
 ``consensus_trace`` (the card's busy share in step 11, from a
@@ -335,6 +363,53 @@ STORAGE_SEEDED = {
     "wal_written": [3859593, 3810112, 3861556, 3752876, 3866448, 3861943, 3858511, 3860106,
                     3859179, 3860686],
     "replayed_bytes": [0, 38963, 0, 3615, 0, 0, 0, 0, 0, 0],
+}
+# The epoch phase (epoch-10): storage-10's fleet of config 3's 10 validators,
+# each booted by ``open_store`` from its own segmented WAL (16 KiB segments, a
+# checkpoint every 5 commits, no GC in the run), with the reconfiguration
+# and execution planes on and ``tests/test_reconfig.py``'s churn shape: a
+# REWEIGHT of node 1 to stake 3 through node 0 at 2 s, a REMOVE of node 4
+# through node 0 at 5 s, node 4 stopped for good at 7 s; every 0.5 s each
+# live node plants one execution batch (``scenarios``' execution workload); node
+# 2 is down from 8 s to 9.5 s and boots from its checkpoint after both
+# boundaries.  Changes are (at_s, via, kind, authority, stake), retirements
+# (at_s, node).  The finalization oracle reads each node's rounds up to
+# ``oracle_rounds``, past both boundaries and below every last committed
+# leader: its work grows with blocks times transactions (its seconds grow
+# ~4x from 20 rounds to 40 and ~17x to 80).
+EPOCH_10 = {
+    "n": 10, "virtual_s": 12.0, "seed": SEED, "fault_one_in": NETSYNC_FAULT_ONE_IN,
+    "storage": {"segment_bytes": 16 * 1024, "checkpoint_interval": 5},
+    "changes": ((2.0, 0, "reweight", 1, 3), (5.0, 0, "remove", 4, 0)),
+    "retire": ((7.0, 4),), "crashes": ((2, 8.0, 1.5, 0),), "exec_interval_s": 0.5,
+    "epochs": 2, "retiree": 4, "rebooter": 2, "oracle_rounds": 50,
+}
+# What epoch-10 counts at SEED under HASH_SEED (``epoch_counts`` of a
+# ``cpu``-kind run; the card run must count the same).
+EPOCH_SEEDED = {
+    "commits": [124, 124, 124, 124, 66, 124, 125, 124, 124, 124],
+    "epochs": [2, 2, 2, 2, 2, 2, 2, 2, 2, 2],
+    "boundaries": [[[1, 13], [2, 45]]] * 10,
+    "flushes": 8810,
+    "dispatched": 10381,
+    "received": 10653,
+    "fresh": 10481,
+    "to_verify": 10383,
+    "forged": 184,
+    "forged_rejected": 184,
+    "forged_injected": 185,
+    "redelivered": 202,
+    "on_card": 10381,
+    "planted": 218,
+    "exec_heights": [124, 124, 124, 124, 66, 124, 125, 124, 124, 124],
+    # The root at height 124, and node 4's at 66 and node 6's at 125.
+    "roots": ["66954b27a53c5013631d0038d513c5e11c8fda97201d35ee8350066ddacc0a4d"] * 4
+             + ["401d65671bddf096d8a86f3946b4c6c31db170d9cab94e85ecf48127b0ad3216",
+                "66954b27a53c5013631d0038d513c5e11c8fda97201d35ee8350066ddacc0a4d",
+                "4bd0b02109df08a634c4b18edef9611a0cfd3099721e1b0a1a90e76b118658a2"]
+             + ["66954b27a53c5013631d0038d513c5e11c8fda97201d35ee8350066ddacc0a4d"] * 3,
+    "planted_held": [217, 217, 217, 217, 130, 217, 217, 217, 217, 217],
+    "notes": [2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 0],
 }
 # A run's committed sequences hang on the process's ``bytes`` hash salt (the
 # block fetcher requests missing blocks in a set's order), so ``main`` runs
@@ -2345,61 +2420,71 @@ class SnapshotWatch:
         disseminator._send_snapshot_chunk = watched
 
 
-async def storage_sim(config, tmp_dir, make_collector):
-    """``config``'s fleet (``STORAGE_10``'s shape) under the running
-    deterministic loop: ``config["n"]`` validators of a
-    ``Committee.new_for_benchmarks`` built by ``build_storage_node`` over
-    the port's ``SimulatedNetwork``, a ``FaultInjector`` on the network and
-    a ``SnapshotWatch`` on every node, each node's block verifier
-    ``make_collector(committee, metrics)`` (a fresh one for every
-    incarnation); each crash stops the node, closes its WAL writer and
-    block store and tears its active segment, and the restart rebuilds it
-    from its directory.  Returns ``storage_result``."""
-    from mysticeti_tpu_torch.commit_observer import TestCommitObserver
-    from mysticeti_tpu_torch.committee import Committee
-    from mysticeti_tpu_torch.config import Parameters, StorageParameters
-    from mysticeti_tpu_torch.flight_recorder import FlightRecorder
-    from mysticeti_tpu_torch.metrics import Metrics
-    from mysticeti_tpu_torch.simulated_network import SimulatedNetwork
-    from mysticeti_tpu_torch.storage import active_wal_file
+class SimFleet:
+    """``config``'s fleet under the running deterministic loop, as the JAX
+    package's ``chaos.ChaosSimHarness`` runs it: ``config["n"]`` validators
+    of a ``Committee.new_for_benchmarks`` on ``parameters``, each built by
+    ``build_storage_node`` over the port's ``SimulatedNetwork``, with a
+    ``FaultInjector`` on the network, a ``SnapshotWatch`` and a
+    ``ReceiveCounter`` on every node and a ``CommitLog`` behind every
+    observer; each node's block verifier is ``make_collector(committee,
+    authority, metrics)``, a fresh one for every incarnation, and each
+    node's ``Metrics`` (``metrics``, else new ones) and flight recorder
+    outlive its restarts.  ``config["crashes"]`` (node, at_s, downtime_s,
+    torn bytes) stop a node, close its WAL writer and block store and tear
+    its active segment, and rebuild it from its directory after the
+    downtime; ``config.get("retire", ())`` (at_s, node) stop a node for good
+    (its store stays open for the readings at the end).  ``on_build(a,
+    node)`` sees every incarnation before it starts."""
 
-    class NodeNetwork:
-        def __init__(self, queue):
-            self.connections = queue
+    def __init__(self, config, tmp_dir, make_collector, parameters, metrics=None,
+                 on_build=None) -> None:
+        from mysticeti_tpu_torch.commit_observer import TestCommitObserver
+        from mysticeti_tpu_torch.committee import Committee
+        from mysticeti_tpu_torch.flight_recorder import FlightRecorder
+        from mysticeti_tpu_torch.metrics import Metrics
+        from mysticeti_tpu_torch.simulated_network import SimulatedNetwork
 
-        async def stop(self):
-            pass
+        n = config["n"]
+        self.config, self.tmp_dir, self.parameters = config, tmp_dir, parameters
+        self.make_collector, self.on_build = make_collector, on_build
+        self.committee = Committee.new_for_benchmarks(n)
+        self.signers = Committee.benchmark_signers(n)
+        self.loop = asyncio.get_running_loop()
+        self.sim_net = SimulatedNetwork(n)
+        self.injector = FaultInjector(self.loop.rng, config["fault_one_in"])
+        self.sim_net.fault_injector = self.injector
+        self.counter = ReceiveCounter(self.injector.forged_refs)
+        self.watch = SnapshotWatch(self.injector)
+        self.commits = CommitLog()
+        self.observer_class = self.commits.observer_class(TestCommitObserver)
+        self.metrics = metrics if metrics is not None else [Metrics() for _ in range(n)]
+        self.recorders = [FlightRecorder(authority=a) for a in range(n)]
+        self.nodes, self.served, self.retired = [None] * n, [0] * n, {}
+        self.flushes = []  # (authority, virtual time, wall time, block references) a flush
+        self.events = []  # (kind, authority, virtual time, wall time, height, highest round) a fault
 
-    n = config["n"]
-    committee = Committee.new_for_benchmarks(n)
-    signers = Committee.benchmark_signers(n)
-    parameters = Parameters(leader_timeout_s=CONSENSUS_LEADER_TIMEOUT_S,
-                            storage=StorageParameters(**config["storage"]))
-    loop = asyncio.get_running_loop()
-    sim_net = SimulatedNetwork(n)
-    injector = FaultInjector(loop.rng, config["fault_one_in"])
-    sim_net.fault_injector = injector
-    counter = ReceiveCounter(injector.forged_refs)
-    watch = SnapshotWatch(injector)
-    commits = CommitLog()
-    observer_class = commits.observer_class(TestCommitObserver)
-    metrics = [Metrics() for _ in range(n)]
-    recorders = [FlightRecorder(authority=a) for a in range(n)]
-    nodes, served = [None] * n, [0] * n
-    flushes = []  # (authority, virtual time, wall time, block references) a flush
-    events = []  # (kind, authority, virtual time, wall time, height, highest round) a fault
+    def wal_path(self, a) -> str:
+        return os.path.join(self.tmp_dir, f"wal-{a}")
 
-    def wal_path(a):
-        return os.path.join(tmp_dir, f"wal-{a}")
+    def build(self, a):
+        """Node ``a``'s next incarnation, booted from its directory."""
 
-    def build(a):
-        collector = make_collector(committee, metrics[a])
-        node = build_storage_node(committee, signers[a], a, wal_path(a),
-                                  NodeNetwork(sim_net.node_connections[a]), parameters,
-                                  collector, metrics[a], recorders[a], observer_class)
-        node._disseminators = watch.disseminators(node)
-        counter.watch(node)
-        direct = collector._direct
+        class NodeNetwork:
+            def __init__(self, queue):
+                self.connections = queue
+
+            async def stop(self):
+                pass
+
+        collector = self.make_collector(self.committee, a, self.metrics[a])
+        node = build_storage_node(self.committee, self.signers[a], a, self.wal_path(a),
+                                  NodeNetwork(self.sim_net.node_connections[a]), self.parameters,
+                                  collector, self.metrics[a], self.recorders[a],
+                                  self.observer_class)
+        node._disseminators = self.watch.disseminators(node)
+        self.counter.watch(node)
+        direct, loop, flushes = collector._direct, self.loop, self.flushes
 
         async def timed(blocks):
             out = await direct(blocks)
@@ -2407,47 +2492,85 @@ async def storage_sim(config, tmp_dir, make_collector):
             return out
 
         collector._direct = timed
-        nodes[a] = node
+        if self.on_build is not None:
+            self.on_build(a, node)
+        self.nodes[a] = node
         return node
 
-    async def schedule():
+    def inject(self, via, payload: bytes) -> None:
+        """Plant a transaction on ``via``'s block handler: it rides the
+        node's next own proposal."""
+        self.nodes[via].core.block_handler.inject(payload)
+
+    async def _schedule(self) -> None:
+        from mysticeti_tpu_torch.storage import active_wal_file
+
+        config, loop = self.config, self.loop
         plan = sorted([(at, "crash", a, torn) for a, at, _down, torn in config["crashes"]]
-                      + [(at + down, "restart", a, 0) for a, at, down, _ in config["crashes"]])
+                      + [(at + down, "restart", a, 0) for a, at, down, _ in config["crashes"]]
+                      + [(at, "retire", a, 0) for at, a in config.get("retire", ())])
         for t, kind, a, torn in plan:
             if t > loop.time():
                 await asyncio.sleep(t - loop.time())
-            node = nodes[a]
-            events.append((kind, a, loop.time(), time.monotonic(),
-                           max(commits.anchors.get(a, {0: 0})),
-                           node.core.block_store.highest_round() if node else None))
-            if kind == "crash":
-                nodes[a] = None
-                sim_net.crash(a)
+            node = self.nodes[a]
+            self.events.append((kind, a, loop.time(), time.monotonic(),
+                                max(self.commits.anchors.get(a, {0: 0})),
+                                node.core.block_store.highest_round() if node else None))
+            if kind == "restart":
+                await self.build(a).start()
+                await self.sim_net.restart(a)
+                continue
+            self.nodes[a] = None
+            self.sim_net.crash(a)
+            await node.stop()
+            self.served[a] += snapshot_served(node)
+            if kind == "retire":
+                self.retired[a] = node
+                continue
+            node.core.wal_writer.close()
+            node.core.block_store.close()
+            target = active_wal_file(self.wal_path(a))
+            with open(target, "r+b") as f:
+                f.truncate(max(0, os.path.getsize(target) - torn))
+
+    async def run(self, workload=None) -> None:
+        """Start every node, run the fault schedule and ``workload(self)`` for
+        ``config["virtual_s"]``, then stop every node."""
+        for a in range(self.config["n"]):
+            await self.build(a).start()
+        await self.sim_net.connect_all()
+        tasks = [asyncio.ensure_future(self._schedule())]
+        if workload is not None:
+            tasks.append(asyncio.ensure_future(workload(self)))
+        await asyncio.sleep(self.config["virtual_s"])
+        for task in tasks:
+            task.cancel()
+        for node in self.nodes:
+            if node is not None:
                 await node.stop()
-                served[a] += snapshot_served(node)
+        self.sim_net.close()
+        for a, node in enumerate(self.nodes):
+            if node is not None:
+                self.served[a] += snapshot_served(node)
+
+    def close(self) -> None:
+        """Close every last incarnation's WAL writer and block store."""
+        for node in [*self.nodes, *self.retired.values()]:
+            if node is not None:
                 node.core.wal_writer.close()
                 node.core.block_store.close()
-                target = active_wal_file(wal_path(a))
-                with open(target, "r+b") as f:
-                    f.truncate(max(0, os.path.getsize(target) - torn))
-            else:
-                await build(a).start()
-                await sim_net.restart(a)
 
-    for a in range(n):
-        await build(a).start()
-    await sim_net.connect_all()
-    task = asyncio.ensure_future(schedule())
-    await asyncio.sleep(config["virtual_s"])
-    task.cancel()
-    for node in nodes:
-        if node is not None:
-            await node.stop()
-    sim_net.close()
-    for a, node in enumerate(nodes):
-        served[a] += snapshot_served(node)
-    return storage_result(config, nodes, commits, counter, injector, watch, metrics, recorders,
-                          flushes, events, served)
+
+async def storage_sim(config, tmp_dir, make_collector):
+    """``config``'s fleet (``STORAGE_10``'s shape) as a ``SimFleet`` with the
+    storage lifecycle on.  Returns ``storage_result``."""
+    from mysticeti_tpu_torch.config import Parameters, StorageParameters
+
+    parameters = Parameters(leader_timeout_s=CONSENSUS_LEADER_TIMEOUT_S,
+                            storage=StorageParameters(**config["storage"]))
+    fleet = SimFleet(config, tmp_dir, make_collector, parameters)
+    await fleet.run()
+    return storage_result(fleet)
 
 
 def snapshot_served(node) -> int:
@@ -2456,8 +2579,7 @@ def snapshot_served(node) -> int:
         d.snapshot_blocks_sent for d in node._disseminators.values())
 
 
-def storage_result(config, nodes, commits, counter, injector, watch, metrics, recorders,
-                   flushes, events, served) -> dict:
+def storage_result(fleet) -> dict:
     """What the storage checks and readings read off the finished fleet:
     the committed sequences and adopted baselines, each node's storage
     readings (its lifecycle's boot and adoption counts, WAL bytes written
@@ -2468,6 +2590,9 @@ def storage_result(config, nodes, commits, counter, injector, watch, metrics, re
     node's WAL is closed."""
     from mysticeti_tpu_torch.storage import checkpoint_files
 
+    config, nodes, commits, counter = fleet.config, fleet.nodes, fleet.commits, fleet.counter
+    injector, watch, metrics, recorders = fleet.injector, fleet.watch, fleet.metrics, fleet.recorders
+    flushes, events, served = fleet.flushes, fleet.events, fleet.served
     n, rejoiner = config["n"], config["rejoiner"]
 
     def total(name):
@@ -2531,9 +2656,7 @@ def storage_result(config, nodes, commits, counter, injector, watch, metrics, re
         "steady": {"flushes": len(steady), "lanes": sum(len(f[3]) for f in steady)},
         **counter.settle(),
     }
-    for node in nodes:
-        node.core.wal_writer.close()
-        node.core.block_store.close()
+    fleet.close()
     return result
 
 
@@ -2548,7 +2671,7 @@ def storage_run(kind, config, backend=None) -> dict:
     from mysticeti_tpu_torch.runtime.simulated import run_simulation
     from mysticeti_tpu_torch.validator import _make_verifier
 
-    def make_collector(committee, metrics):
+    def make_collector(committee, authority, metrics):
         if kind == "cpu":
             return _make_verifier("cpu", committee, metrics=metrics)
         check(kind == "cuda-only" and backend is not None, f"no backend for {kind}")
@@ -2698,6 +2821,410 @@ def storage_phase(kernels):
     return launches, reading
 
 
+async def epoch_sim(config, tmp_dir, make_collector, metrics=None, oracle=True):
+    """``config``'s fleet (``EPOCH_10``'s shape) as a ``SimFleet`` with the
+    reconfiguration and execution planes on, and the workload of
+    ``tests/test_reconfig.py``'s churn test and ``scenarios``' execution workload:
+    each ``config["changes"]`` entry (at_s, via, kind, authority, stake)
+    plants a ``CommitteeChange`` on node ``via``'s block handler at its
+    virtual time, and every ``exec_interval_s`` each live node plants one
+    self-contained execution batch (CREATE ``acct-{node}-{batch}`` with
+    1,000, two TRANSFERs of 300 in nonce order, one TRANSFER of 500 that
+    overdraws).  Every incarnation's collector counts its ``note_committee``
+    calls, and the roots its core folds are recorded.  Returns
+    ``epoch_result`` (the finalization oracle's readings with ``oracle``)."""
+    from mysticeti_tpu_torch import reconfig
+    from mysticeti_tpu_torch.config import Parameters, StorageParameters
+    from mysticeti_tpu_torch.execution import OP_CREATE, OP_TRANSFER, ExecTx
+
+    parameters = Parameters(leader_timeout_s=CONSENSUS_LEADER_TIMEOUT_S, reconfig=True,
+                            execution=True, leader_liveness_horizon_rounds=4,
+                            storage=StorageParameters(**config["storage"]))
+    incarnations, roots, conflicts, planted = [], {}, [], []
+
+    def on_build(a, node):
+        core = node.core
+        incarnation = {"authority": a, "node": node, "notes": 0,
+                       "boot_epoch": core.committee.epoch,
+                       "boot_height": core.execution.last_height,
+                       "boot_root": core.execution.root,
+                       "checkpoint_height": core.storage.recovered_checkpoint_height}
+        incarnations.append(incarnation)
+        collector = node.block_verifier
+        note = collector.note_committee
+
+        def counted_note(committee):
+            incarnation["notes"] += 1
+            note(committee)
+
+        def folded(result):
+            mine = roots.setdefault(a, {})
+            if mine.setdefault(result.height, result.root) != result.root:
+                conflicts.append((a, result.height))
+
+        collector.note_committee = counted_note
+        core.execution_listeners.append(folded)
+
+    async def workload(fleet):
+        kinds = {"add": reconfig.CHANGE_ADD, "remove": reconfig.CHANGE_REMOVE,
+                 "reweight": reconfig.CHANGE_REWEIGHT}
+
+        async def changes():
+            for at, via, kind, authority, stake in config["changes"]:
+                await asyncio.sleep(at - fleet.loop.time())
+                fleet.inject(via, reconfig.CommitteeChange(kinds[kind], authority, stake).to_bytes())
+
+        async def execution():
+            batch = 0
+            while True:
+                await asyncio.sleep(config["exec_interval_s"])
+                batch += 1
+                for a, node in enumerate(fleet.nodes):
+                    if node is None:
+                        continue
+                    account, sink = f"acct-{a}-{batch}".encode(), f"sink-{a}".encode()
+                    planted.append(account)
+                    for tx in (ExecTx(OP_CREATE, account, amount=1000),
+                               ExecTx(OP_TRANSFER, account, nonce=1, amount=300, dest=sink),
+                               ExecTx(OP_TRANSFER, account, nonce=2, amount=300, dest=b"treasury"),
+                               ExecTx(OP_TRANSFER, account, nonce=3, amount=500, dest=sink)):
+                        fleet.inject(a, tx.to_bytes())
+
+        await asyncio.gather(changes(), execution())
+
+    fleet = SimFleet(config, tmp_dir, make_collector, parameters, metrics, on_build)
+    await fleet.run(workload)
+    return epoch_result(fleet, incarnations, roots, conflicts, planted, oracle)
+
+
+class RoundPrefix:
+    """The rounds up to ``last_round`` of a block store, as
+    ``FinalizationInterpreter`` reads a store: a whole DAG, since a block's
+    parents lie in lower rounds."""
+
+    def __init__(self, store, last_round: int) -> None:
+        self.store, self.last_round = store, last_round
+
+    def highest_round(self) -> int:
+        return min(self.last_round, self.store.highest_round())
+
+    def get_blocks_by_round(self, round_):
+        return self.store.get_blocks_by_round(round_)
+
+    def get_block(self, reference):
+        return self.store.get_block(reference)
+
+
+def causal_history(store, block) -> set:
+    """The references of ``block`` and every block it reaches through its
+    includes (``BlockStore.linked``'s relation, in one pass)."""
+    seen, stack = {block.reference}, [block]
+    while stack:
+        for ref in stack.pop().includes:
+            if ref not in seen:
+                seen.add(ref)
+                stack.append(store.get_block(ref))
+    return seen
+
+
+def finalization_reading(node, anchors, last_round) -> dict:
+    """``FinalizationInterpreter`` with ``node``'s current committee over
+    the rounds up to ``last_round`` of its store: the finalized
+    transactions, and how many of them have no certifying block in the
+    causal history of the node's last committed leader (``anchors``: its
+    committed anchors by height), whose round must lie above
+    ``last_round``.  (Over the whole store, transactions certified in the
+    rounds above that leader, not yet committed when the run stopped, have
+    none; the oracle's work grows with blocks times transactions.)"""
+    from mysticeti_tpu_torch.finalization_interpreter import FinalizationInterpreter
+
+    store = node.core.block_store
+    last_leader = store.get_block(anchors[max(anchors)])
+    history = causal_history(store, last_leader)
+    finalized = FinalizationInterpreter(RoundPrefix(store, last_round),
+                                        node.core.committee).finalized_tx_certifying_blocks()
+    uncovered = sum(history.isdisjoint(certifying) for _tx, certifying in finalized)
+    return {"finalized": len(finalized), "uncovered": uncovered,
+            "leader_round": last_leader.round()}
+
+
+def epoch_result(fleet, incarnations, roots, conflicts, planted, oracle) -> dict:
+    """What the epoch checks and readings read off the finished fleet: the
+    committed sequences; each node's last incarnation's epoch, epoch chain,
+    execution height, root, state bytes' digest, the planted accounts it
+    holds and how many of those do not read (400, 3) (1,000 less two
+    transfers of 300, three nonces: the overdraft rejected), its
+    ``mysticeti_execution_txs_total`` by verdict and, with ``oracle``, the
+    finalization oracle's reading over its first ``config["oracle_rounds"]``
+    rounds; every incarnation's boot readings, epoch at its end
+    and ``note_committee`` calls; the roots folded by height; the settled
+    receive counts, forged copies, registries' invalid blocks and verified
+    signatures; then every node's WAL is closed."""
+    import hashlib
+
+    config, metrics, recorders = fleet.config, fleet.metrics, fleet.recorders
+    last = {inc["authority"]: inc["node"] for inc in incarnations}
+
+    def verdicts(m):
+        return {sample.labels["result"]: sample.value
+                for family in m.mysticeti_execution_txs_total.collect()
+                for sample in family.samples if sample.name.endswith("_total")}
+
+    def total(name):
+        return sum(m.registry.get_sample_value(name) or 0.0 for m in metrics)
+
+    per_node, oracle_s = [], 0.0
+    for a in range(config["n"]):
+        core = last[a].core
+        held = [core.execution.probe(account) for account in planted]
+        held = [entry for entry in held if entry is not None]
+        per_node.append({
+            "epoch": core.committee.epoch,
+            "chain": [(r.epoch, r.boundary_height, r.boundary_round, r.digest.hex(), list(r.stakes))
+                      for r in core.reconfig.chain.records],
+            "exec_height": core.execution.last_height, "root": core.execution.root.hex(),
+            "state": hashlib.blake2b(core.execution.to_bytes(), digest_size=16).hexdigest(),
+            "planted_held": len(held), "planted_off": sum(entry != (400, 3) for entry in held),
+            "verdicts": verdicts(metrics[a]),
+            "finalization": None,
+        })
+        if oracle:
+            t0 = time.monotonic()
+            per_node[-1]["finalization"] = finalization_reading(
+                last[a], fleet.commits.anchors[a], config["oracle_rounds"])
+            oracle_s += time.monotonic() - t0
+    recorded = [e for r in recorders for e in r.events()
+                if e["kind"] == "invalid-block" and e.get("reason") == "signature"]
+    nodes = [*fleet.nodes, *fleet.retired.values()]
+    result = {
+        "sequences": fleet.commits.sequences(config["n"]), "nodes": per_node,
+        "incarnations": [{"authority": inc["authority"], "boot_epoch": inc["boot_epoch"],
+                          "boot_height": inc["boot_height"], "boot_root": inc["boot_root"].hex(),
+                          "checkpoint_height": inc["checkpoint_height"],
+                          "end_epoch": inc["node"].core.committee.epoch,
+                          "boundaries_crossed": len({r.boundary_height for r in
+                                                     inc["node"].core.reconfig.chain.records
+                                                     if r.epoch > inc["boot_epoch"]}),
+                          "notes": inc["notes"]}
+                         for inc in incarnations],
+        "roots": {a: {h: r.hex() for h, r in sorted(mine.items())}
+                  for a, mine in sorted(roots.items())},
+        "root_conflicts": conflicts, "planted": len(planted), "oracle_s": oracle_s,
+        "forged_stored": sum(node.core.block_store.block_exists(ref)
+                             for node in nodes if node is not None
+                             for ref in fleet.injector.forged_refs),
+        "forged_injected": len(fleet.injector.forged_refs),
+        "redelivered": fleet.injector.redelivered,
+        "invalid": {reason: sum(sample.value for m in metrics
+                                for family in m.mysticeti_invalid_blocks_total.collect()
+                                for sample in family.samples
+                                if sample.name.endswith("_total")
+                                and sample.labels["reason"] == reason)
+                    for reason in ("signature", "structure", "malformed")},
+        "recorded_signature": sum(e.get("count", 1) for e in recorded),
+        "recorder_dropped": sum(r.dropped for r in recorders),
+        "on_backend": sum(sample.value for m in metrics
+                          for family in m.verified_signatures_total.collect()
+                          for sample in family.samples if sample.name.endswith("_total")),
+        "dispatched": total("verify_dispatch_batch_size_sum"),
+        "flushes": total("verify_dispatch_batch_size_count"),
+        **fleet.counter.settle(),
+    }
+    fleet.close()
+    return result
+
+
+def epoch_run(kind, config, on_ready=None, device=None) -> dict:
+    """One seeded simulation of ``epoch_sim`` in a temporary directory,
+    every incarnation of every node with its own verifier of ``kind``
+    (``_make_verifier``).  The accelerator kinds' verifiers, one for each
+    incarnation the schedule boots, are made and warmed (the kernels' first
+    launches, the combs' upload) before ``on_ready()`` and the run; their
+    run also reads the finalization oracle (the ``cpu`` run, which must
+    commit the same sequences, does not).  Returns the result with its wall
+    seconds (the oracle's included) and the verifiers' warm-up seconds."""
+    import tempfile
+
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.metrics import Metrics
+    from mysticeti_tpu_torch.runtime.simulated import run_simulation
+    from mysticeti_tpu_torch.validator import _make_verifier
+
+    n = config["n"]
+    metrics = [Metrics() for _ in range(n)]
+    prepared = {a: [] for a in range(n)}
+    t0 = time.monotonic()
+    if kind != "cpu":
+        committee = Committee.new_for_benchmarks(n)
+        for a in [*range(n), *(c[0] for c in config["crashes"])]:
+            prepared[a].append(_make_verifier(kind, committee, metrics=metrics[a], device=device))
+        for verifiers in prepared.values():
+            for verifier in verifiers:
+                check(verifier.ready.wait(600), f"a {kind} verifier did not warm up")
+
+    def make_collector(committee, authority, m):
+        if kind == "cpu":
+            return _make_verifier("cpu", committee, metrics=m)
+        return prepared[authority].pop(0)
+
+    warmup_s = time.monotonic() - t0
+    if on_ready is not None:
+        on_ready()
+    with tempfile.TemporaryDirectory(prefix="epoch-") as d:
+        t0 = time.monotonic()
+        result = run_simulation(epoch_sim(config, d, make_collector, metrics,
+                                          oracle=kind != "cpu"), seed=config["seed"])
+        result["wall_s"] = time.monotonic() - t0
+    result["warmup_s"] = warmup_s
+    return result
+
+
+def epoch_counts(result) -> dict:
+    """The values a seeded run must reproduce on any host and backend."""
+    keys = ("received", "fresh", "to_verify", "forged", "forged_rejected", "forged_injected",
+            "redelivered", "on_card", "planted")
+    nodes = result["nodes"]
+    return {"commits": [len(seq) for seq in result["sequences"]],
+            "epochs": [node["epoch"] for node in nodes],
+            "boundaries": [[[epoch, height] for epoch, height, *_ in node["chain"]]
+                           for node in nodes],
+            "flushes": int(result["flushes"]), "dispatched": int(result["dispatched"]),
+            **{key: result[key] for key in keys},
+            "exec_heights": [node["exec_height"] for node in nodes],
+            "roots": [node["root"] for node in nodes],
+            "planted_held": [node["planted_held"] for node in nodes],
+            "notes": [inc["notes"] for inc in result["incarnations"]]}
+
+
+def epoch_checks(card, cpu, config) -> dict:
+    """The epoch phase's checks 1-5 and 7 on the card run and the ``cpu``
+    run of the same seed (see the module docstring, step 14); returns the
+    readings."""
+    n, epochs, retiree, rebooter = (config["n"], config["epochs"], config["retiree"],
+                                    config["rebooter"])
+    nodes = card["nodes"]
+    live = [a for a in range(n) if a != retiree]
+    # 1: epochs and boundaries, fleet-wide and across the runs.
+    check([nodes[a]["epoch"] for a in live] == [epochs] * len(live)
+          and nodes[retiree]["epoch"] >= 1,
+          f"epochs {[node['epoch'] for node in nodes]}: every live node must end in epoch "
+          f"{epochs} and node {retiree} see at least epoch 1")
+    chains = [node["chain"] for node in nodes]
+    longest = max(chains, key=len)
+    check(len(longest) == epochs and all(chain == longest[:len(chain)] for chain in chains)
+          and all(chains[a] == longest for a in live),
+          f"the epoch boundaries differ across the fleet: {chains}")
+    check(longest[-1][2] < config["oracle_rounds"],
+          f"the last boundary (round {longest[-1][2]}) lies above the oracle's rounds")
+    check(chains == [node["chain"] for node in cpu["nodes"]],
+          "the epoch boundaries differ from the cpu run's")
+    # 2: committed sequences (CommitLog checked agreement at every height).
+    commits = commit_checks(card["sequences"], 1)
+    check(card["sequences"] == cpu["sequences"], "the committed sequences differ from the cpu run's")
+    # 3: execution roots, verdicts, overdrafts.
+    check(not card["root_conflicts"], f"a node folded two roots at one height: "
+                                      f"{card['root_conflicts'][:3]}")
+    golden = {}
+    for a, mine in card["roots"].items():
+        for height, root in mine.items():
+            check(golden.setdefault(height, root) == root, f"the roots fork at height {height}")
+    check(card["roots"] == cpu["roots"], "the roots differ from the cpu run's")
+    check([node["verdicts"] for node in nodes] == [node["verdicts"] for node in cpu["nodes"]],
+          "the execution verdicts differ from the cpu run's")
+    crashed = {c[0] for c in config["crashes"]}
+    for a in live:
+        node = nodes[a]
+        check(golden.get(node["exec_height"]) == node["root"],
+              f"node {a}'s final root is not the fleet's at height {node['exec_height']}")
+        check(node["planted_held"] > 0 and node["planted_off"] == 0,
+              f"node {a} holds {node['planted_held']} planted accounts, {node['planted_off']} "
+              f"not at (400, 3)")
+        if a not in crashed:
+            held = node["planted_held"]
+            check(node["verdicts"] == {"applied": 3.0 * held, "insufficient_balance": 1.0 * held},
+                  f"node {a}'s verdicts {node['verdicts']} are not 3 applied and 1 "
+                  f"insufficient_balance for each of its {held} planted batches")
+    # 4: the checkpoint boot.
+    boots = [inc for inc in card["incarnations"] if inc["authority"] == rebooter]
+    check(len(boots) == 2, f"node {rebooter} booted {len(boots)} times")
+    boot = boots[1]
+    check(boot["checkpoint_height"] > 0 and boot["boot_epoch"] == epochs
+          and boot["boot_height"] > 0
+          and golden.get(boot["boot_height"]) == boot["boot_root"],
+          f"node {rebooter}'s checkpoint boot did not re-derive epoch {epochs} and the fleet's "
+          f"root: {boot}")
+    # 5: forged copies.
+    forged_checks(card)
+    # 7: the finalization oracle.
+    for a, node in enumerate(nodes):
+        reading = node["finalization"]
+        check(reading["leader_round"] > config["oracle_rounds"] and reading["finalized"] > 0
+              and reading["uncovered"] == 0, f"node {a}'s finalization oracle: {reading}")
+    return {
+        "nodes": n, "virtual_s": config["virtual_s"], "seed": config["seed"],
+        "commits": commits, "epochs": [node["epoch"] for node in nodes],
+        "boundaries": [{"epoch": e, "height": h, "round": r, "digest": d[:16]}
+                       for e, h, r, d, _ in longest],
+        "exec_heights": [node["exec_height"] for node in nodes],
+        "shared_heights": len(golden), "planted": card["planted"],
+        "planted_held": [node["planted_held"] for node in nodes],
+        "reboot": {key: boot[key] for key in ("checkpoint_height", "boot_epoch", "boot_height")},
+        "finalized": [node["finalization"]["finalized"] for node in nodes],
+        "forged": card["forged"], "forged_injected": card["forged_injected"],
+        "forged_rejected": card["forged_rejected"],
+        "counts": epoch_counts(card),
+    }
+
+
+def epoch_phase(kernels):
+    """epoch-10 over the card (each incarnation its own
+    ``_make_verifier("cuda-only")`` on cuda:0) and over the ``cpu`` kind,
+    with the checks of the module docstring, step 14.  Returns the launches
+    and the readings."""
+    config = EPOCH_10
+    card = epoch_run("cuda-only", config, on_ready=lambda: [k.reset_counts() for k in kernels])
+    launches = {k.name: k.launches for k in kernels}
+    cpu = epoch_run("cpu", config)
+    reading = epoch_checks(card, cpu, config)
+    check(epoch_counts(card) == epoch_counts(cpu),
+          f"the counts differ from the cpu run's: {epoch_counts(card)} vs {epoch_counts(cpu)}")
+    check(reading["counts"] == EPOCH_SEEDED,
+          f"the counts differ from the seeded ones: {reading['counts']}")
+    # 6: on the card.
+    check(launches["verify_generic"] == 0,
+          f"the epoch path launched the generic kernel across the boundaries: {launches}")
+    check(launches["prologue"] == launches["verify_keyed"] == card["flushes"] > 0,
+          f"the epoch path's launches {launches} are not one prologue and one keyed launch a "
+          f"flush ({card['flushes']:.0f})")
+    accounted = card_checks(card)
+    for inc in card["incarnations"]:
+        check(inc["notes"] == inc["boundaries_crossed"],
+              f"node {inc['authority']}'s collector saw {inc['notes']} committee notes crossing "
+              f"{inc['boundaries_crossed']} boundaries (epochs {inc['boot_epoch']}-"
+              f"{inc['end_epoch']})")
+    reading.update({"card_wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"],
+                    "oracle_s": card["oracle_s"], "warmup_s": card["warmup_s"],
+                    "signatures_on_card": accounted["on_backend"], "flushes": accounted["flushes"],
+                    "mean_live_lanes": accounted["mean_live_lanes"],
+                    "open_at_stop": accounted["open_at_stop"],
+                    "notes": [(inc["authority"], inc["notes"]) for inc in card["incarnations"]],
+                    "launches": launches, "card": card_line()})
+    print(f"epoch epoch-10: {config['n']} validators, {config['virtual_s']} virtual s, commits a "
+          f"node {reading['commits']}, prefixes agree and equal the cpu run's and the seeded "
+          f"counts; epochs {reading['epochs']}, boundaries {reading['boundaries']}; roots agree at "
+          f"{reading['shared_heights']} heights and equal the cpu run's; {reading['planted']} "
+          f"batches planted, held {reading['planted_held']}; node {config['rebooter']} booted from "
+          f"checkpoint {reading['reboot']}; finalized {reading['finalized']}; {card['forged']} "
+          f"forged copies verified ({card['forged_injected']} injected), all rejected and "
+          f"counted; {accounted['flushes']:.0f} flushes, {accounted['mean_live_lanes']:.2f} live "
+          f"lanes a flush; committee notes {reading['notes']}; {card['wall_s']:.1f} s on the "
+          f"card ({card['oracle_s']:.1f} s of it the oracle; the verifiers warmed in "
+          f"{card['warmup_s']:.1f} s), {cpu['wall_s']:.1f} s on the cpu kind; launches "
+          f"{launches} [{reading['card']}]",
+          flush=True)
+    return launches, reading
+
+
 def bench_phase() -> dict:
     """``python -m mysticeti_tpu_torch.bench`` as a child, on BENCH_ENV."""
     env = dict(os.environ, **BENCH_ENV)
@@ -2777,6 +3304,7 @@ def run() -> int:
     by_path["consensus"], consensus = consensus_phase(K.KERNELS)
     by_path["net_sync"], by_path["net_sync_tcp"], net_sync = net_sync_phase(K.KERNELS)
     by_path["storage"], storage = storage_phase(K.KERNELS)
+    by_path["epoch"], epoch = epoch_phase(K.KERNELS)
     bench = bench_phase()
     # The block path's flushes take the keyed kernel, one key per lane, and
     # never the generic one; the committee dispatch's 8 stragglers take the
@@ -2812,7 +3340,7 @@ def run() -> int:
                       "block_path_blocks_per_s": rates["block_per_s"], "flush": report["flush"],
                       "flat_vs_26col": layout, "sharded": sharded, "hybrid": hybrid,
                       "service": service, "receive": receive, "consensus": consensus,
-                      "net_sync": net_sync, "storage": storage,
+                      "net_sync": net_sync, "storage": storage, "epoch": epoch,
                       "metrics": metrics_reading,
                       "bench": bench}), flush=True)
     print(card_line(), flush=True)
@@ -2918,6 +3446,24 @@ def storage_only() -> int:
     K.build_all()
     launches, reading = storage_phase(K.KERNELS)
     print(json.dumps({"storage": reading, "launches": launches}, default=str), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def epoch_only() -> int:
+    """The epoch phase alone: ``python3 -c 'import chip_smoke as c;
+    raise SystemExit(c.main(c.epoch_only))'``."""
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    launches, reading = epoch_phase(K.KERNELS)
+    print(json.dumps({"epoch": reading, "launches": launches}, default=str), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -104,11 +104,6 @@ class Core:
         # here is the epoch-0 genesis REGISTRY; a recovered epoch chain
         # (checkpoint/snapshot soft tail) re-derives the current epoch's
         # committee before anything below touches stake arithmetic.
-        # reconfig.py and execution.py are not in the port yet: these two
-        # branches raise ModuleNotFoundError naming the missing module, and
-        # the default Parameters never reach them.  So a snapshot manifest
-        # this core serves or adopts carries no epoch chain and no execution
-        # state.
         self.reconfig = None
         if parameters.reconfig:
             from .reconfig import EpochChain, ReconfigState
@@ -612,6 +607,23 @@ class Core:
         # never process; the handler's oracles must expect their votes.
         self.block_handler.note_catchup(self.storage.retired_round)
         self._raise_dag_floor(self.storage.retired_round)
+        if self.reconfig is not None and manifest.epoch_chain:
+            # Cross-boundary catch-up: the manifest's epoch chain is the
+            # rejoiner's only source for boundaries it slept through — adopt
+            # it and switch onto the CURRENT committee before processing the
+            # post-baseline block stream.
+            transition = self.reconfig.adopt_chain(manifest.epoch_chain)
+            if transition is not None:
+                self._switch_epoch(transition)
+        if self.execution is not None and manifest.exec_state:
+            # The manifest's execution state is the rejoiner's only source
+            # for the fold below the adopted baseline — without it the node
+            # would re-root at genesis and disagree with the fleet forever.
+            if self.execution.adopt(manifest.exec_state):
+                log.info(
+                    "adopted execution state: height %d, root %s",
+                    self.execution.last_height, self.execution.root.hex()[:16],
+                )
         return True
 
     def _raise_dag_floor(self, floor: RoundNumber) -> None:
@@ -656,6 +668,15 @@ class Core:
         ):
             return None
         manifest = self.storage.build_manifest()
+        if self.reconfig is not None:
+            # The epoch chain rides the manifest so a rejoiner absent across
+            # boundaries lands on the CURRENT committee, not the genesis one.
+            manifest.epoch_chain = self.reconfig.chain.to_bytes()
+        if self.execution is not None:
+            # Likewise the execution state: the rejoiner lands on the
+            # fleet's exact root instead of re-folding from genesis history
+            # it no longer has.
+            manifest.exec_state = self.execution.to_bytes()
         return manifest
 
     def wal_syncer(self) -> WalSyncer:

@@ -10,16 +10,19 @@ frames, malformed frames), the native data plane
 (``mysticeti_native_active``, ``dataplane_offload_seconds``), the consensus
 core (syncer, core, threshold clock, block manager and store, committers'
 decision ledger, commit observer, block handlers, with the exact-percentile
-channels and ``observe_latency_batch``), and the network plane (the
+channels and ``observe_latency_batch``), the network plane (the
 core-task dispatcher's queue, the synchronizer's fetches and frame cache,
-``NetworkSyncer``'s receive path and WAL gauges), and the storage
-lifecycle (``wal_reclaimed_bytes_total``, ``checkpoint_last_commit_index``).  Every family keeps the JAX
-package's name, help, labels and buckets, except the JAX compile and
-compile-cache families, which become the kernels' build families
-(``mysticeti_cuda_build*``, see ``ops.ed25519.install_device_attribution``).
-The health, host-attribution, profiling, ingress-plane, execution, finality
-and reconfiguration families, and the flight recorder's dump counter, wait
-for the modules that write them.
+``NetworkSyncer``'s receive path and WAL gauges), the storage lifecycle
+(``wal_reclaimed_bytes_total``, ``checkpoint_last_commit_index``), and the
+reconfiguration and execution planes (``mysticeti_epoch*``,
+``mysticeti_committee_digest_info``, ``mysticeti_execution_*``).  Every
+family keeps the JAX package's name, help, labels and buckets, except the
+JAX compile and compile-cache families, which become the kernels' build
+families (``mysticeti_cuda_build*``, see
+``ops.ed25519.install_device_attribution``).
+The health, host-attribution, profiling, ingress-plane and finality
+families, and the flight recorder's dump counter, wait for the modules that
+write them.
 """
 from __future__ import annotations
 
@@ -216,6 +219,29 @@ class Metrics:
             "info gauge naming the active committee: value is the epoch, "
             "label carries the committee digest prefix",
             labels=("digest",),
+        )
+
+        # Deterministic execution plane (execution.py): the account/transfer
+        # state machine folded over the committed sequence.
+        self.mysticeti_execution_txs_total = counter(
+            "mysticeti_execution_txs_total",
+            "execution transactions folded through the state machine by "
+            "verdict: applied, or a typed deterministic reject "
+            "(bad_nonce, insufficient_balance, unknown_account, "
+            "account_exists) — rejects consume the commit slot but not "
+            "account state",
+            labels=("result",),
+        )
+        self.mysticeti_execution_height = gauge(
+            "mysticeti_execution_height",
+            "highest commit height folded through the execution state "
+            "machine (trails the committed sequence by at most the "
+            "in-flight syncer pass; a growing gap means the fold stalled)",
+        )
+        self.mysticeti_execution_accounts = gauge(
+            "mysticeti_execution_accounts",
+            "live accounts in the execution state machine's balance table "
+            "(checkpoint tail size scales with this)",
         )
 
         # Core owner queue (core_task.CoreTaskDispatcher; core_lock_* in

@@ -1,10 +1,8 @@
 """Node-level orchestration: connections, verify-then-add pipeline, timeouts.
 
-The port's copy of ``mysticeti_tpu.net_sync``.  It differs in two places:
+The port's copy of ``mysticeti_tpu.net_sync``.  It differs in one place:
 the shared ``FrameCache`` is always on (the port has no
-``MYSTICETI_MESH_LEGACY`` knob); and the epoch-switch listener with its
-``EpochInfo`` send waits for the port's reconfiguration plane (a received
-``EpochInfo`` is still recorded).  Snapshot catch-up is served and adopted
+``MYSTICETI_MESH_LEGACY`` knob).  Snapshot catch-up is served and adopted
 as in the JAX package: a node whose core has no storage lifecycle answers no
 ``RequestSnapshot`` (``Core.snapshot_manifest_for`` gives ``None``).
 
@@ -196,10 +194,12 @@ class NetworkSyncer:
         # timeouts, and sync decisions are exactly the "seconds before the
         # incident" events its ring exists for.  None = not recording.
         self.recorder = recorder
-        # Epoch reconfiguration: last epoch each peer reported over the
-        # tag-17 extension.  The listener that re-derives the relay/peer
-        # bookkeeping on a switch comes with the port's reconfig plane.
+        # Epoch reconfiguration (reconfig.py): last epoch each peer reported
+        # over the tag-17 extension, plus the listener that re-derives the
+        # relay/peer bookkeeping and re-broadcasts EpochInfo on a switch.
         self.peer_epochs: Dict[int, int] = {}
+        if getattr(core, "reconfig", None) is not None:
+            core.epoch_listeners.append(self._on_epoch_switch)
 
     def _record(self, kind: str, **fields) -> None:
         if self.recorder is not None:
@@ -320,6 +320,13 @@ class NetworkSyncer:
         # A direct stream from this authority makes any relay of its blocks
         # redundant; forgetting the ask lets a later outage re-request.
         self._helper_subs.drop_authority(peer)
+        if self.parameters.reconfig and self.core.reconfig is not None:
+            # Tag-17 soft extension: advertise our epoch + committee digest
+            # right after the fixed hello (version-skew safe — only sent
+            # when the knob is on, and advisory on the receiving side).
+            await connection.send(
+                EpochInfo(self.core.committee.epoch, self.core.reconfig.digest())
+            )
         if self.parameters.synchronizer.disseminate_others_blocks:
             await self._request_helper_streams(connection)
         if self.parameters.storage.snapshot_catchup:
@@ -570,6 +577,37 @@ class NetworkSyncer:
                 height=manifest.commit_height, floor=manifest.gc_round,
             )
             await connection.send(RequestSnapshotStream(manifest.gc_round))
+
+    def _on_epoch_switch(self, committee, records) -> None:
+        """Epoch listener (core.epoch_listeners): runs on the consensus
+        owner right after a boundary commit switched the committee.
+        Sync-only — retire relay bookkeeping for departed authorities,
+        refresh the signature verifier's key view, and re-broadcast our
+        new coordinates.  Live connections to departed peers are NOT
+        severed: in-flight catch-up streams finish naturally."""
+        for authority in range(len(committee)):
+            if authority == self.core.authority:
+                continue
+            if not committee.is_active(authority):
+                # A departed authority needs no relays (its blocks are
+                # settled history) and must not serve as one of ours.
+                self._helper_subs.drop_authority(authority)
+                self._helper_subs.drop_helper(authority)
+            elif self.parameters.synchronizer.disseminate_others_blocks:
+                # A JOINING authority we cannot reach directly yet gets
+                # relays immediately — its first own blocks matter (they
+                # un-stall its leader slots under the new stake table).
+                live = self.connections.get(authority)
+                if live is None or live.is_closed():
+                    self._ask_relays_for(authority)
+        note = getattr(self.block_verifier, "note_committee", None)
+        if note is not None:
+            note(committee)
+        if self.parameters.reconfig and self.core.reconfig is not None:
+            info = EpochInfo(committee.epoch, self.core.reconfig.digest())
+            for conn in list(self.connections.values()):
+                if not conn.is_closed():
+                    conn.try_send(info)
 
     def _ask_relays_for(self, authority: int) -> None:
         """Ask connected peers to relay ``authority``'s blocks (its direct

@@ -8,9 +8,9 @@ each other.  Capability parity with ``mysticeti-core/src/network.rs``:
   RequestBlocksResponse, BlockNotFound} (network.rs:35-46) + embedded
   Ping/Pong RTT probe (network.rs:33,324-406,563-574), and the soft wire
   extensions (helper streams, snapshots, timestamped frames, the client
-  gateway, epoch info).  The codec covers every tag; the modules that send
-  the extensions (synchronizer, storage, ingress, reconfig) are not in the
-  port yet.
+  gateway, epoch info).  The codec covers every tag; of the modules that
+  send the extensions (synchronizer, storage, ingress, reconfig), ingress,
+  the gateway's, is not in the port yet.
 * 4-byte length-prefixed frames, 16 MiB cap (network.rs:216,397-459)
 * handshake magic + authority-index exchange (network.rs:214-217,244-292)
 * per-peer reconnect-forever workers (network.rs:218-242)
@@ -26,8 +26,7 @@ Broadcast-once data plane (endpoint-local; on-wire bytes unchanged):
 
 * **encode-once fan-out** — a sender may enqueue one :class:`EncodedFrame`
   to several connections, so N-1 subscribers at the same cursor ship one
-  serialization instead of re-encoding per peer (the frame cache that does
-  so comes with the port's synchronizer);
+  serialization instead of re-encoding per peer (``synchronizer.FrameCache``);
 * **scatter-gather write coalescing** — ``write_loop`` drains every queued
   message non-blocking and ships the batch as one
   ``writer.writelines([hdr, payload, ...])`` + a single ``drain()`` (headers

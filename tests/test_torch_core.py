@@ -4,9 +4,9 @@ The cases of ``tests/test_core.py`` (simple exchange, randomized exchange,
 recovery) run on both packages, each on its own deterministic loop, so block
 timestamps are virtual.  The two must give byte-identical blocks, author by
 author and round by round, and the same committed leaders.  A port ``Core``
-recovers from WALs that the JAX package wrote, and the reverse.  The default
-``Parameters`` never import the reconfiguration or execution planes, which
-the port does not have yet.
+recovers from WALs that the JAX package wrote, and the reverse.  (The
+reconfiguration and execution planes, off in the default ``Parameters``,
+are held to the JAX package in ``tests/test_torch_epoch.py``.)
 """
 import importlib
 import random
@@ -246,7 +246,7 @@ def test_recovery_from_a_copied_jax_wal_directory(tmp_path):
     assert port == _in_sim(JAX, _round_two, JAX, str(tmp_path / "j"), r1)
 
 
-# -- the planes the port does not have yet -----------------------------------
+# -- the reconfiguration and execution planes: off by default ------------------
 
 
 def test_default_parameters_never_reach_reconfig_or_execution(tmp_path):
@@ -271,9 +271,20 @@ def test_default_parameters_never_reach_reconfig_or_execution(tmp_path):
 
 @pytest.mark.parametrize("plane", ["reconfig", "execution"])
 def test_the_missing_planes_raise_naming_their_module(tmp_path, plane):
-    Parameters = _mod(PORT, "config").Parameters
-    Committee = _mod(PORT, "committee").Committee
-    committee = Committee.new_test([1] * 4)
-    with pytest.raises(ImportError, match=rf"mysticeti_tpu_torch\.{plane}"):
-        _open_core(PORT, committee, 0, str(tmp_path), Committee.benchmark_signers(4)[0],
-                   Parameters(**{plane: True}))
+    """The planes were missing from the port once, and
+    ``Parameters(plane=True)`` raised ``ImportError`` naming the module; now
+    each builds a ``Core`` whose plane is the port's own module's and starts
+    where the JAX package's does (the genesis committee's digest, the
+    genesis root)."""
+    got = {}
+    for pkg in (JAX, PORT):
+        (tmp_path / pkg).mkdir()
+        Committee = _mod(pkg, "committee").Committee
+        core = _open_core(pkg, Committee.new_test([1] * 4), 0, str(tmp_path / pkg),
+                          Committee.benchmark_signers(4)[0],
+                          _mod(pkg, "config").Parameters(**{plane: True}))
+        state = getattr(core, plane)
+        assert type(state).__module__ == f"{pkg}.{plane}"
+        got[pkg] = state.digest() if plane == "reconfig" else (state.root, state.to_bytes())
+        core.wal_writer.close()
+    assert got[PORT] == got[JAX]

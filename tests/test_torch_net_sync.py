@@ -300,6 +300,9 @@ def test_wal_syncer_thread_and_backpressure(tmp_path):
                              parameters=Parameters(), metrics=metrics,
                              start_wal_sync_thread=True)
         await node.start()
+        # The drain thread's progress is wall-clock state: under load the
+        # genesis proposal's append may still be queued, so drain it first.
+        node.core.wal_writer.flush()
         pressure = node.backpressure()
         await asyncio.sleep(1.5)
         await node.stop()

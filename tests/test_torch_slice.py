@@ -114,7 +114,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "wal", "storage", "block_store", "state", "block_manager", "consensus/__init__",
         "consensus/base_committer", "consensus/universal_committer", "consensus/linearizer",
         "decisions", "threshold_clock", "epoch_close", "range_map", "log", "block_handler",
-        "commit_observer", "core", "syncer", "net_sync")} <= names
+        "commit_observer", "core", "syncer", "net_sync", "reconfig", "execution",
+        "finalization_interpreter")} <= names
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "mysticeti_tpu"}, path

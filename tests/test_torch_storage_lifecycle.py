@@ -329,6 +329,7 @@ class _Checker:
     def __init__(self):
         self.anchors = {}
         self.adopted = {}
+        self.roots = {}
         self.violation = None
 
     def _set(self, authority, height, anchor):
@@ -343,6 +344,16 @@ class _Checker:
     def observe(self, authority, committed):
         for commit in committed:
             self._set(authority, commit.height, commit.anchor)
+
+    def note_root(self, authority, height, root):
+        """An execution state root a node folded at ``height`` (its
+        ``Core.execution_listeners``): a height folded again after a restart
+        must give the same root."""
+        prev = self.roots.setdefault(authority, {}).setdefault(height, root)
+        if prev != root:
+            self.violation = self.violation or AssertionError(
+                f"authority {authority} folded two roots at height {height}")
+            raise self.violation
 
     def note_adopted(self, authority, height, leader):
         self.adopted[authority] = max(self.adopted.get(authority, 0), height)
@@ -370,6 +381,10 @@ class _Checker:
             self.sequence(authority)
             for height, anchor in self.anchors[authority].items():
                 assert golden.setdefault(height, anchor) == anchor, f"fork at height {height}"
+        golden = {}
+        for authority in sorted(self.roots):
+            for height, root in self.roots[authority].items():
+                assert golden.setdefault(height, root) == root, f"roots fork at height {height}"
 
 
 class _SimNodeNetwork:
@@ -389,11 +404,18 @@ class _Fleet:
     restarts, and ``make_verifier(authority, committee, metrics)`` (None:
     accept-all).  ``crash`` stops a node, closes its WAL writer and block
     store and tears ``torn_tail_bytes`` off its active segment; ``restart``
-    rebuilds it from its directory."""
+    rebuilds it from its directory.  With the reconfiguration plane, as the
+    harness does: ``absent`` authorities are registered but not built at
+    start, ``join`` boots one from an empty WAL, ``retire`` stops one for
+    good, and ``inject`` plants a transaction (a committee change or an
+    execution transaction) on a node's block handler; the roots a node's
+    execution plane folds go to the checker."""
 
-    def __init__(self, pkg, n, wal_dir, parameters, committee=None, make_verifier=None):
+    def __init__(self, pkg, n, wal_dir, parameters, committee=None, make_verifier=None,
+                 absent=()):
         Committee = _mod(pkg, "committee").Committee
         self.pkg, self.n, self.wal_dir, self.parameters = pkg, n, wal_dir, parameters
+        self.absent = set(absent)
         self.committee = committee or Committee.new_test([1] * n)
         self.signers = Committee.benchmark_signers(n)
         self.make_verifier = make_verifier
@@ -437,6 +459,9 @@ class _Fleet:
                                   recovered_state=observer_recovered)
         observer.checked_authority = authority
         lifecycle.recorder = self.recorders[authority]
+        if core.execution is not None:
+            core.execution_listeners.append(
+                lambda result: self.checker.note_root(authority, result.height, result.root))
         verifier = (self.make_verifier(authority, self.committee, metrics)
                     if self.make_verifier is not None else None)
         return _mod(pkg, "net_sync").NetworkSyncer(
@@ -446,9 +471,22 @@ class _Fleet:
 
     async def start(self):
         for a in range(self.n):
-            self.nodes[a] = self._build(a)
-            await self.nodes[a].start()
+            if a not in self.absent:
+                self.nodes[a] = self._build(a)
+                await self.nodes[a].start()
         await self.sim_net.connect_all()
+        for a in sorted(self.absent):
+            self.sim_net.crash(a)
+
+    async def join(self, authority):
+        self.absent.discard(authority)
+        await self.restart(authority)
+
+    async def retire(self, authority):
+        await self.crash(authority)
+
+    def inject(self, via, payload):
+        self.nodes[via].core.block_handler.inject(payload)
 
     async def crash(self, authority, torn_tail_bytes=0):
         node = self.nodes[authority]
@@ -479,13 +517,16 @@ class _Fleet:
         return self.checker.committed_height(authority)
 
 
-def _run_fleet(pkg, n, duration_s, wal_dir, parameters, crashes=(), seed=0, **fleet_kwargs):
+def _run_fleet(pkg, n, duration_s, wal_dir, parameters, crashes=(), seed=0, workload=None,
+               **fleet_kwargs):
     """Run ``_Fleet`` for ``duration_s`` virtual seconds on ``pkg``'s
     deterministic loop under ``seed``, with ``crashes`` as (node, at_s,
     downtime_s, torn_tail_bytes): each crash and restart at its virtual time,
-    in the order the JAX package's ``chaos.resolve_schedule`` gives them.
-    Returns the stopped fleet and the crash events with the committed
-    height each node had when it went down."""
+    in the order the JAX package's ``chaos.resolve_schedule`` gives them;
+    ``workload(fleet)`` (a coroutine function, as the harness's
+    ``extra_fault``) runs beside them.  Returns the stopped fleet and the
+    crash events with the committed height each node had when it went
+    down."""
     events = sorted([(at, "crash", node, torn) for node, at, _down, torn in crashes]
                     + [(at + down, "restart", node, 0) for node, at, down, _torn in crashes])
 
@@ -506,9 +547,12 @@ def _run_fleet(pkg, n, duration_s, wal_dir, parameters, crashes=(), seed=0, **fl
                 else:
                     await fleet.restart(node)
 
-        task = asyncio.ensure_future(schedule())
+        tasks = [asyncio.ensure_future(schedule())]
+        if workload is not None:
+            tasks.append(asyncio.ensure_future(workload(fleet)))
         await asyncio.sleep(duration_s)
-        task.cancel()
+        for task in tasks:
+            task.cancel()
         await fleet.stop()
         fleet.checker.check()
         return fleet, crash_events
@@ -1004,7 +1048,7 @@ def _storage_in_small(kind, backend=None):
     from mysticeti_tpu_torch.runtime.simulated import run_simulation
     from mysticeti_tpu_torch.validator import _make_verifier
 
-    def make_collector(committee, metrics):
+    def make_collector(committee, authority, metrics):
         if kind == "cpu":
             collector = _make_verifier("cpu", committee, metrics=metrics)
         else:
