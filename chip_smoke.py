@@ -199,13 +199,36 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    rounds (past both boundaries, below its last committed leader) finds
    finalized transactions, each with a certifying block in that leader's
    causal history.
-15. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
+15. Ingress (ingress-10): config 3's 10 validators over the port's
+   ``SimulatedNetwork`` (50-100 ms one way, 1 s leader timeout, step 12's
+   fault injector), each with a synchronous WAL, its own
+   ``_make_verifier("cuda-only")`` on cuda:0 (made and warmed before the
+   launch counts are set to 0) and its ingress plane wired as ``Validator``
+   wires it (an ``IngressPlane`` behind a ``BenchmarkFastPathBlockHandler``
+   and the commit observer, attached to the core, the ``NetworkSyncer`` and
+   the collector, whose ``health_state`` feeds admission), driven for 12
+   virtual s by one closed-loop ``TransactionGenerator`` a node: 1,000
+   transactions of 512 B a second, three times that from 5 s on, the
+   parameters from ``OverloadScenario(...).ingress_parameters()`` (200
+   transactions a block at most, a 4,000-transaction mempool).  Then the
+   same seed over the ``cpu`` kind.  Checks: the committed sequences, the
+   committed transactions, the sheds by reason, every node's shed schedule
+   digest, every generator's stats and the fleet's server- and client-side
+   finality percentiles equal the ``cpu`` run's and ``INGRESS_SEEDED``; on
+   every node offered = admitted + shed, no transaction is committed twice,
+   and shed mode is entered (on some node) only in the 3x step; every
+   node's sampled finality keys are closed on both sides, as many on each;
+   every forged copy is rejected and counted; the verdicts are accounted
+   for as in step 12; the prologue and the keyed kernel launch once a flush
+   and the generic kernel never; the ingress and finality families equal
+   the planes' and the generators' own counts.
+16. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
    workers, 8 iterations, 2 trials and a 30 s budget; its JSON line must
    come from rung 0 with a value above 0.
-Each path of steps 3-14 (the block path and the committee dispatch of step 3
+Each path of steps 3-15 (the block path and the committee dispatch of step 3
 apart) runs with every launch count set to 0 just before it and read just
 after; every kernel must have launched on some path.
-16. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+17. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Every phase runs under ``PYTHONHASHSEED=0`` (``main`` runs the command
@@ -218,7 +241,7 @@ phase fails.
 
 One phase alone: ``python3 -c 'import chip_smoke as c; raise
 SystemExit(c.main(c.receive_only))'`` (likewise ``consensus_only``,
-``net_sync_only``, ``storage_only``, ``epoch_only``, and
+``net_sync_only``, ``storage_only``, ``epoch_only``, ``ingress_only``, and
 ``sharded_only`` for a host with several cards).  Not in the default run:
 ``receive_split`` (where the receive burst's host time goes) and
 ``consensus_trace`` (the card's busy share in step 11, from a
@@ -410,6 +433,85 @@ EPOCH_SEEDED = {
              + ["66954b27a53c5013631d0038d513c5e11c8fda97201d35ee8350066ddacc0a4d"] * 3,
     "planted_held": [217, 217, 217, 217, 130, 217, 217, 217, 217, 217],
     "notes": [2, 2, 2, 2, 2, 2, 2, 2, 2, 2, 0],
+}
+# The ingress phase (ingress-10): config 3's 10 validators over the
+# SimulatedNetwork (50-100 ms one way), with netsync-50's fault injector,
+# each with its ingress plane and one closed-loop load client of the JAX
+# package's overload shape (``tests/test_ingress.py``: 1x, then 3x) at the
+# upstream default transaction size (512 B): the parameters are the port's
+# ``OverloadScenario(**INGRESS_10["scenario"]).ingress_parameters()``.  At
+# ~10 rounds a virtual second, 1x offers ~100 transactions a block, below
+# the ~2,000 tx/s a node that ``max_per_proposal`` lets through; 3x is
+# above it, so the mempool fills and admission must shed.  Cut: blocks carry
+# at most 200 transactions (config 3: 2,000), 12 virtual s.
+INGRESS_10 = {
+    "n": 10, "virtual_s": 12.0, "seed": SEED, "fault_one_in": NETSYNC_FAULT_ONE_IN,
+    "crashes": (),
+    "scenario": {"nodes": 10, "duration_s": 12.0, "base_tps": 1000,
+                 "multiplier_schedule": ((0.0, 1.0), (5.0, 3.0)), "closed_loop": True,
+                 "transaction_size": 512, "max_per_proposal": 200,
+                 "mempool_max_transactions": 4000, "leader_timeout_s": 1.0,
+                 "clients_per_node": 1},
+}
+# What ingress-10 counts at SEED under HASH_SEED (``ingress_counts`` of a
+# ``cpu``-kind run; the card run must count the same).
+INGRESS_SEEDED = {
+    "commits": [125] * 10,
+    "flushes": 9817, "dispatched": 11667, "received": 11896, "fresh": 11778,
+    "to_verify": 11668, "forged": 208, "forged_rejected": 208,
+    "forged_injected": 208, "redelivered": 229, "on_card": 11667,
+    "server_finality": {"p50_s": 1.437494, "p99_s": 1.888546, "samples": 5120, "completed": 12566},
+    "client_finality": {"p50_s": 1.437494, "p99_s": 1.888546, "samples": 5120, "completed": 12566},
+    "shed_by_reason": {"mempool_transactions": 1400},
+    "committed_tx": [203800] * 10,
+    "offered": [24600] * 10,
+    "admitted": [24300, 24400, 24400, 24500, 24500, 24500, 24500, 24500, 24500, 24500],
+    "digest": [
+        "3f98e036e29b4ab7974f866b479c952ae8245c2921ff5e142109f8b5b16ee932",
+        "0016aae0194e05ffc293964001a4f3356ed3f298e9d260ba706155320b0145e0",
+        "0016aae0194e05ffc293964001a4f3356ed3f298e9d260ba706155320b0145e0",
+        "0be804a72c76123ca05109e988366bdd6ca9a601a62cabdfbe257219a7e1c8b8",
+        "0be804a72c76123ca05109e988366bdd6ca9a601a62cabdfbe257219a7e1c8b8",
+        "fc1029d758d739cb07d766e64cfd959dee93713a6d23ee83b9a73345385d5c68",
+        "fc1029d758d739cb07d766e64cfd959dee93713a6d23ee83b9a73345385d5c68",
+        "fc1029d758d739cb07d766e64cfd959dee93713a6d23ee83b9a73345385d5c68",
+        "1a3cd516628d1f05b9f12ab5aa666dba46c0b6f6bd4445acf28138c4b8caee46",
+        "4d05b9241be8f73b53d9e48c9dd759eb56437d120218a60c7ff2257009087690",
+    ],
+    "wal_bytes": [121586607, 121848810, 121847908, 121903845, 121901765, 122057509,
+                  121746234, 121844944, 121691423, 121744122],
+    "generators": [
+        {"submitted": 24600, "accepted": 24300, "shed_observed": 300, "retries": 300,
+         "client_drops": 0, "retry_queue": 0, "client_finality_p50_s": 1.44025,
+         "client_finality_p99_s": 1.867981, "client_finality_samples": 512},
+        {"submitted": 24600, "accepted": 24400, "shed_observed": 200, "retries": 200,
+         "client_drops": 0, "retry_queue": 0, "client_finality_p50_s": 1.389004,
+         "client_finality_p99_s": 1.837709, "client_finality_samples": 512},
+        {"submitted": 24600, "accepted": 24400, "shed_observed": 200, "retries": 200,
+         "client_drops": 0, "retry_queue": 0, "client_finality_p50_s": 1.395376,
+         "client_finality_p99_s": 1.837356, "client_finality_samples": 512},
+        {"submitted": 24600, "accepted": 24500, "shed_observed": 100, "retries": 100,
+         "client_drops": 0, "retry_queue": 0, "client_finality_p50_s": 1.437494,
+         "client_finality_p99_s": 1.925933, "client_finality_samples": 512},
+        {"submitted": 24600, "accepted": 24500, "shed_observed": 100, "retries": 100,
+         "client_drops": 0, "retry_queue": 0, "client_finality_p50_s": 1.444978,
+         "client_finality_p99_s": 1.872811, "client_finality_samples": 512},
+        {"submitted": 24600, "accepted": 24500, "shed_observed": 100, "retries": 100,
+         "client_drops": 0, "retry_queue": 0, "client_finality_p50_s": 1.468663,
+         "client_finality_p99_s": 1.942101, "client_finality_samples": 512},
+        {"submitted": 24600, "accepted": 24500, "shed_observed": 100, "retries": 100,
+         "client_drops": 0, "retry_queue": 0, "client_finality_p50_s": 1.447806,
+         "client_finality_p99_s": 1.789268, "client_finality_samples": 512},
+        {"submitted": 24600, "accepted": 24500, "shed_observed": 100, "retries": 100,
+         "client_drops": 0, "retry_queue": 0, "client_finality_p50_s": 1.406228,
+         "client_finality_p99_s": 1.843702, "client_finality_samples": 512},
+        {"submitted": 24600, "accepted": 24500, "shed_observed": 100, "retries": 100,
+         "client_drops": 0, "retry_queue": 0, "client_finality_p50_s": 1.510483,
+         "client_finality_p99_s": 1.92975, "client_finality_samples": 512},
+        {"submitted": 24600, "accepted": 24500, "shed_observed": 100, "retries": 100,
+         "client_drops": 0, "retry_queue": 0, "client_finality_p50_s": 1.426282,
+         "client_finality_p99_s": 1.851647, "client_finality_samples": 512},
+    ],
 }
 # A run's committed sequences hang on the process's ``bytes`` hash salt (the
 # block fetcher requests missing blocks in a set's order), so ``main`` runs
@@ -2467,6 +2569,13 @@ class SimFleet:
     def wal_path(self, a) -> str:
         return os.path.join(self.tmp_dir, f"wal-{a}")
 
+    def build_node(self, a, network, collector):
+        """Node ``a``'s stack over ``network`` with ``collector`` as its
+        block verifier: ``build_storage_node``."""
+        return build_storage_node(self.committee, self.signers[a], a, self.wal_path(a), network,
+                                  self.parameters, collector, self.metrics[a], self.recorders[a],
+                                  self.observer_class)
+
     def build(self, a):
         """Node ``a``'s next incarnation, booted from its directory."""
 
@@ -2478,10 +2587,7 @@ class SimFleet:
                 pass
 
         collector = self.make_collector(self.committee, a, self.metrics[a])
-        node = build_storage_node(self.committee, self.signers[a], a, self.wal_path(a),
-                                  NodeNetwork(self.sim_net.node_connections[a]), self.parameters,
-                                  collector, self.metrics[a], self.recorders[a],
-                                  self.observer_class)
+        node = self.build_node(a, NodeNetwork(self.sim_net.node_connections[a]), collector)
         node._disseminators = self.watch.disseminators(node)
         self.counter.watch(node)
         direct, loop, flushes = collector._direct, self.loop, self.flushes
@@ -2553,6 +2659,41 @@ class SimFleet:
             if node is not None:
                 self.served[a] += snapshot_served(node)
 
+    def verify_readings(self) -> dict:
+        """What ``forged_checks`` and ``card_checks`` read off the finished
+        fleet: the forged copies injected and in a live or retired node's
+        store, the re-deliveries, the registries' invalid blocks by reason
+        and verified signatures, the flight recorders' signature rejections
+        and drops, the collectors' dispatched lanes and flushes, and the
+        settled receive counts."""
+        metrics, recorders, injector = self.metrics, self.recorders, self.injector
+        nodes = [node for node in [*self.nodes, *self.retired.values()] if node is not None]
+        recorded = [e for r in recorders for e in r.events()
+                    if e["kind"] == "invalid-block" and e.get("reason") == "signature"]
+
+        def total(name):
+            return sum(m.registry.get_sample_value(name) or 0.0 for m in metrics)
+
+        return {
+            "forged_stored": sum(node.core.block_store.block_exists(ref)
+                                 for node in nodes for ref in injector.forged_refs),
+            "forged_injected": len(injector.forged_refs), "redelivered": injector.redelivered,
+            "invalid": {reason: sum(sample.value for m in metrics
+                                    for family in m.mysticeti_invalid_blocks_total.collect()
+                                    for sample in family.samples
+                                    if sample.name.endswith("_total")
+                                    and sample.labels["reason"] == reason)
+                        for reason in ("signature", "structure", "malformed")},
+            "recorded_signature": sum(e.get("count", 1) for e in recorded),
+            "recorder_dropped": sum(r.dropped for r in recorders),
+            "on_backend": sum(sample.value for m in metrics
+                              for family in m.verified_signatures_total.collect()
+                              for sample in family.samples if sample.name.endswith("_total")),
+            "dispatched": total("verify_dispatch_batch_size_sum"),
+            "flushes": total("verify_dispatch_batch_size_count"),
+            **self.counter.settle(),
+        }
+
     def close(self) -> None:
         """Close every last incarnation's WAL writer and block store."""
         for node in [*self.nodes, *self.retired.values()]:
@@ -2591,13 +2732,9 @@ def storage_result(fleet) -> dict:
     from mysticeti_tpu_torch.storage import checkpoint_files
 
     config, nodes, commits, counter = fleet.config, fleet.nodes, fleet.commits, fleet.counter
-    injector, watch, metrics, recorders = fleet.injector, fleet.watch, fleet.metrics, fleet.recorders
+    watch, metrics = fleet.watch, fleet.metrics
     flushes, events, served = fleet.flushes, fleet.events, fleet.served
     n, rejoiner = config["n"], config["rejoiner"]
-
-    def total(name):
-        return sum(m.registry.get_sample_value(name) or 0.0 for m in metrics)
-
     per_node = []
     for a, node in enumerate(nodes):
         lifecycle, writer = node.core.storage, node.core.wal_writer
@@ -2624,37 +2761,19 @@ def storage_result(fleet) -> dict:
     in_catchup = [f for f in rejoined if end is not None and f[1] <= end[1]]
     crashed = {a for a, *_ in config["crashes"]}
     steady = [f for f in flushes if f[0] not in crashed]
-    recorded = [e for r in recorders for e in r.events()
-                if e["kind"] == "invalid-block" and e.get("reason") == "signature"]
     result = {
         "sequences": commits.sequences(n), "adopted": commits.adopted, "nodes": per_node,
         "crashed_at_height": crash[4], "crashed_at_round": crash[5],
-        "forged_stored": sum(node.core.block_store.block_exists(ref)
-                             for node in nodes for ref in injector.forged_refs),
-        "forged_injected": len(injector.forged_refs), "redelivered": injector.redelivered,
         "snapshot_chunks": watch.chunks,
         "snapshot_blocks": len(watch.streamed),
         "snapshot_forged_rejected": int(watch.forged is not None
                                         and watch.forged in counter.forged_rejected_refs),
-        "invalid": {reason: sum(sample.value for m in metrics
-                                for family in m.mysticeti_invalid_blocks_total.collect()
-                                for sample in family.samples
-                                if sample.name.endswith("_total")
-                                and sample.labels["reason"] == reason)
-                    for reason in ("signature", "structure", "malformed")},
-        "recorded_signature": sum(e.get("count", 1) for e in recorded),
-        "recorder_dropped": sum(r.dropped for r in recorders),
-        "on_backend": sum(sample.value for m in metrics
-                          for family in m.verified_signatures_total.collect()
-                          for sample in family.samples if sample.name.endswith("_total")),
-        "dispatched": total("verify_dispatch_batch_size_sum"),
-        "flushes": total("verify_dispatch_batch_size_count"),
         "catchup": {"flushes": len(in_catchup),
                     "lanes": sum(len(f[3]) for f in in_catchup),
                     "virtual_s": end[1] - restart[2] if end else None,
                     "wall_s": end[2] - restart[3] if end else None},
         "steady": {"flushes": len(steady), "lanes": sum(len(f[3]) for f in steady)},
-        **counter.settle(),
+        **fleet.verify_readings(),
     }
     fleet.close()
     return result
@@ -2962,16 +3081,13 @@ def epoch_result(fleet, incarnations, roots, conflicts, planted, oracle) -> dict
     signatures; then every node's WAL is closed."""
     import hashlib
 
-    config, metrics, recorders = fleet.config, fleet.metrics, fleet.recorders
+    config, metrics = fleet.config, fleet.metrics
     last = {inc["authority"]: inc["node"] for inc in incarnations}
 
     def verdicts(m):
         return {sample.labels["result"]: sample.value
                 for family in m.mysticeti_execution_txs_total.collect()
                 for sample in family.samples if sample.name.endswith("_total")}
-
-    def total(name):
-        return sum(m.registry.get_sample_value(name) or 0.0 for m in metrics)
 
     per_node, oracle_s = [], 0.0
     for a in range(config["n"]):
@@ -2993,9 +3109,6 @@ def epoch_result(fleet, incarnations, roots, conflicts, planted, oracle) -> dict
             per_node[-1]["finalization"] = finalization_reading(
                 last[a], fleet.commits.anchors[a], config["oracle_rounds"])
             oracle_s += time.monotonic() - t0
-    recorded = [e for r in recorders for e in r.events()
-                if e["kind"] == "invalid-block" and e.get("reason") == "signature"]
-    nodes = [*fleet.nodes, *fleet.retired.values()]
     result = {
         "sequences": fleet.commits.sequences(config["n"]), "nodes": per_node,
         "incarnations": [{"authority": inc["authority"], "boot_epoch": inc["boot_epoch"],
@@ -3010,25 +3123,7 @@ def epoch_result(fleet, incarnations, roots, conflicts, planted, oracle) -> dict
         "roots": {a: {h: r.hex() for h, r in sorted(mine.items())}
                   for a, mine in sorted(roots.items())},
         "root_conflicts": conflicts, "planted": len(planted), "oracle_s": oracle_s,
-        "forged_stored": sum(node.core.block_store.block_exists(ref)
-                             for node in nodes if node is not None
-                             for ref in fleet.injector.forged_refs),
-        "forged_injected": len(fleet.injector.forged_refs),
-        "redelivered": fleet.injector.redelivered,
-        "invalid": {reason: sum(sample.value for m in metrics
-                                for family in m.mysticeti_invalid_blocks_total.collect()
-                                for sample in family.samples
-                                if sample.name.endswith("_total")
-                                and sample.labels["reason"] == reason)
-                    for reason in ("signature", "structure", "malformed")},
-        "recorded_signature": sum(e.get("count", 1) for e in recorded),
-        "recorder_dropped": sum(r.dropped for r in recorders),
-        "on_backend": sum(sample.value for m in metrics
-                          for family in m.verified_signatures_total.collect()
-                          for sample in family.samples if sample.name.endswith("_total")),
-        "dispatched": total("verify_dispatch_batch_size_sum"),
-        "flushes": total("verify_dispatch_batch_size_count"),
-        **fleet.counter.settle(),
+        **fleet.verify_readings(),
     }
     fleet.close()
     return result
@@ -3225,6 +3320,350 @@ def epoch_phase(kernels):
     return launches, reading
 
 
+def build_ingress_node(committee, signer, authority, wal_path, network, parameters, verifier,
+                       metrics, recorder, observer_class, ingress_parameters):
+    """One validator with its ingress plane, wired as the JAX package's
+    ``Validator`` wires it (without the health probe and the gateway): an
+    ``IngressPlane`` behind a ``BenchmarkFastPathBlockHandler`` and the
+    commit observer, attached to the core, the ``NetworkSyncer`` and
+    ``verifier`` (its ``health_state`` feeds admission), its shed-mode
+    transitions on ``recorder``.  The WAL writes synchronously, as in the
+    JAX package's ``run_overload_sim``: admission reads the WAL backlog,
+    and a drain thread's progress is wall-clock state."""
+    from mysticeti_tpu_torch.block_handler import BenchmarkFastPathBlockHandler
+    from mysticeti_tpu_torch.block_store import BlockStore
+    from mysticeti_tpu_torch.core import Core, CoreOptions
+    from mysticeti_tpu_torch.ingress import IngressPlane
+    from mysticeti_tpu_torch.net_sync import NetworkSyncer
+    from mysticeti_tpu_torch.wal import walf
+
+    writer, reader = walf(wal_path, async_writes=False)
+    recovered, observer_recovered = BlockStore.open(authority, reader, writer, committee,
+                                                    metrics=metrics)
+    plane = IngressPlane(ingress_parameters, authority=authority, metrics=metrics)
+    handler = BenchmarkFastPathBlockHandler(committee, authority, metrics=metrics, ingress=plane)
+    core = Core(block_handler=handler, authority=authority, committee=committee,
+                parameters=parameters, recovered=recovered, wal_writer=writer,
+                options=CoreOptions.test(), signer=signer, metrics=metrics)
+    observer = observer_class(core.block_store, committee, transaction_time=handler.transaction_time,
+                              metrics=metrics, recovered_state=observer_recovered)
+    observer.logged_authority = authority
+    node = NetworkSyncer(core, observer, network, parameters=parameters, block_verifier=verifier,
+                         metrics=metrics, recorder=recorder)
+    plane.recorder = recorder
+    observer.ingress = plane
+    plane.attach(core=core, net_syncer=node, block_verifier=verifier)
+    return node
+
+
+class IngressFleet(SimFleet):
+    """``config``'s fleet (``INGRESS_10``'s shape) as a ``SimFleet`` whose
+    nodes are ``build_ingress_node``'s, each with one closed-loop
+    ``TransactionGenerator`` submitting through its block handler at
+    ``config["scenario"]``'s offered load and schedule, its commit
+    notifications fed back from the plane; the committed transactions are
+    counted a node and a virtual second."""
+
+    def __init__(self, config, tmp_dir, make_collector, parameters, metrics=None) -> None:
+        from mysticeti_tpu_torch.ingress import OverloadScenario
+        from mysticeti_tpu_torch.types import Share
+
+        super().__init__(config, tmp_dir, make_collector, parameters, metrics)
+        n = config["n"]
+        self.scenario = OverloadScenario(seed=config["seed"], **config["scenario"])
+        self.ingress_parameters = self.scenario.ingress_parameters()
+        self.planes, self.generators = [None] * n, [None] * n
+        self.committed = [0] * n
+        self.distinct = [set() for _ in range(n)]  # each transaction's stamp and nonce
+        self.per_second = [[0] * (int(config["virtual_s"]) + 1) for _ in range(n)]
+        self.load_started = None
+        fleet = self
+
+        class Counting(self.observer_class):
+            def handle_commit(self, committed_leaders):
+                committed = super().handle_commit(committed_leaders)
+                a, second = self.logged_authority, int(fleet.loop.time())
+                for commit in committed:
+                    for block in commit.blocks:
+                        for st in block.statements:
+                            if isinstance(st, Share):
+                                fleet.committed[a] += 1
+                                fleet.distinct[a].add(st.transaction[:16])
+                                fleet.per_second[a][second] += 1
+                return committed
+
+        self.observer_class = Counting
+
+    def build_node(self, a, network, collector):
+        from mysticeti_tpu_torch.transactions_generator import TransactionGenerator
+
+        node = build_ingress_node(self.committee, self.signers[a], a, self.wal_path(a), network,
+                                  self.parameters, collector, self.metrics[a], self.recorders[a],
+                                  self.observer_class, self.ingress_parameters)
+        scenario, plane = self.scenario, node.syncer.commit_observer.ingress
+        generator = TransactionGenerator(
+            submit=node.core.block_handler.submit, seed=scenario.seed * 1000 + a * 16,
+            tps=scenario.base_tps, transaction_size=scenario.transaction_size,
+            overload_schedule=list(scenario.multiplier_schedule),
+            closed_loop=scenario.closed_loop,
+            finality_sample_every=self.ingress_parameters.finality_sample_every,
+            metrics=self.metrics[a])
+        plane.add_commit_sink(
+            lambda height, keys, info, g=generator: g.note_commit_notification(keys, info))
+        self.planes[a], self.generators[a] = plane, generator
+        return node
+
+    async def run(self) -> None:
+        """Start every node, then every plane's tick and every generator,
+        as the JAX package's ``run_overload_sim`` does; after
+        ``config["virtual_s"]`` stop the generators, the planes and the
+        nodes."""
+        for a in range(self.config["n"]):
+            await self.build(a).start()
+        await self.sim_net.connect_all()
+        for plane in self.planes:
+            plane.start()
+        self.load_started = self.loop.time()
+        for generator in self.generators:
+            generator.start()
+        await asyncio.sleep(self.config["virtual_s"])
+        for generator in self.generators:
+            generator.stop()
+        for plane in self.planes:
+            plane.stop()
+        for node in self.nodes:
+            await node.stop()
+        self.sim_net.close()
+
+
+def ingress_metrics(m) -> dict:
+    """The ingress and finality families' samples that ``ingress_checks``
+    holds to the planes' and the generators' own counts."""
+    get = m.registry.get_sample_value
+    return {
+        "admitted_total": get("mysticeti_ingress_admitted_total") or 0.0,
+        "shed_total": {sample.labels["reason"]: sample.value
+                       for family in m.mysticeti_ingress_shed_total.collect()
+                       for sample in family.samples if sample.name.endswith("_total")},
+        "admitted_rate": get("mysticeti_ingress_admitted_rate"),
+        "shed_mode": get("mysticeti_ingress_shed_mode"),
+        "finality_total_count": get("mysticeti_e2e_finality_seconds_count", {"phase": "total"}),
+        "client_p50_s": get("mysticeti_client_finality_p50_seconds"),
+        "client_p99_s": get("mysticeti_client_finality_p99_seconds"),
+    }
+
+
+def ingress_result(fleet) -> dict:
+    """What the ingress checks and readings read off the finished fleet:
+    the committed sequences; each node's offered, admitted and shed
+    transactions (by reason), shed schedule digest, shed-mode transitions,
+    committed transactions (all, distinct, a virtual second), generator
+    stats, finality on each side, WAL bytes, the controller's rate and mode
+    and the ingress and finality families' samples; the fleet-merged
+    finality percentiles; and ``verify_readings``; then every node's WAL is
+    closed."""
+    from mysticeti_tpu_torch.ingress import _merged_finality
+
+    per_node = []
+    for a, (node, plane, generator) in enumerate(zip(fleet.nodes, fleet.planes, fleet.generators)):
+        per_node.append({
+            "offered": generator.submitted, "admitted": plane.admitted_total,
+            "shed": dict(sorted(plane.shed_by_reason.items())),
+            "digest": plane.shed_schedule_digest(),
+            "first_shed_t": plane.shed_log[0]["t"] if plane.shed_log else None,
+            "shed_mode": [(e["t"], e["on"]) for e in fleet.recorders[a].events()
+                          if e["kind"] == "shed-mode"],
+            "committed_tx": fleet.committed[a], "distinct_tx": len(fleet.distinct[a]),
+            "per_second": fleet.per_second[a],
+            "generator": generator.stats(),
+            "server_finality": plane.finality.state(),
+            "client_finality": {"completed": generator.finality.completed,
+                                "expired": generator.finality.expired},
+            "wal_bytes": node.core.wal_writer.position(),
+            "rate": round(plane.controller.rate, 3), "shed_mode_now": plane.controller.shed_mode,
+            "metrics": ingress_metrics(fleet.metrics[a]),
+        })
+    result = {
+        "sequences": fleet.commits.sequences(fleet.config["n"]), "nodes": per_node,
+        "load_started": fleet.load_started,
+        "server_finality": _merged_finality([p.finality for p in fleet.planes]),
+        "client_finality": _merged_finality([g.finality for g in fleet.generators]),
+        **fleet.verify_readings(),
+    }
+    fleet.close()
+    return result
+
+
+async def ingress_sim(config, tmp_dir, make_collector, metrics):
+    """``config``'s fleet as an ``IngressFleet``: no crashes, no
+    reconfiguration, no execution, the scenario's leader timeout.  Returns
+    ``ingress_result``."""
+    from mysticeti_tpu_torch.config import Parameters
+
+    parameters = Parameters(leader_timeout_s=config["scenario"]["leader_timeout_s"])
+    fleet = IngressFleet(config, tmp_dir, make_collector, parameters, metrics)
+    await fleet.run()
+    return ingress_result(fleet)
+
+
+def ingress_run(kind, config, on_ready=None) -> dict:
+    """One seeded simulation of ``ingress_sim`` in a temporary directory,
+    every node with its own verifier of ``kind`` (``_make_verifier``),
+    made and warmed (for the accelerator kinds the kernels' first launches
+    and the combs' upload) before ``on_ready()`` and the run.  Returns the
+    result with its wall seconds and the verifiers' warm-up seconds."""
+    import tempfile
+
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.metrics import Metrics
+    from mysticeti_tpu_torch.runtime.simulated import run_simulation
+    from mysticeti_tpu_torch.validator import _make_verifier
+
+    n = config["n"]
+    metrics = [Metrics() for _ in range(n)]
+    t0 = time.monotonic()
+    committee = Committee.new_for_benchmarks(n)
+    verifiers = [_make_verifier(kind, committee, metrics=metrics[a]) for a in range(n)]
+    for verifier in verifiers:
+        check(verifier.ready.wait(600), f"a {kind} verifier did not warm up")
+    warmup_s = time.monotonic() - t0
+    if on_ready is not None:
+        on_ready()
+    with tempfile.TemporaryDirectory(prefix="ingress-") as d:
+        t0 = time.monotonic()
+        result = run_simulation(
+            ingress_sim(config, d, lambda _committee, a, _metrics: verifiers[a], metrics),
+            seed=config["seed"])
+        result["wall_s"] = time.monotonic() - t0
+    result["warmup_s"] = warmup_s
+    return result
+
+
+def ingress_counts(result) -> dict:
+    """The values a seeded run must reproduce on any host and backend, all
+    of them virtual-time quantities."""
+    keys = ("received", "fresh", "to_verify", "forged", "forged_rejected", "forged_injected",
+            "redelivered", "on_card", "server_finality", "client_finality")
+    nodes = result["nodes"]
+    shed = {}
+    for node in nodes:
+        for reason, count in node["shed"].items():
+            shed[reason] = shed.get(reason, 0) + count
+    return {"commits": [len(seq) for seq in result["sequences"]],
+            "flushes": int(result["flushes"]), "dispatched": int(result["dispatched"]),
+            **{key: result[key] for key in keys},
+            "shed_by_reason": dict(sorted(shed.items())),
+            **{key: [node[key] for node in nodes] for key in (
+                "committed_tx", "offered", "admitted", "digest", "wal_bytes")},
+            "generators": [node["generator"] for node in nodes]}
+
+
+def ingress_checks(card, cpu, config) -> dict:
+    """The ingress phase's checks 1-3 and 5 on the card run and the ``cpu``
+    run of the same seed (see the module docstring, step 15); returns the
+    readings."""
+    n, nodes = config["n"], card["nodes"]
+    # 1: the runs agree on every virtual-time quantity.
+    commits = commit_checks(card["sequences"], 1)
+    check(card["sequences"] == cpu["sequences"], "the committed sequences differ from the cpu run's")
+    check(ingress_counts(card) == ingress_counts(cpu),
+          f"the counts differ from the cpu run's: {ingress_counts(card)} vs {ingress_counts(cpu)}")
+    # 2: accounting, no transaction committed twice, shed mode in the 3x step.
+    step = card["load_started"] + max(t for t, mult in config["scenario"]["multiplier_schedule"]
+                                      if mult > 1.0)
+    for a, node in enumerate(nodes):
+        check(node["offered"] == node["admitted"] + sum(node["shed"].values()),
+              f"node {a} offered {node['offered']}, admitted {node['admitted']}, shed "
+              f"{node['shed']}")
+        check(node["committed_tx"] == node["distinct_tx"] > 0,
+              f"node {a} committed {node['committed_tx']} transactions, "
+              f"{node['distinct_tx']} distinct")
+        check(all(t >= step for t, on in node["shed_mode"] if on),
+              f"node {a} entered shed mode before the overload step at {step}: "
+              f"{node['shed_mode']}")
+    entered = [a for a, node in enumerate(nodes) if any(on for _t, on in node["shed_mode"])]
+    check(entered, "no node entered shed mode")
+    # 3: sampled finality keys closed on both sides.
+    for a, node in enumerate(nodes):
+        server, client = node["server_finality"], node["client_finality"]
+        check(server["completed"] == client["completed"] > 0,
+              f"node {a} closed {server['completed']} sampled keys on the server side and "
+              f"{client['completed']} on the client side")
+    check(card["server_finality"]["samples"] > 0 and card["client_finality"]["samples"] > 0,
+          f"no finality samples: {card['server_finality']}, {card['client_finality']}")
+    # 5: the new families equal the planes' and the generators' counts.
+    for a, node in enumerate(nodes):
+        m = node["metrics"]
+        check(m["admitted_total"] == node["admitted"]
+              and m["shed_total"] == {r: float(c) for r, c in node["shed"].items()}
+              and m["finality_total_count"] == node["server_finality"]["completed"]
+              and m["admitted_rate"] == node["rate"]
+              and m["shed_mode"] == float(node["shed_mode_now"])
+              and (round(m["client_p50_s"], 6), round(m["client_p99_s"], 6))
+              == (node["generator"]["client_finality_p50_s"],
+                  node["generator"]["client_finality_p99_s"]),
+              f"node {a}'s ingress and finality families {m} differ from its plane's counts")
+    virtual_s = config["virtual_s"]
+    return {
+        "nodes": n, "virtual_s": virtual_s, "seed": config["seed"], "commits": commits,
+        "offered": [node["offered"] for node in nodes],
+        "admitted": [node["admitted"] for node in nodes],
+        "shed": [node["shed"] for node in nodes],
+        "committed_tx": [node["committed_tx"] for node in nodes],
+        "committed_tx_s": [round(node["committed_tx"] / virtual_s, 3) for node in nodes],
+        "committed_by_second": nodes[0]["per_second"],
+        "shed_mode_entered": {a: nodes[a]["shed_mode"][0][0] for a in entered},
+        "first_shed_t": [node["first_shed_t"] for node in nodes],
+        "server_finality": card["server_finality"], "client_finality": card["client_finality"],
+        "wal_bytes": sum(node["wal_bytes"] for node in nodes),
+        "forged": card["forged"], "forged_injected": card["forged_injected"],
+        "forged_rejected": card["forged_rejected"],
+        "counts": ingress_counts(card),
+    }
+
+
+def ingress_phase(kernels):
+    """ingress-10 over the card (each node its own
+    ``_make_verifier("cuda-only")`` on cuda:0) and over the ``cpu`` kind,
+    with the checks of the module docstring, step 15.  Returns the launches
+    and the readings."""
+    config = INGRESS_10
+    card = ingress_run("cuda-only", config, on_ready=lambda: [k.reset_counts() for k in kernels])
+    launches = {k.name: k.launches for k in kernels}
+    cpu = ingress_run("cpu", config)
+    reading = ingress_checks(card, cpu, config)
+    check(reading["counts"] == INGRESS_SEEDED,
+          f"the counts differ from the seeded ones: {reading['counts']}")
+    # 4: on the card.
+    forged_checks(card)
+    check(launches["verify_generic"] == 0, f"the ingress path launched the generic kernel: {launches}")
+    check(launches["prologue"] == launches["verify_keyed"] == card["flushes"] > 0,
+          f"the ingress path's launches {launches} are not one prologue and one keyed launch a "
+          f"flush ({card['flushes']:.0f})")
+    accounted = card_checks(card)
+    reading.update({"card_wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"],
+                    "warmup_s": card["warmup_s"], "signatures_on_card": accounted["on_backend"],
+                    "flushes": accounted["flushes"],
+                    "mean_live_lanes": accounted["mean_live_lanes"],
+                    "open_at_stop": accounted["open_at_stop"],
+                    "launches": launches, "card": card_line()})
+    print(f"ingress ingress-10: {config['n']} validators, {config['virtual_s']} virtual s, "
+          f"{config['scenario']['base_tps']} tx/s of {config['scenario']['transaction_size']} B a "
+          f"node, schedule {config['scenario']['multiplier_schedule']}; commits a node "
+          f"{reading['commits']}, prefixes agree and equal the cpu run's and the seeded counts; "
+          f"offered {reading['offered']}, admitted {reading['admitted']}, shed {reading['shed']}; "
+          f"committed tx {reading['committed_tx']} ({reading['committed_tx_s']} a virtual s; "
+          f"node 0 by virtual second {reading['committed_by_second']}); shed mode entered "
+          f"{reading['shed_mode_entered']}; finality server {reading['server_finality']}, client "
+          f"{reading['client_finality']} (virtual s); {card['forged']} forged copies verified "
+          f"({card['forged_injected']} injected), all rejected and counted; "
+          f"{accounted['flushes']:.0f} flushes, {accounted['mean_live_lanes']:.2f} live lanes a "
+          f"flush; WAL bytes {reading['wal_bytes']}; {card['wall_s']:.1f} s on the card (the "
+          f"verifiers warmed in {card['warmup_s']:.1f} s), {cpu['wall_s']:.1f} s on the cpu kind; "
+          f"launches {launches} [{reading['card']}]", flush=True)
+    return launches, reading
+
+
 def bench_phase() -> dict:
     """``python -m mysticeti_tpu_torch.bench`` as a child, on BENCH_ENV."""
     env = dict(os.environ, **BENCH_ENV)
@@ -3305,6 +3744,7 @@ def run() -> int:
     by_path["net_sync"], by_path["net_sync_tcp"], net_sync = net_sync_phase(K.KERNELS)
     by_path["storage"], storage = storage_phase(K.KERNELS)
     by_path["epoch"], epoch = epoch_phase(K.KERNELS)
+    by_path["ingress"], ingress = ingress_phase(K.KERNELS)
     bench = bench_phase()
     # The block path's flushes take the keyed kernel, one key per lane, and
     # never the generic one; the committee dispatch's 8 stragglers take the
@@ -3341,7 +3781,7 @@ def run() -> int:
                       "flat_vs_26col": layout, "sharded": sharded, "hybrid": hybrid,
                       "service": service, "receive": receive, "consensus": consensus,
                       "net_sync": net_sync, "storage": storage, "epoch": epoch,
-                      "metrics": metrics_reading,
+                      "ingress": ingress, "metrics": metrics_reading,
                       "bench": bench}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3464,6 +3904,24 @@ def epoch_only() -> int:
     K.build_all()
     launches, reading = epoch_phase(K.KERNELS)
     print(json.dumps({"epoch": reading, "launches": launches}, default=str), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def ingress_only() -> int:
+    """The ingress phase alone: ``python3 -c 'import chip_smoke as c;
+    raise SystemExit(c.main(c.ingress_only))'``."""
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    launches, reading = ingress_phase(K.KERNELS)
+    print(json.dumps({"ingress": reading, "launches": launches}, default=str), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1526,3 +1526,19 @@ class BatchedSignatureVerifier(BlockVerifier):
         await self._flush()
         while self._pending:
             await self._flush()
+
+    def health_state(self) -> dict:
+        """Verifier-path state for the fleet health plane and the ingress
+        plane's admission (``verify_occupancy``): breaker, routing pin, and
+        staged-pipeline occupancy in one cheap read (unlocked snapshots —
+        the readers tolerate a torn read)."""
+        backend = self.verifier
+        return {
+            "breaker_open": bool(getattr(backend, "breaker_open", False)),
+            "pinned_backend": getattr(backend, "pinned_backend", None),
+            "backend": getattr(
+                backend, "backend_label", type(backend).__name__
+            ),
+            "pipeline_inflight": self.pipeline.inflight,
+            "pipeline_depth": self.pipeline.depth(),
+        }

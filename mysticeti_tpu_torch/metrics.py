@@ -13,16 +13,17 @@ decision ledger, commit observer, block handlers, with the exact-percentile
 channels and ``observe_latency_batch``), the network plane (the
 core-task dispatcher's queue, the synchronizer's fetches and frame cache,
 ``NetworkSyncer``'s receive path and WAL gauges), the storage lifecycle
-(``wal_reclaimed_bytes_total``, ``checkpoint_last_commit_index``), and the
+(``wal_reclaimed_bytes_total``, ``checkpoint_last_commit_index``), the
 reconfiguration and execution planes (``mysticeti_epoch*``,
-``mysticeti_committee_digest_info``, ``mysticeti_execution_*``).  Every
+``mysticeti_committee_digest_info``, ``mysticeti_execution_*``), and the
+ingress and finality planes (``mysticeti_ingress_*``,
+``mysticeti_e2e_finality_*``, ``mysticeti_client_finality_*``).  Every
 family keeps the JAX package's name, help, labels and buckets, except the
 JAX compile and compile-cache families, which become the kernels' build
 families (``mysticeti_cuda_build*``, see
 ``ops.ed25519.install_device_attribution``).
-The health, host-attribution, profiling, ingress-plane and finality
-families, and the flight recorder's dump counter, wait for the modules that
-write them.
+The health, host-attribution and profiling families, and the flight
+recorder's dump counter, wait for the modules that write them.
 """
 from __future__ import annotations
 
@@ -492,6 +493,34 @@ class Metrics:
             "(re-queued for the NEXT proposal — deferred, not lost)",
             labels=("reason",),
         )
+        self.mysticeti_ingress_admitted_total = counter(
+            "mysticeti_ingress_admitted_total",
+            "transactions admitted into the mempool (offered = admitted + "
+            "shed, per the typed SubmitResult contract)",
+        )
+        self.mysticeti_ingress_admitted_rate = gauge(
+            "mysticeti_ingress_admitted_rate",
+            "current AIMD-admitted transaction rate ceiling (tx/s) — cut "
+            "multiplicatively on core congestion, raised additively while "
+            "healthy",
+        )
+        self.mysticeti_ingress_mempool_transactions = gauge(
+            "mysticeti_ingress_mempool_transactions",
+            "transactions pending in the bounded ingress mempool",
+        )
+        self.mysticeti_ingress_mempool_bytes = gauge(
+            "mysticeti_ingress_mempool_bytes",
+            "bytes pending in the bounded ingress mempool",
+        )
+        self.mysticeti_ingress_shed_mode = gauge(
+            "mysticeti_ingress_shed_mode",
+            "1 while the admission controller is in shed mode (congestion "
+            "detected; transitions land in the flight recorder)",
+        )
+        self.mysticeti_ingress_gateway_clients = gauge(
+            "mysticeti_ingress_gateway_clients",
+            "live client connections on the ingress gateway listener",
+        )
         self.mysticeti_transaction_dedup_total = counter(
             "mysticeti_transaction_dedup_total",
             "duplicate/unknown transaction observations in the fast-path "
@@ -548,6 +577,45 @@ class Metrics:
         # Utilization timers (metrics.rs:615-666).
         self.utilization_timer_us = counter(
             "utilization_timer", "busy time per section, us", labels=("proc",)
+        )
+
+        # Client-perceived finality SLI plane (finality.py): the gateway's
+        # 16-byte ingress keys joined across the transaction lifecycle.
+        self.mysticeti_e2e_finality_seconds = histogram(
+            "mysticeti_e2e_finality_seconds",
+            "phase-split end-to-end finality latency for count-sampled "
+            "ingress keys: admission (submit -> mempool accept), proposal "
+            "(accept -> drained into a block proposal), commit (proposal -> "
+            "leader sequence commit), finalize (commit -> observer "
+            "finalized), execute (finalized -> execution state machine "
+            "folded the commit), notify (finalized/executed -> gateway "
+            "notification queued), total (submit -> finalized, or submit -> "
+            "EXECUTED when the execution plane is on)",
+            labels=("phase",),
+            buckets=[0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+                     5.0, 10.0, 30.0],
+        )
+        self.mysticeti_e2e_finality_p50_seconds = gauge(
+            "mysticeti_e2e_finality_p50_seconds",
+            "rolling p50 of sampled submit -> finalized latency (exact over "
+            "the finality tracker's recent-sample window; feeds fleetmon)",
+        )
+        self.mysticeti_e2e_finality_p99_seconds = gauge(
+            "mysticeti_e2e_finality_p99_seconds",
+            "rolling p99 of sampled submit -> finalized latency — the "
+            "finality-p99 SLO watchdog input and the fleetmon readiness "
+            "gate column",
+        )
+        self.mysticeti_client_finality_p50_seconds = gauge(
+            "mysticeti_client_finality_p50_seconds",
+            "rolling p50 of CLIENT-observed submit -> commit-notification "
+            "latency from closed-loop generators (cross-checks the "
+            "server-side series in one artifact)",
+        )
+        self.mysticeti_client_finality_p99_seconds = gauge(
+            "mysticeti_client_finality_p99_seconds",
+            "rolling p99 of CLIENT-observed submit -> commit-notification "
+            "latency from closed-loop generators",
         )
 
         # Exact-percentile channels (stat.rs).  Their periodic reporter

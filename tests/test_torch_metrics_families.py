@@ -137,18 +137,21 @@ def test_a_consensus_round_with_metrics_records_what_the_jax_package_records(tmp
         assert getattr(port_metrics, channel).count == getattr(jax_metrics, channel).count > 0
 
 
+def _is_metrics(node, aliases=()):
+    return ((isinstance(node, ast.Name) and node.id in ("metrics", "_metrics", *aliases))
+            or (isinstance(node, ast.Attribute) and node.attr in ("metrics", "_metrics")))
+
+
 def _metric_reads(path):
     """``metrics.x`` / ``self.metrics.x`` / ``self._metrics.x`` reads in a
-    source file (comments and strings are not attribute reads)."""
-    names = set()
-    for node in ast.walk(ast.parse(path.read_text())):
-        if not isinstance(node, ast.Attribute):
-            continue
-        owner = node.value
-        if ((isinstance(owner, ast.Name) and owner.id in ("metrics", "_metrics"))
-                or (isinstance(owner, ast.Attribute) and owner.attr in ("metrics", "_metrics"))):
-            names.add(node.attr)
-    return names
+    source file, and ``m.x`` where the file binds ``m = self.metrics``
+    (comments and strings are not attribute reads)."""
+    tree = ast.parse(path.read_text())
+    aliases = {target.id for node in ast.walk(tree) if isinstance(node, ast.Assign)
+               and _is_metrics(node.value) for target in node.targets
+               if isinstance(target, ast.Name)}
+    return {node.attr for node in ast.walk(tree)
+            if isinstance(node, ast.Attribute) and _is_metrics(node.value, aliases)}
 
 
 def test_every_metric_the_port_reads_resolves_on_Metrics():
@@ -161,13 +164,25 @@ def test_every_metric_the_port_reads_resolves_on_Metrics():
             reads.setdefault(name, []).append(str(path.relative_to(ROOT)))
     missing = {name: where for name, where in reads.items() if not hasattr(metrics, name)}
     assert not missing, missing
-    # The walk sees the families of the consensus core, the network plane
-    # and the storage lifecycle.
+    # The walk sees the families of the consensus core, the network plane,
+    # the storage lifecycle and the ingress and finality planes.
     assert {"quorum_receive_latency", "threshold_clock_round", "committed_leaders_total",
             "blocks_suspended", "mysticeti_invalid_blocks_total", "core_lock_enqueued",
             "dissemination_encode_reuse_total", "wal_size_bytes",
             "observe_latency_batch", "wal_segments", "wal_reclaimed_bytes_total",
             "checkpoint_last_commit_index", "crash_recovery_total"} <= set(reads)
+    ingress_families = {
+        "mysticeti_ingress_admitted_total", "mysticeti_ingress_admitted_rate",
+        "mysticeti_ingress_mempool_transactions", "mysticeti_ingress_mempool_bytes",
+        "mysticeti_ingress_shed_mode", "mysticeti_ingress_gateway_clients",
+        "mysticeti_ingress_shed_total", "mysticeti_e2e_finality_seconds",
+        "mysticeti_e2e_finality_p50_seconds", "mysticeti_e2e_finality_p99_seconds",
+        "mysticeti_client_finality_p50_seconds", "mysticeti_client_finality_p99_seconds"}
+    assert ingress_families <= set(reads)
+    assert {"mysticeti_tpu_torch/ingress.py", "mysticeti_tpu_torch/finality.py",
+            "mysticeti_tpu_torch/transactions_generator.py"} == {
+        where for name in ingress_families - {"mysticeti_ingress_shed_total"}
+        for where in reads[name]}
 
 
 def test_each_family_equals_the_jax_packages():
