@@ -222,13 +222,57 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    for as in step 12; the prologue and the keyed kernel launch once a flush
    and the generic kernel never; the ingress and finality families equal
    the planes' and the generators' own counts.
-16. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
+16. Health (the observability plane).  health-tcp-10: config 3's 10
+   validators, each built as in step 15 (``build_ingress_node``) with its
+   own ``Metrics``, its own ``_make_verifier("cuda-only")`` and one
+   closed-loop ``TransactionGenerator`` at 1,000 transactions of 512 B a
+   second, over the port's ``TcpNetwork`` on 127.0.0.1 for 10 wall s, with
+   step 12's forged copies; on every node a started ``HostMonitor`` (50 ms
+   blocking threshold) as the dispatcher's ``blocking_monitor``, a
+   ``HealthProbe`` (the JAX package's ``Validator`` SLOs) attached to the
+   core, the syncer, the collector, the observer, the ingress plane, the
+   host monitor and the node's flight recorder, sampling every second and
+   fed the commit critical path from an installed ``SpanTracer``, and a
+   ``serve_metrics`` endpoint with ``/health`` and
+   ``/debug/flight-recorder``; one process-wide ``SamplingProfiler`` and
+   ``SubsystemAccountant`` (started through ``MYSTICETI_PROFILE``) bound to
+   every node's ``Metrics``.  At the end each node is scraped over HTTP
+   (``/health``, ``/metrics``, ``/debug/flight-recorder``) and the scrapes
+   go through ``cluster_snapshot_from_texts``.  Then the same over the
+   ``cpu`` kind.  Checks, each run: step 12's commits and forged copies and
+   the card accounting; every ``/health`` body parses (200 when ok, 503
+   when degraded), names the run's backend, a breaker never open, loop-lag
+   samples and an ingress block; every alert's stage is its kind's; every
+   flight-recorder dump parses, is its node's and holds events; the
+   cluster snapshot reaches every node; every sampled tick resolves to a
+   registered subsystem and none holding a port frame lands in "other";
+   on the card, ticks of ``verifier-pack``; the keyed kernel launched and
+   the generic one did not.  Alerts are printed, not failed: ten nodes
+   share one loop and one interpreter lock.  Prints the CPU seconds by
+   subsystem and thread class, the convoy ratio, the "other" share by leaf
+   frame, loop lag p50 / p99, blocking calls by site, the critical path's
+   top 5 and the collectors' stage seconds.  health-sim-10: step 13's node
+   shape (no GC) under the deterministic loop for 12 virtual s, node 3
+   crashed at 3 s and rebooted from its WAL at 8 s, every incarnation its
+   own verifier; each authority one ``HealthProbe`` (authority-lag SLO of 5
+   rounds, its recorder dumping on alerts) that outlives restarts, attached
+   with a ``HostMonitor`` to every incarnation and detached at the crash; a
+   ``FleetHealthMonitor`` ticking every virtual second.  Then the ``cpu``
+   kind.  Checks: node 3 reads down in every tick of its outage; every
+   other node raises ``authority-lag`` naming node 3 at stage ``receive``
+   during it; every host block is all-zero; the alert dumps on disk equal
+   the recorders' ledgers and ``flight_recorder_dumps_total``, one an
+   alerting recorder (debounced); the timeline (``HEALTH_STRIPPED`` keys
+   stripped) and the alert stream are byte-equal to the ``cpu`` run's and
+   their digests and counts equal ``HEALTH_SEEDED``; forged copies and the
+   card accounting as in step 13; prologue = keyed = flushes, generic 0.
+17. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
    workers, 8 iterations, 2 trials and a 30 s budget; its JSON line must
    come from rung 0 with a value above 0.
-Each path of steps 3-15 (the block path and the committee dispatch of step 3
+Each path of steps 3-16 (the block path and the committee dispatch of step 3
 apart) runs with every launch count set to 0 just before it and read just
 after; every kernel must have launched on some path.
-17. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+18. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Every phase runs under ``PYTHONHASHSEED=0`` (``main`` runs the command
@@ -241,10 +285,10 @@ phase fails.
 
 One phase alone: ``python3 -c 'import chip_smoke as c; raise
 SystemExit(c.main(c.receive_only))'`` (likewise ``consensus_only``,
-``net_sync_only``, ``storage_only``, ``epoch_only``, ``ingress_only``, and
-``sharded_only`` for a host with several cards).  Not in the default run:
-``receive_split`` (where the receive burst's host time goes) and
-``consensus_trace`` (the card's busy share in step 11, from a
+``net_sync_only``, ``storage_only``, ``epoch_only``, ``ingress_only``,
+``health_only``, and ``sharded_only`` for a host with several cards).  Not
+in the default run: ``receive_split`` (where the receive burst's host time
+goes) and ``consensus_trace`` (the card's busy share in step 11, from a
 ``torch.profiler`` trace).
 
 ``python3 chip_smoke.py --times NAMES [CHECKOUT]`` runs only the readings of
@@ -512,6 +556,49 @@ INGRESS_SEEDED = {
          "client_drops": 0, "retry_queue": 0, "client_finality_p50_s": 1.426282,
          "client_finality_p99_s": 1.851647, "client_finality_samples": 512},
     ],
+}
+# The health phase.  health-tcp-10: config 3's 10 validators with their
+# ingress planes over loopback TCP (netsync-tcp-10's start, window, forged
+# copies and minimum commits), one closed-loop client a node at ingress-10's
+# 1x (1,000 tx/s of 512 B, no overload step), the observability plane on
+# every node with the JAX package's ``Validator`` SLOs (``slo``), probes
+# sampling every second, a 50 ms blocking-call threshold.
+HEALTH_TCP_10 = {
+    "n": NETSYNC_TCP_NODES, "wall_s": NETSYNC_TCP_WALL_S, "seed": SEED,
+    "fault_one_in": NETSYNC_FAULT_ONE_IN, "min_commits": NETSYNC_TCP_MIN_COMMITS,
+    "probe_s": 1.0, "blocking_ms": 50.0,
+    "scenario": dict(INGRESS_10["scenario"], duration_s=NETSYNC_TCP_WALL_S,
+                     multiplier_schedule=((0.0, 1.0),)),
+    "slo": {"max_round_stall_s": 30.0, "max_authority_lag_rounds": 100,
+            "max_breaker_open_fraction": 0.5, "max_loop_lag_s": 0.25,
+            "max_blocking_call_ms": 50.0, "max_finality_p99_s": 5.0},
+}
+# health-sim-10: storage-10's node shape (no GC) over the SimulatedNetwork
+# with netsync-50's injector, node 3 crashed at 3 virtual s and rebooted from
+# its WAL 5 s later, 12 virtual s, a fleet monitor tick a virtual second.
+# The authority-lag SLO (``lag_rounds``) was chosen from a ``cpu``-kind run:
+# the fleet reaches round 81 in 11 virtual s (23 at the crash), no live peer
+# is ever seen more than 2 rounds behind, and the crashed node is 6 behind
+# at the first tick after its crash, so 5 names it there and no live one.
+# Crashes are (node, at_s, downtime_s, torn bytes).
+HEALTH_SIM_10 = {
+    "n": 10, "virtual_s": 12.0, "seed": SEED, "fault_one_in": NETSYNC_FAULT_ONE_IN,
+    "storage": {"segment_bytes": 16 * 1024, "checkpoint_interval": 5},
+    "crashes": ((3, 3.0, 5.0, 0),), "down": 3, "tick_s": 1.0, "lag_rounds": 5,
+}
+# The verifier block's keys stripped from health-sim-10's timeline before it
+# is compared: the backend's label differs by kind, and the pipeline depth
+# comes from the collector's EMA, which the simulator leaves unseeded.
+HEALTH_STRIPPED = ("backend", "pipeline_depth")
+# What health-sim-10 counts at SEED under HASH_SEED (``health_sim_counts`` of
+# a ``cpu``-kind run; the card run must count the same).
+HEALTH_SEEDED = {
+    "timeline_sha256": "ff6b968b46757a4b7ad6a52b7e9591418af4807e32420e30a224131ffe51a4b9",
+    "alerts_sha256": "3a3b394781ec5115d7828111f16d1eaa0fc6139cdf1aafd37c5e1e01b91292ca",
+    "ticks": 11, "alerts": 9, "commits": [87] * 10,
+    "flushes": 6839, "dispatched": 8193, "received": 8434, "fresh": 8274, "to_verify": 8196,
+    "forged": 136, "forged_rejected": 136, "forged_injected": 137, "redelivered": 167,
+    "on_card": 8193, "dumps": [1, 1, 1, 0, 1, 1, 1, 1, 1, 1],
 }
 # A run's committed sequences hang on the process's ``bytes`` hash salt (the
 # block fetcher requests missing blocks in a set's order), so ``main`` runs
@@ -2049,16 +2136,33 @@ def build_netsync_node(committee, signer, authority, tmp_dir, network, parameter
                          metrics=metrics, recorder=FlightRecorder(authority=authority))
 
 
+def registries(metrics) -> list:
+    """``metrics`` as a list: one shared ``Metrics``, or one a node."""
+    return metrics if isinstance(metrics, list) else [metrics]
+
+
+def summed_sample(metrics, name, labels=None):
+    """``name``'s sample summed over ``registries(metrics)``; None where no
+    registry holds it."""
+    values = [m.registry.get_sample_value(name, labels) for m in registries(metrics)]
+    values = [v for v in values if v is not None]
+    return sum(values) if values else None
+
+
 def netsync_result(nodes, counter, injector, metrics) -> dict:
     """What the net_sync checks and readings read off finished nodes: the
     committed sequences, own blocks, rounds, the forged copies in stores,
     the settled receive counts, the injected faults, the recorders' and the
-    registry's invalid blocks, the signatures verified (every backend) and
+    registries' invalid blocks, the signatures verified (every backend) and
     the collectors' dispatched lanes and flushes, read together with the
     counts, the frame caches' builds and reuses and the core queue's
-    counters; then every node's WAL is closed."""
+    counters; then every node's WAL is closed.  ``metrics`` is the shared
+    ``Metrics`` or a list of them, one a node."""
     forged_refs = injector.forged_refs
-    get = metrics.registry.get_sample_value
+
+    def get(name, labels=None):
+        return summed_sample(metrics, name, labels)
+
     invalid = {reason: sum(get("mysticeti_invalid_blocks_total",
                                {"authority": str(a), "reason": reason}) or 0.0
                            for a in range(len(nodes)))
@@ -2081,7 +2185,8 @@ def netsync_result(nodes, counter, injector, metrics) -> dict:
         "core_lock": {"enqueued": get("core_lock_enqueued_total"),
                       "dequeued": get("core_lock_dequeued_total")},
         "missing_blocks": get("missing_blocks_total"),
-        "on_backend": sum(sample.value for family in metrics.verified_signatures_total.collect()
+        "on_backend": sum(sample.value for m in registries(metrics)
+                          for family in m.verified_signatures_total.collect()
                           for sample in family.samples if sample.name.endswith("_total")),
         "dispatched": get("verify_dispatch_batch_size_sum") or 0.0,
         "flushes": get("verify_dispatch_batch_size_count") or 0.0, **counter.settle(),
@@ -2240,10 +2345,12 @@ def netsync_signatures(metrics, result) -> dict:
 
 
 def stage_seconds(metrics) -> dict:
-    """The collectors' pack, device and fetch stage seconds: sum and count."""
-    get = metrics.registry.get_sample_value
-    return {stage: {"sum_s": get("verify_pipeline_stage_seconds_sum", {"stage": stage}),
-                    "count": get("verify_pipeline_stage_seconds_count", {"stage": stage})}
+    """The collectors' pack, device and fetch stage seconds: sum and count
+    (over a list of ``Metrics`` where each node has its own)."""
+    return {stage: {"sum_s": summed_sample(metrics, "verify_pipeline_stage_seconds_sum",
+                                           {"stage": stage}),
+                    "count": summed_sample(metrics, "verify_pipeline_stage_seconds_count",
+                                           {"stage": stage})}
             for stage in ("pack", "device", "fetch")}
 
 
@@ -2537,10 +2644,11 @@ class SimFleet:
     its active segment, and rebuild it from its directory after the
     downtime; ``config.get("retire", ())`` (at_s, node) stop a node for good
     (its store stays open for the readings at the end).  ``on_build(a,
-    node)`` sees every incarnation before it starts."""
+    node)`` sees every incarnation before it starts, ``on_stop(a, node)``
+    every crash and retirement before the node stops."""
 
     def __init__(self, config, tmp_dir, make_collector, parameters, metrics=None,
-                 on_build=None) -> None:
+                 on_build=None, on_stop=None) -> None:
         from mysticeti_tpu_torch.commit_observer import TestCommitObserver
         from mysticeti_tpu_torch.committee import Committee
         from mysticeti_tpu_torch.flight_recorder import FlightRecorder
@@ -2549,7 +2657,7 @@ class SimFleet:
 
         n = config["n"]
         self.config, self.tmp_dir, self.parameters = config, tmp_dir, parameters
-        self.make_collector, self.on_build = make_collector, on_build
+        self.make_collector, self.on_build, self.on_stop = make_collector, on_build, on_stop
         self.committee = Committee.new_for_benchmarks(n)
         self.signers = Committee.benchmark_signers(n)
         self.loop = asyncio.get_running_loop()
@@ -2628,6 +2736,8 @@ class SimFleet:
                 continue
             self.nodes[a] = None
             self.sim_net.crash(a)
+            if self.on_stop is not None:
+                self.on_stop(a, node)
             await node.stop()
             self.served[a] += snapshot_served(node)
             if kind == "retire":
@@ -3664,6 +3774,608 @@ def ingress_phase(kernels):
     return launches, reading
 
 
+# The health phase (health-tcp-10 and health-sim-10).
+class FanOut:
+    """The same call on every one of ``targets``: the one process-wide
+    accountant writes its families into every node's ``Metrics`` (one
+    sampler sees the whole process, so each node's scrape carries the
+    process's account)."""
+
+    def __init__(self, targets) -> None:
+        self.targets = targets
+
+    def __getattr__(self, name):
+        return FanOut([getattr(t, name) for t in self.targets])
+
+    def labels(self, *values):
+        return FanOut([t.labels(*values) for t in self.targets])
+
+    def inc(self, amount=1.0) -> None:
+        for t in self.targets:
+            t.inc(amount)
+
+    def set(self, value) -> None:
+        for t in self.targets:
+            t.set(value)
+
+
+class OtherTally:
+    """Beside ``accountant``, counts the sampled stacks it charges to
+    "other": by thread class and leaf frame, and how many of them hold a
+    frame of the port (the registry's totality on a live node: none may;
+    a stack of the standard library alone, asyncio's machinery or a worker
+    thread waking the loop, has no port frame to charge)."""
+
+    def __init__(self, accountant) -> None:
+        from collections import Counter
+
+        from mysticeti_tpu_torch.profiling import attribute
+
+        self.by_leaf = Counter()
+        self.with_port_frame = 0
+        ingest = accountant.ingest_census
+
+        def tallied(samples, dt):
+            for thread_class, frames in samples:
+                if attribute(frames) == "other":
+                    leaf = f"{frames[0][0]}:{frames[0][1]}" if frames else "-"
+                    self.by_leaf[f"{thread_class} {leaf}"] += 1
+                    self.with_port_frame += any(in_pkg for _m, _f, in_pkg in frames)
+            ingest(samples, dt)
+
+        accountant.ingest_census = tallied
+
+
+async def http_get(port: int, path: str):
+    """``GET path`` from 127.0.0.1:``port``: the status code and the body."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    writer.write(f"GET {path} HTTP/1.1\r\nHost: localhost\r\n\r\n".encode())
+    await writer.drain()
+    payload = await reader.read()
+    writer.close()
+    head, _, body = payload.partition(b"\r\n\r\n")
+    return int(head.split(b" ", 2)[1]), body
+
+
+def strip_volatile_verifier(timeline) -> list:
+    """``timeline`` (a ``FleetHealthMonitor``'s) without the verifier block's
+    ``HEALTH_STRIPPED`` keys: the backend's label differs by kind, and the
+    pipeline depth comes from an EMA the simulator leaves unseeded."""
+    out = []
+    for entry in timeline:
+        nodes = {}
+        for a, snap in entry["nodes"].items():
+            snap = dict(snap)
+            if "verifier" in snap:
+                snap["verifier"] = {k: v for k, v in snap["verifier"].items()
+                                    if k not in HEALTH_STRIPPED}
+            nodes[a] = snap
+        out.append(dict(entry, nodes=nodes))
+    return out
+
+
+def merged_critical_path(probes, top: int = 5) -> list:
+    """The fleet's (stage, authority) edges that held commits up, summed over
+    every probe's critical-path analyzer, most blocked seconds first."""
+    merged = {}
+    for probe in probes:
+        for row in probe.critical_path.top_blocking(n=1 << 30):
+            slot = merged.setdefault((row["stage"], row["authority"]), [0, 0.0])
+            slot[0] += row["leaders"]
+            slot[1] += row["blocked_s"]
+    ranked = sorted(merged.items(), key=lambda kv: (-kv[1][1], kv[0]))[:top]
+    return [{"stage": stage, "authority": a, "leaders": count, "blocked_s": round(total, 6)}
+            for (stage, a), (count, total) in ranked]
+
+
+async def health_tcp(config, tmp_dir, collectors, metrics, on_ready=None):
+    """``config["n"]`` ingress validators (``build_ingress_node``) of a
+    ``Committee.new_for_benchmarks`` over the port's ``TcpNetwork`` on
+    127.0.0.1, started as ``netsync_tcp`` starts them, node ``a`` verifying
+    through ``collectors[a]`` and recording into ``metrics[a]``; forged
+    copies on one block-carrying send in ``fault_one_in``; one closed-loop
+    ``TransactionGenerator`` a node at ``config["scenario"]``'s load.  On
+    every node the observability plane as the JAX package's ``Validator``
+    wires it: a started ``HostMonitor`` as the dispatcher's
+    ``blocking_monitor``, a ``HealthProbe`` attached to the core, the
+    syncer, the collector, the observer, the ingress plane (which reads it
+    back for admission), the host monitor and the node's flight recorder,
+    sampling every ``probe_s`` and subscribed to the installed
+    ``SpanTracer``'s commit critical path, and a ``serve_metrics`` endpoint
+    with ``/health`` and ``/debug/flight-recorder`` on a port of the
+    kernel's choosing.  The process-wide sampler (``profiling``'s env
+    helpers) covers the window, its accountant bound to every node's
+    ``Metrics``.  After ``config["wall_s"]`` wall seconds each node is
+    scraped over HTTP (``/health``, ``/metrics``, ``/debug/flight-recorder``)
+    before anything stops.  Returns ``netsync_result`` with the scrapes and
+    the plane's readings."""
+    from mysticeti_tpu_torch import profiling, spans
+    from mysticeti_tpu_torch.commit_observer import TestCommitObserver
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.config import Parameters
+    from mysticeti_tpu_torch.flight_recorder import FlightRecorder
+    from mysticeti_tpu_torch.health import HealthProbe, SLOThresholds
+    from mysticeti_tpu_torch.hostattr import HostMonitor
+    from mysticeti_tpu_torch.ingress import OverloadScenario
+    from mysticeti_tpu_torch.metrics import serve_metrics
+    from mysticeti_tpu_torch.network import TcpNetwork
+    from mysticeti_tpu_torch.transactions_generator import TransactionGenerator
+
+    n = config["n"]
+    committee = Committee.new_for_benchmarks(n)
+    signers = Committee.benchmark_signers(n)
+    scenario = OverloadScenario(seed=config["seed"], **config["scenario"])
+    ingress_parameters = scenario.ingress_parameters()
+    parameters = Parameters(leader_timeout_s=scenario.leader_timeout_s)
+    slo = SLOThresholds(**config["slo"])
+    loop = asyncio.get_running_loop()
+    for collector in collectors:  # the accelerator kinds warm up in a thread
+        ready = getattr(collector, "ready", None)
+        if ready is not None:
+            await loop.run_in_executor(None, ready.wait)
+    if on_ready is not None:
+        on_ready()
+    injector = FaultInjector(random.Random(config["seed"]), config["fault_one_in"])
+    counter = ReceiveCounter(injector.forged_refs)
+    observer_class = CommitLog().observer_class(TestCommitObserver)
+    tracer = spans.SpanTracer()
+    previous_tracer = spans.install(tracer)
+    addresses = [("127.0.0.1", 0)] * n
+    nodes, probes, monitors, planes, generators, servers, recorders = [], [], [], [], [], [], []
+    try:
+        for a in range(n):
+            network = await TcpNetwork.start(a, addresses, metrics[a])
+            addresses[a] = ("127.0.0.1", network._server.sockets[0].getsockname()[1])
+            recorder = FlightRecorder(authority=a, metrics=metrics[a])
+            node = build_ingress_node(committee, signers[a], a, os.path.join(tmp_dir, f"wal-{a}"),
+                                      ForgingNetwork(network, injector), parameters,
+                                      collectors[a], metrics[a], recorder, observer_class,
+                                      ingress_parameters)
+            node.syncer.commit_observer.logged_authority = a
+            counter.watch(node)
+            monitor = HostMonitor(metrics=metrics[a], recorder=recorder,
+                                  blocking_threshold_ms=config["blocking_ms"])
+            node.dispatcher.blocking_monitor = monitor
+            plane = node.syncer.commit_observer.ingress
+            probe = HealthProbe(a, n, metrics=metrics[a], slo=slo, recorder=recorder)
+            probe.attach(core=node.core, net_syncer=node, block_verifier=collectors[a],
+                         commit_observer=node.syncer.commit_observer, ingress=plane,
+                         host_monitor=monitor)
+            probe.attach_critical_path(tracer)
+            plane.attach(health=probe)
+            generator = TransactionGenerator(
+                submit=node.core.block_handler.submit, seed=scenario.seed * 1000 + a * 16,
+                tps=scenario.base_tps, transaction_size=scenario.transaction_size,
+                overload_schedule=list(scenario.multiplier_schedule),
+                closed_loop=scenario.closed_loop,
+                finality_sample_every=ingress_parameters.finality_sample_every,
+                metrics=metrics[a])
+            plane.add_commit_sink(
+                lambda height, keys, info, g=generator: g.note_commit_notification(keys, info))
+            servers.append(await serve_metrics(metrics[a], "127.0.0.1", 0, health_probe=probe,
+                                               flight_recorder=recorder))
+            nodes.append(node)
+            probes.append(probe)
+            monitors.append(monitor)
+            planes.append(plane)
+            generators.append(generator)
+            recorders.append(recorder)
+        sampler = profiling.start_from_env()
+        check(sampler is not None, "the sampler did not start from the environment")
+        other = OtherTally(sampler.accountant)
+        profiling.bind_active(FanOut(metrics), leaders_fn=lambda: min(
+            len(node.syncer.commit_observer.committed_leaders) for node in nodes))
+        t0 = time.monotonic()
+        for node in nodes:
+            await node.start()
+        for a in range(n):
+            monitors[a].start()
+            probes[a].start(config["probe_s"])
+            planes[a].start()
+            generators[a].start()
+        await asyncio.sleep(config["wall_s"])
+        elapsed = time.monotonic() - t0
+        scrapes = []
+        for server in servers:
+            port = server.sockets[0].getsockname()[1]
+            scrapes.append({path: await http_get(port, path)
+                            for path in ("/health", "/metrics", "/debug/flight-recorder")})
+    finally:
+        for generator in generators:
+            generator.stop()
+        for plane in planes:
+            plane.stop()
+        for probe in probes:
+            probe.stop()
+        for monitor in monitors:
+            monitor.stop()
+        for server in servers:
+            server.close()
+        for node in nodes:
+            await node.stop()
+        profiling.stop_from_env()
+        spans.install(previous_tracer)
+    result = netsync_result(nodes, counter, injector, metrics)
+    sites = {}
+    for recorder in recorders:
+        for e in recorder.events():
+            if e["kind"] == "blocking-call":
+                slot = sites.setdefault(e["site"], {"count": 0, "worst_ms": 0.0})
+                slot["count"] += 1
+                slot["worst_ms"] = max(slot["worst_ms"], e["ms"])
+    result.update({
+        "wall_s": elapsed,
+        "commits_per_wall_s": sum(len(seq) for seq in result["sequences"]) / n / elapsed,
+        "scrapes": scrapes, "alerts": [a.to_dict() for p in probes for a in p.alerts],
+        "loop_lag": [(m.loop_lag.percentile(50), m.loop_lag.percentile(99),
+                      m.loop_lag.sample_count()) for m in monitors],
+        "blocking_sites": dict(sorted(sites.items())),
+        "blocking_total": sum(m.blocking_total for m in monitors),
+        "critical_path": merged_critical_path(probes),
+        "leaders_attributed": sum(p.critical_path.leaders_attributed for p in probes),
+        "stage_seconds": stage_seconds(metrics),
+        "other_by_leaf": dict(other.by_leaf.most_common(6)),
+        "other_with_port_frame": other.with_port_frame,
+        "admitted": [p.admitted_total for p in planes],
+        "offered": [g.submitted for g in generators],
+    })
+    return result
+
+
+def health_tcp_run(kind, config, on_ready=None) -> dict:
+    """One run of ``health_tcp`` in a temporary directory, every node with
+    its own ``Metrics`` and its own verifier of ``kind`` (``_make_verifier``),
+    the sampler's profile and report written there through the environment
+    (``MYSTICETI_PROFILE``, ``MYSTICETI_PERF_REPORT``).  Returns the result
+    with the accountant's report, the profile's most sampled stacks, the
+    sampled seconds inside the collectors' submit and fetch jobs and the
+    verifiers' warm-up seconds."""
+    import tempfile
+
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.metrics import Metrics
+    from mysticeti_tpu_torch.profiling import DEFAULT_HZ
+    from mysticeti_tpu_torch.validator import _make_verifier
+
+    n = config["n"]
+    metrics = [Metrics() for _ in range(n)]
+    committee = Committee.new_for_benchmarks(n)
+    t0 = time.monotonic()
+    collectors = [_make_verifier(kind, committee, metrics=metrics[a]) for a in range(n)]
+    for collector in collectors:
+        check(collector.ready.wait(600), f"a {kind} verifier did not warm up")
+    warmup_s = time.monotonic() - t0
+    saved = {key: os.environ.get(key) for key in ("MYSTICETI_PROFILE", "MYSTICETI_PERF_REPORT")}
+    with tempfile.TemporaryDirectory(prefix="health-tcp-") as d:
+        os.environ["MYSTICETI_PROFILE"] = os.path.join(d, "profile.folded")
+        os.environ["MYSTICETI_PERF_REPORT"] = os.path.join(d, "report.json")
+        try:
+            result = asyncio.run(health_tcp(config, d, collectors, metrics, on_ready))
+        finally:
+            for key, value in saved.items():
+                if value is None:
+                    os.environ.pop(key, None)
+                else:
+                    os.environ[key] = value
+        with open(os.path.join(d, "report.json")) as f:
+            result["report"] = json.load(f)
+        with open(os.path.join(d, "profile.folded")) as f:
+            folded = [line.rsplit(" ", 1) for line in f.read().splitlines()]
+    result["top_stacks"] = [f"{';'.join(stack.split(';')[-4:])} {count}"
+                            for stack, count in folded[:8]]
+    # The collectors' executor jobs, by side: submit (pack, upload, launch)
+    # and fetch (the wait for the card's verdicts, and the copy back).
+    result["dispatch_sampled_s"] = {
+        side: round(sum(int(count) for stack, count in folded
+                        if f"block_validator:_{side}_dispatch" in stack) / DEFAULT_HZ, 6)
+        for side in ("submit", "fetch")}
+    result["warmup_s"] = warmup_s
+    return result
+
+
+def health_tcp_checks(result, config, backend, card=True) -> dict:
+    """The checks of health-tcp-10 (see the module docstring, step 16) on
+    one run whose verifiers' backend is labelled ``backend`` (with ``card``,
+    the card's: some sampled tick must be the verifier's); returns the
+    readings.  Alerts are findings, not failures: ten nodes share one loop
+    and one interpreter lock."""
+    from mysticeti_tpu_torch.health import ALERT_STAGES, cluster_snapshot_from_texts
+    from mysticeti_tpu_torch.profiling import SUBSYSTEM_NAMES
+
+    n = config["n"]
+    reading = netsync_tcp_checks(result, config["min_commits"])
+    accounted = card_checks(result)
+    diagnoses, texts, dumps = [], {}, []
+    for a, scrape in enumerate(result["scrapes"]):
+        status, body = scrape["/health"]
+        check(status in (200, 503), f"node {a}'s /health answered {status}")
+        doc = json.loads(body)
+        check((status == 200) == (doc["status"] == "ok"),
+              f"node {a}'s /health answered {status} with status {doc['status']}")
+        signals = doc["signals"]
+        check(signals is not None and signals["verifier"]["backend"] == backend,
+              f"node {a}'s verifier block {signals and signals.get('verifier')} is not {backend}'s")
+        check(signals["breaker_open_fraction"] == 0,
+              f"node {a}'s breaker was open: {signals['breaker_open_fraction']}")
+        check(signals["host"]["loop_lag_samples"] > 0, f"node {a}'s loop-lag probe took no sample")
+        check("ingress" in signals, f"node {a}'s /health has no ingress block")
+        check(all(alert["stage"] == ALERT_STAGES[alert["kind"]] for alert in doc["alerts"]),
+              f"node {a} raised an alert at a stage its kind does not name: {doc['alerts']}")
+        diagnoses.append(doc)
+        status, body = scrape["/metrics"]
+        check(status == 200 and b"mysticeti_health_status" in body,
+              f"node {a}'s /metrics answered {status} without the health families")
+        texts[str(a)] = body.decode()
+        status, body = scrape["/debug/flight-recorder"]
+        dump = json.loads(body)
+        check(status == 200 and dump["authority"] == a and dump["events"],
+              f"node {a}'s flight-recorder dump is empty or not its own")
+        dumps.append(len(dump["events"]))
+    cluster = cluster_snapshot_from_texts(texts, n)
+    check(cluster["reachable"] == sorted(texts) and not cluster["unreachable"],
+          f"the cluster snapshot reached {cluster['reachable']}, not {sorted(texts)}")
+    check(all(alert["stage"] == ALERT_STAGES[alert["kind"]] for alert in result["alerts"]),
+          "an alert names a stage its kind does not")
+    report = result["report"]
+    unknown = {key for key in report["cpu_seconds"] if key.split("/")[0] not in SUBSYSTEM_NAMES}
+    check(not unknown, f"ticks charged outside the registry: {unknown}")
+    check(result["other_with_port_frame"] == 0,
+          f"{result['other_with_port_frame']} sampled stacks holding a port frame were charged "
+          f"to 'other': a module is missing from the registry")
+    subsystems = report["subsystem_seconds"]
+    busy = sum(v for k, v in subsystems.items() if k != "event-loop-idle")
+    other = subsystems.get("other", 0.0)
+    check(busy > 0 and (not card or subsystems.get("verifier-pack", 0.0) > 0),
+          f"no tick was charged to verifier-pack: {subsystems}")
+    lags = result["loop_lag"]
+    reading.update({
+        **{key: accounted[key] for key in ("flushes", "mean_live_lanes", "open_at_stop")},
+        "statuses": [doc["status"] for doc in diagnoses],
+        "finality_p50_s": [doc["signals"]["ingress"].get("finality", {}).get("p50_s")
+                           for doc in diagnoses],
+        "finality_p99_s": [doc["signals"]["ingress"].get("finality", {}).get("p99_s")
+                           for doc in diagnoses],
+        "alerts_by_kind": {kind: sum(a["kind"] == kind for a in result["alerts"])
+                           for kind in sorted({a["kind"] for a in result["alerts"]})},
+        "cluster": {key: cluster[key] for key in (
+            "reachable", "unreachable", "status", "degraded_reasons", "quorum_participation",
+            "commit_skew_rounds", "top_cpu_subsystems")},
+        "report": report, "top_stacks": result["top_stacks"],
+        "other_share": other / busy, "other_by_leaf": result["other_by_leaf"],
+        "gil_convoy_ratio": report["gil_convoy_ratio"],
+        "loop_lag_p50_s": [round(p50, 6) for p50, _, _ in lags],
+        "loop_lag_p99_s": [round(p99, 6) for _, p99, _ in lags],
+        "loop_lag_samples": [count for _, _, count in lags],
+        "blocking_sites": result["blocking_sites"], "blocking_total": result["blocking_total"],
+        "critical_path": result["critical_path"],
+        "leaders_attributed": result["leaders_attributed"],
+        "stage_seconds": result["stage_seconds"],
+        "dispatch_sampled_s": result["dispatch_sampled_s"], "recorder_events": dumps,
+        "offered": result["offered"], "admitted": result["admitted"],
+        "warmup_s": result["warmup_s"],
+    })
+    return reading
+
+
+async def health_sim(config, tmp_dir, make_collector, metrics):
+    """``config``'s fleet (``HEALTH_SIM_10``'s shape) as a ``SimFleet`` over
+    ``build_storage_node`` (no GC), node ``config["down"]`` crashed and
+    rebooted from its WAL as ``config["crashes"]`` says.  Every authority
+    has one ``HealthProbe`` that outlives its restarts (as the JAX package's
+    chaos harness keeps them), with ``config["lag_rounds"]`` as its
+    authority-lag SLO and its node's flight recorder, which dumps on alerts
+    to a path in ``tmp_dir``; ``on_build`` attaches it to every incarnation
+    with a ``HostMonitor`` on the dispatcher, and a crash detaches it.  A
+    ``FleetHealthMonitor`` ticks every ``tick_s`` virtual seconds.  Returns
+    the timeline, the alert stream, the dumps and ``verify_readings``."""
+    from mysticeti_tpu_torch.config import Parameters, StorageParameters
+    from mysticeti_tpu_torch.health import FleetHealthMonitor, HealthProbe, SLOThresholds
+    from mysticeti_tpu_torch.hostattr import HostMonitor
+
+    n = config["n"]
+    parameters = Parameters(leader_timeout_s=CONSENSUS_LEADER_TIMEOUT_S,
+                            storage=StorageParameters(**config["storage"]))
+    probes = {}
+
+    def on_build(a, node):
+        monitor = HostMonitor(metrics=fleet.metrics[a], recorder=fleet.recorders[a]).start()
+        node.dispatcher.blocking_monitor = monitor
+        probes[a].attach(core=node.core, net_syncer=node, block_verifier=node.block_verifier,
+                         commit_observer=node.syncer.commit_observer, host_monitor=monitor)
+
+    def on_stop(a, node):
+        probes[a].detach()
+
+    fleet = SimFleet(config, tmp_dir, make_collector, parameters, metrics, on_build, on_stop)
+    slo = SLOThresholds(max_authority_lag_rounds=config["lag_rounds"])
+    for a, recorder in enumerate(fleet.recorders):
+        recorder.dump_path = os.path.join(tmp_dir, f"flight-recorder-{a}.json")
+        recorder.metrics = fleet.metrics[a]
+        probes[a] = HealthProbe(a, n, metrics=fleet.metrics[a], slo=slo, recorder=recorder)
+    monitor = FleetHealthMonitor(probes.get, n, interval_s=config["tick_s"])
+
+    async def workload(fleet):
+        monitor.start()
+        try:
+            await asyncio.sleep(config["virtual_s"] + 1.0)
+        finally:
+            monitor.stop()
+
+    await fleet.run(workload)
+    timeline = strip_volatile_verifier(monitor.timeline)
+    result = {
+        "sequences": fleet.commits.sequences(n), "timeline": timeline,
+        "alerts": monitor.alert_stream(),
+        "timeline_bytes": json.dumps(timeline, sort_keys=True, separators=(",", ":")).encode(),
+        "alert_bytes": monitor.alert_stream_bytes(),
+        "dumps": [len(r.dumps) for r in fleet.recorders],
+        "dump_files": sorted(name for name in os.listdir(tmp_dir) if name.endswith(".alert")),
+        "dumps_total": [summed_sample(m, "flight_recorder_dumps_total", {"trigger": "slo-alert"})
+                        or 0.0 for m in fleet.metrics],
+        **fleet.verify_readings(),
+    }
+    fleet.close()
+    return result
+
+
+def health_sim_run(kind, config, on_ready=None) -> dict:
+    """One seeded simulation of ``health_sim`` in a temporary directory,
+    every incarnation with its own verifier of ``kind`` (``_make_verifier``),
+    the accelerator kinds' made and warmed before ``on_ready()`` and the
+    run.  Returns the result with its wall seconds and the verifiers'
+    warm-up seconds."""
+    import tempfile
+
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.metrics import Metrics
+    from mysticeti_tpu_torch.runtime.simulated import run_simulation
+    from mysticeti_tpu_torch.validator import _make_verifier
+
+    n = config["n"]
+    metrics = [Metrics() for _ in range(n)]
+    committee = Committee.new_for_benchmarks(n)
+    prepared = {a: [] for a in range(n)}
+    t0 = time.monotonic()
+    for a in [*range(n), *(c[0] for c in config["crashes"])]:
+        prepared[a].append(_make_verifier(kind, committee, metrics=metrics[a]))
+    for verifiers in prepared.values():
+        for verifier in verifiers:
+            check(verifier.ready.wait(600), f"a {kind} verifier did not warm up")
+    warmup_s = time.monotonic() - t0
+    if on_ready is not None:
+        on_ready()
+    with tempfile.TemporaryDirectory(prefix="health-sim-") as d:
+        t0 = time.monotonic()
+        result = run_simulation(health_sim(config, d, lambda _c, a, _m: prepared[a].pop(0),
+                                           metrics), seed=config["seed"])
+        result["wall_s"] = time.monotonic() - t0
+    result["warmup_s"] = warmup_s
+    return result
+
+
+def health_sim_counts(result) -> dict:
+    """The values a seeded run must reproduce on any host and backend: the
+    digests of the timeline (``HEALTH_STRIPPED`` keys stripped) and of the
+    alert stream, and the counts beside them."""
+    import hashlib
+
+    keys = ("received", "fresh", "to_verify", "forged", "forged_rejected", "forged_injected",
+            "redelivered", "on_card")
+    return {"timeline_sha256": hashlib.sha256(result["timeline_bytes"]).hexdigest(),
+            "alerts_sha256": hashlib.sha256(result["alert_bytes"]).hexdigest(),
+            "ticks": len(result["timeline"]), "alerts": len(result["alerts"]),
+            "commits": [len(seq) for seq in result["sequences"]],
+            "flushes": int(result["flushes"]), "dispatched": int(result["dispatched"]),
+            **{key: result[key] for key in keys}, "dumps": result["dumps"]}
+
+
+def health_sim_checks(card, cpu, config) -> dict:
+    """The checks of health-sim-10 (see the module docstring, step 16) on
+    the card run and the ``cpu`` run of the same seed; returns the
+    readings."""
+    n, down = config["n"], config["down"]
+    (_, at, downtime, _), = [c for c in config["crashes"] if c[0] == down]
+    commit_checks(card["sequences"], 1)
+    check(card["sequences"] == cpu["sequences"], "the committed sequences differ from the cpu run's")
+    check(card["timeline_bytes"] == cpu["timeline_bytes"],
+          "the health timeline differs from the cpu run's")
+    check(card["alert_bytes"] == cpu["alert_bytes"], "the alert stream differs from the cpu run's")
+    check(health_sim_counts(card) == health_sim_counts(cpu),
+          f"the counts differ from the cpu run's: {health_sim_counts(card)} vs "
+          f"{health_sim_counts(cpu)}")
+    outage = [e for e in card["timeline"] if at < e["t"] < at + downtime]
+    check(outage and all(e["nodes"][str(down)] == {"down": True} for e in outage),
+          f"node {down} did not read down in every tick of its outage")
+    named = {a["observer"] for a in card["alerts"] if a["kind"] == "authority-lag"
+             and a["authority"] == down and a["stage"] == "receive" and at < a["t"] <= at + downtime}
+    check(named == set(range(n)) - {down},
+          f"observers {sorted(set(range(n)) - {down} - named)} did not name node {down}")
+    for entry in card["timeline"]:
+        for a, snap in entry["nodes"].items():
+            host = snap.get("host")
+            check(host is None or (host["loop_lag_samples"] == 0 and host["blocking_calls"] == 0
+                                   and host["gil_convoy_ratio"] == 0.0),
+                  f"node {a}'s host block at {entry['t']} is not all-zero: {host}")
+    alerting = [min(1, sum(a["observer"] == o for a in card["alerts"])) for o in range(n)]
+    check(card["dumps"] == alerting == [int(v) for v in card["dumps_total"]]
+          and len(card["dump_files"]) == sum(alerting),
+          f"alert dumps {card['dumps']}, files {card['dump_files']}, counted "
+          f"{card['dumps_total']}, observers alerting {alerting}")
+    forged_checks(card)
+    accounted = card_checks(card)
+    return {"nodes": n, "virtual_s": config["virtual_s"], "lag_rounds": config["lag_rounds"],
+            "down": [at, at + downtime], "ticks": len(card["timeline"]),
+            "outage_ticks": len(outage), "lag_alerts": len(named),
+            "alerts_by_kind": {kind: sum(a["kind"] == kind for a in card["alerts"])
+                               for kind in sorted({a["kind"] for a in card["alerts"]})},
+            "first_lag_alert_t": min((a["t"] for a in card["alerts"]
+                                      if a["kind"] == "authority-lag" and a["authority"] == down),
+                                     default=None),
+            "dumps": card["dumps"], "flushes": accounted["flushes"],
+            "mean_live_lanes": accounted["mean_live_lanes"],
+            "counts": health_sim_counts(card)}
+
+
+def health_phase(kernels):
+    """health-tcp-10 and health-sim-10, each over the card (every node its
+    own ``_make_verifier("cuda-only")``) and over the ``cpu`` kind, with the
+    checks of the module docstring, step 16.  Returns the launches of the
+    card's TCP and simulated runs and the readings."""
+    tcp_card = health_tcp_run("cuda-only", HEALTH_TCP_10,
+                              on_ready=lambda: [k.reset_counts() for k in kernels])
+    tcp_launches = {k.name: k.launches for k in kernels}
+    tcp_cpu = health_tcp_run("cpu", HEALTH_TCP_10)
+    tcp = health_tcp_checks(tcp_card, HEALTH_TCP_10, "TorchSignatureVerifier")
+    tcp_oracle = health_tcp_checks(tcp_cpu, HEALTH_TCP_10, "CpuSignatureVerifier", card=False)
+    check(tcp_launches["verify_keyed"] > 0 and tcp_launches["verify_generic"] == 0,
+          f"the health_tcp path did not take only the keyed kernel: {tcp_launches}")
+    sim_card = health_sim_run("cuda-only", HEALTH_SIM_10,
+                              on_ready=lambda: [k.reset_counts() for k in kernels])
+    sim_launches = {k.name: k.launches for k in kernels}
+    sim_cpu = health_sim_run("cpu", HEALTH_SIM_10)
+    sim = health_sim_checks(sim_card, sim_cpu, HEALTH_SIM_10)
+    check(sim["counts"] == HEALTH_SEEDED,
+          f"the counts differ from the seeded ones: {sim['counts']}")
+    check(sim_launches["verify_generic"] == 0,
+          f"the health_sim path launched the generic kernel: {sim_launches}")
+    check(sim_launches["prologue"] == sim_launches["verify_keyed"] == sim_card["flushes"] > 0,
+          f"the health_sim path's launches {sim_launches} are not one prologue and one keyed "
+          f"launch a flush ({sim_card['flushes']:.0f})")
+    card = card_line()
+    for name, r, run in (("card", tcp, tcp_card), ("cpu kind", tcp_oracle, tcp_cpu)):
+        print(f"health health-tcp-10 ({name}): {HEALTH_TCP_10['n']} validators over loopback "
+              f"for {run['wall_s']:.1f} wall s, commits a node {r['commits_min']}-"
+              f"{r['commits_max']} ({run['commits_per_wall_s']:.2f} a wall second), offered "
+              f"{sum(r['offered'])} admitted {sum(r['admitted'])}, finality p50 "
+              f"{r['finality_p50_s']} p99 {r['finality_p99_s']} (wall s); /health statuses "
+              f"{r['statuses']}, alerts {r['alerts_by_kind']}; cluster {r['cluster']}; cpu "
+              f"seconds {r['report']['cpu_seconds']}; convoy {r['gil_convoy_ratio']}, other "
+              f"{r['other_share']:.4f} of the non-idle ticks (none with a port frame; by leaf "
+              f"{r['other_by_leaf']}); loop lag p50 "
+              f"{r['loop_lag_p50_s']} p99 {r['loop_lag_p99_s']}; blocking calls "
+              f"{r['blocking_sites']}; critical path ({r['leaders_attributed']} leaders) "
+              f"{r['critical_path']}; stage seconds {r['stage_seconds']}, sampled in the "
+              f"dispatch {r['dispatch_sampled_s']}; {r['flushes']:.0f} "
+              f"flushes, {r['mean_live_lanes']:.2f} live lanes a flush; top stacks "
+              f"{r['top_stacks']} [{card}]", flush=True)
+    print(f"health health-sim-10: {sim['nodes']} validators, {sim['virtual_s']} virtual s, node "
+          f"{HEALTH_SIM_10['down']} down {sim['down']}, {sim['ticks']} ticks ({sim['outage_ticks']} "
+          f"in the outage, all down), authority-lag ({sim['lag_rounds']} rounds) named by "
+          f"{sim['lag_alerts']} observers, first at {sim['first_lag_alert_t']}; alerts "
+          f"{sim['alerts_by_kind']}; dumps {sim['dumps']}; timeline and alert stream equal the cpu "
+          f"run's and the seeded digests; {sim['flushes']:.0f} flushes, "
+          f"{sim['mean_live_lanes']:.2f} live lanes a flush; {sim_card['wall_s']:.1f} s on the "
+          f"card (the verifiers warmed in {sim_card['warmup_s']:.1f} s), {sim_cpu['wall_s']:.1f} "
+          f"s on the cpu kind; launches {sim_launches} [{card}]", flush=True)
+    reading = {"health_tcp_10": {"card": tcp, "cpu": tcp_oracle, "launches": tcp_launches,
+                                 "card_wall_s": tcp_card["wall_s"], "cpu_wall_s": tcp_cpu["wall_s"]},
+               "health_sim_10": dict(sim, card_wall_s=sim_card["wall_s"],
+                                     cpu_wall_s=sim_cpu["wall_s"],
+                                     warmup_s=sim_card["warmup_s"], launches=sim_launches),
+               "card": card}
+    return tcp_launches, sim_launches, reading
+
+
 def bench_phase() -> dict:
     """``python -m mysticeti_tpu_torch.bench`` as a child, on BENCH_ENV."""
     env = dict(os.environ, **BENCH_ENV)
@@ -3745,6 +4457,7 @@ def run() -> int:
     by_path["storage"], storage = storage_phase(K.KERNELS)
     by_path["epoch"], epoch = epoch_phase(K.KERNELS)
     by_path["ingress"], ingress = ingress_phase(K.KERNELS)
+    by_path["health_tcp"], by_path["health_sim"], health = health_phase(K.KERNELS)
     bench = bench_phase()
     # The block path's flushes take the keyed kernel, one key per lane, and
     # never the generic one; the committee dispatch's 8 stragglers take the
@@ -3781,7 +4494,7 @@ def run() -> int:
                       "flat_vs_26col": layout, "sharded": sharded, "hybrid": hybrid,
                       "service": service, "receive": receive, "consensus": consensus,
                       "net_sync": net_sync, "storage": storage, "epoch": epoch,
-                      "ingress": ingress, "metrics": metrics_reading,
+                      "ingress": ingress, "health": health, "metrics": metrics_reading,
                       "bench": bench}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3922,6 +4635,26 @@ def ingress_only() -> int:
     K.build_all()
     launches, reading = ingress_phase(K.KERNELS)
     print(json.dumps({"ingress": reading, "launches": launches}, default=str), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def health_only() -> int:
+    """The health phase alone: ``python3 -c 'import chip_smoke as c;
+    raise SystemExit(c.main(c.health_only))'``."""
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    tcp_launches, sim_launches, reading = health_phase(K.KERNELS)
+    print(json.dumps({"health": reading, "launches": {"health_tcp": tcp_launches,
+                                                      "health_sim": sim_launches}},
+                     default=str), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

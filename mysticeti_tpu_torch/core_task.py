@@ -1,8 +1,8 @@
 """Single-owner consensus dispatcher — the L7 concurrency bridge.
 
 The port's copy of ``mysticeti_tpu.core_task``: ``CoreTaskDispatcher`` and
-``DataPlaneOffload``.  The dispatcher's ``blocking_monitor`` hook waits for
-the host attribution plane (``hostattr``).
+``DataPlaneOffload``.  The dispatcher's ``blocking_monitor`` reports each
+command's wall duration to the host attribution plane (``hostattr``).
 
 Capability parity with ``mysticeti-core/src/core_thread/spawned.rs``: all
 consensus state mutation is serialized through ONE owner; network tasks submit
@@ -58,6 +58,11 @@ class CoreTaskDispatcher:
         self._queue: asyncio.Queue = asyncio.Queue(maxsize=CORE_QUEUE_SIZE)
         self._task: Optional[asyncio.Task] = None
         self._stopped = False
+        # Host attribution plane (hostattr.py): when a HostMonitor is
+        # attached, every synchronous command's wall duration is reported
+        # to its blocking-call detector — the dynamic twin of the
+        # async-blocking lint rule.
+        self.blocking_monitor = None
 
     def queue_depth(self) -> int:
         """Commands waiting for the consensus owner — the ingress plane's
@@ -99,17 +104,35 @@ class CoreTaskDispatcher:
         consecutive_failures = 0
         failed_kinds: Set[str] = set()
         dequeued = self.metrics.core_lock_dequeued if self.metrics else None
+        # Wall-clock measurement is a host observation: under the
+        # virtual-time loop it would read real elapsed time against
+        # simulated schedules, so the detector stays off there (evaluated
+        # once — the loop flavor cannot change mid-run).
+        from .runtime import is_simulated
+        from time import perf_counter
+
+        measure_blocking = not is_simulated()
         while True:
             command, args, reply, internal = await self._queue.get()
             if dequeued is not None:
                 dequeued.inc()
             try:
                 label = getattr(command, "__name__", "other")
+                monitor = self.blocking_monitor
+                t0 = (
+                    perf_counter()
+                    if monitor is not None and measure_blocking
+                    else 0.0
+                )
                 if timers is not None:
                     with timers(f"core:{label}"):
                         result = command(*args)
                 else:
                     result = command(*args)
+                if monitor is not None and measure_blocking:
+                    monitor.note_command(
+                        f"core:{label}", perf_counter() - t0
+                    )
                 consecutive_failures = 0
                 failed_kinds.clear()
                 if reply is not None and not reply.done():
@@ -254,8 +277,9 @@ class DataPlaneOffload:
 
     def active(self) -> bool:
         if self._active is None:
-            # Evaluated lazily on first use (inside the running loop): the
-            # loop flavor cannot change mid-run.
+            # Evaluated lazily on first use (inside the running loop, like
+            # the dispatcher's measure_blocking): the loop flavor cannot
+            # change mid-run.
             from .native import native as _native
             from .runtime import is_simulated
 
@@ -269,6 +293,8 @@ class DataPlaneOffload:
         if self._executor is None:
             from concurrent.futures import ThreadPoolExecutor
 
+            # The prefix feeds profiling.thread_class_of → "offload" in the
+            # host-attribution thread taxonomy.
             self._executor = ThreadPoolExecutor(
                 max_workers=1, thread_name_prefix="dataplane-offload"
             )

@@ -1,56 +1,93 @@
 """Always-on flight recorder: the seconds that led up to the incident.
 
-The port's copy of ``mysticeti_tpu.flight_recorder``, cut to the ring that
-``NetworkSyncer`` (and the block store, committers and commit observer when
-one is wired) records into.  The JAX module's dump triggers — the
-``MYSTICETI_FLIGHT_RECORDER`` path rule and ``Validator.stop``'s shutdown
-dump, the health watchdog's debounced ``on_alert`` dump, the metrics
-endpoint's ``/debug/flight-recorder`` route and the chaos engine's dump, with
-``flight_recorder_dumps_total`` — come back with the modules that fire them.
+The port's copy of ``mysticeti_tpu.flight_recorder``, without the
+``MYSTICETI_FLIGHT_RECORDER`` path rule (``path_from_env``) and
+``Validator.stop``'s shutdown dump, which come back with the node assembly
+that calls them.
 
 When an SLO alert or a chaos safety failure fires, the metrics say *that*
 something broke and the spans say where committed blocks spent their time —
 but neither holds the recent *event sequence*: which connections churned,
-which breaker tripped, what the node adopted.  :class:`FlightRecorder` is the
-bounded black box that does: a fixed-capacity in-memory ring of structured
-events, one per node, recorded from the consensus hot paths at edge
-granularity (block lifecycle edges, sync decisions, connection churn, leader
-timeouts — never per message).  The ring is lock-disciplined
-(``_ring_lock``) because a reader on another thread may snapshot it while
-the loop records.
+which breaker tripped, what the GC deleted, what the node adopted.  This
+module is the bounded black box that does:
+
+* :class:`FlightRecorder` — a fixed-capacity in-memory ring of structured
+  events, one per node, recorded from the consensus hot paths at edge
+  granularity (block lifecycle edges, breaker/pin transitions, SLO alerts,
+  GC/checkpoint actions, sync decisions, connection churn, and the host
+  attribution plane's ``blocking-call`` detections — hostattr.py flags a
+  synchronous hold of the core owner past the threshold — never per
+  message).  The ring is lock-disciplined (``_ring_lock``) because dumps
+  may be requested from the metrics endpoint while the loop records.
+* Dump triggers, all writing the SAME canonical JSON document atomically
+  (tmp + rename):
+  - ``GET /debug/flight-recorder`` on the metrics endpoint returns the
+    document live (``metrics.serve_metrics``);
+  - SLO alert transitions — the health watchdog calls :meth:`on_alert`,
+    which records the alert and writes a debounced ``<path>.alert`` dump so
+    a flapping threshold cannot turn the recorder into a disk hose.
 
 Events are clocked by the RUNTIME clock and recorded on the loop thread, so
-under the deterministic simulator a seeded run records the same events every
-run.
+under the deterministic simulator a seeded run produces a byte-identical
+dump every run.  Production dumps additionally carry a wall-clock stamp;
+simulated ones deliberately do not (virtual time IS the sim's wall time).
 """
 from __future__ import annotations
 
+import json
+import os
 import threading
 from collections import deque
 from typing import Deque, List, Optional
 
-from .runtime import now as runtime_now
+from .runtime import is_simulated, now as runtime_now
+from .tracing import logger
+
+log = logger(__name__)
 
 # Ring capacity: at edge granularity (commits batched per handle_commit,
 # transitions, churn) a busy node records a few events per second, so 4096
-# holds many minutes of history in ~1 MB.
+# holds many minutes of history in ~1 MB — enough to cover any alert's
+# debounce window plus the run-up.
 DEFAULT_CAPACITY = 4096
+
+# Minimum seconds between alert-triggered dumps (runtime-clocked).
+ALERT_DEBOUNCE_S = 30.0
+
+
+def _canonical(obj) -> bytes:
+    return json.dumps(obj, sort_keys=True, separators=(",", ":")).encode()
 
 
 class FlightRecorder:
     """Bounded ring of recent structured events for one node."""
 
     def __init__(
-        self, authority: Optional[int] = None, capacity: int = DEFAULT_CAPACITY
+        self,
+        authority: Optional[int] = None,
+        capacity: int = DEFAULT_CAPACITY,
+        dump_path: Optional[str] = None,
+        metrics=None,
+        alert_debounce_s: float = ALERT_DEBOUNCE_S,
     ) -> None:
         self.authority = authority
         self.capacity = max(1, capacity)
+        self.dump_path = dump_path
+        self.metrics = metrics
+        self.alert_debounce_s = alert_debounce_s
         self._ring_lock = threading.Lock()
-        # Guarded by _ring_lock: the loop thread records while a reader
-        # snapshots.
+        # Guarded by _ring_lock: the loop thread records while the metrics
+        # endpoint snapshots.
         self._flight_ring: Deque[dict] = deque(maxlen=self.capacity)
         self.recorded = 0
         self.dropped = 0
+        # Dump ledger: {trigger, file, t} per on-disk dump (basenames only —
+        # dumps must stay byte-identical across same-seed sims run in
+        # different temp dirs).
+        self.dumps: List[dict] = []
+        self._last_alert_dump_t: Optional[float] = None
+
+    # -- recording (hot-ish path: edges only, one dict + one lock) --
 
     def record(self, kind: str, **fields) -> None:
         entry = {"t": round(runtime_now(), 6), "kind": kind}
@@ -63,7 +100,80 @@ class FlightRecorder:
             self._flight_ring.append(entry)
             self.recorded += 1
 
+    def on_alert(
+        self, kind: str, authority, stage: str, value: float, detail: str
+    ) -> None:
+        """SLO watchdog hook: record the alert edge and (when a dump path is
+        configured) write a debounced ``<path>.alert`` dump — the forensic
+        ring AT the degraded transition, not minutes later."""
+        self.record(
+            "slo-alert", alert=kind, indicted=authority, stage=stage,
+            value=round(float(value), 6), detail=detail,
+        )
+        if not self.dump_path:
+            return
+        t = runtime_now()
+        if (
+            self._last_alert_dump_t is not None
+            and t - self._last_alert_dump_t < self.alert_debounce_s
+        ):
+            return
+        self._last_alert_dump_t = t
+        self.dump("slo-alert", path=self.dump_path + ".alert")
+
+    # -- snapshots / dumps --
+
     def events(self, last: Optional[int] = None) -> List[dict]:
         with self._ring_lock:
             events = list(self._flight_ring)
         return events[-last:] if last else events
+
+    def snapshot(self) -> dict:
+        """The dump document (also served by ``/debug/flight-recorder``)."""
+        with self._ring_lock:
+            events = list(self._flight_ring)
+            recorded, dropped = self.recorded, self.dropped
+        doc = {
+            "authority": self.authority,
+            "capacity": self.capacity,
+            "recorded": recorded,
+            "dropped": dropped,
+            "events": events,
+            "dumps": list(self.dumps),
+        }
+        if not is_simulated():
+            import time as _time
+
+            doc["generated_unix"] = round(_time.time(), 3)
+        return doc
+
+    def snapshot_bytes(self) -> bytes:
+        return _canonical(self.snapshot())
+
+    def dump(self, trigger: str, path: Optional[str] = None) -> Optional[str]:
+        """Atomic dump (tmp + rename) to ``path`` or the configured path.
+        Returns the written path, or None when neither is set.  Never
+        raises: the recorder is a diagnostic, not a failure mode."""
+        path = path or self.dump_path
+        if not path:
+            return None
+        try:
+            tmp = f"{path}.tmp"
+            with open(tmp, "wb") as f:
+                f.write(self.snapshot_bytes())
+                f.write(b"\n")
+            os.replace(tmp, path)
+        except OSError:
+            log.exception("flight-recorder dump to %s failed", path)
+            return None
+        self.dumps.append(
+            {
+                "trigger": trigger,
+                "file": os.path.basename(path),
+                "t": round(runtime_now(), 6),
+            }
+        )
+        if self.metrics is not None:
+            self.metrics.flight_recorder_dumps_total.labels(trigger).inc()
+        log.info("flight recorder dumped (%s) to %s", trigger, path)
+        return path

@@ -15,15 +15,22 @@ core-task dispatcher's queue, the synchronizer's fetches and frame cache,
 ``NetworkSyncer``'s receive path and WAL gauges), the storage lifecycle
 (``wal_reclaimed_bytes_total``, ``checkpoint_last_commit_index``), the
 reconfiguration and execution planes (``mysticeti_epoch*``,
-``mysticeti_committee_digest_info``, ``mysticeti_execution_*``), and the
+``mysticeti_committee_digest_info``, ``mysticeti_execution_*``), the
 ingress and finality planes (``mysticeti_ingress_*``,
-``mysticeti_e2e_finality_*``, ``mysticeti_client_finality_*``).  Every
+``mysticeti_e2e_finality_*``, ``mysticeti_client_finality_*``), the fleet
+health plane (``mysticeti_health_*``, ``commit_critical_path_seconds``),
+the host attribution plane (``mysticeti_cpu_seconds_total``,
+``mysticeti_cpu_us_per_leader``, ``mysticeti_loop_lag_*``,
+``mysticeti_gil_convoy_ratio``, ``mysticeti_blocking_call*``) and the flight
+recorder's ``flight_recorder_dumps_total``.  Every
 family keeps the JAX package's name, help, labels and buckets, except the
 JAX compile and compile-cache families, which become the kernels' build
 families (``mysticeti_cuda_build*``, see
-``ops.ed25519.install_device_attribution``).
-The health, host-attribution and profiling families, and the flight
-recorder's dump counter, wait for the modules that write them.
+``ops.ed25519.install_device_attribution``).  ``serve_metrics`` serves
+``/metrics``, ``/healthz``, and with a probe or a recorder wired ``/health``
+and ``/debug/flight-recorder``; the periodic percentile reporter and the
+``/debug/consensus`` route come back with the node assembly that starts
+them.
 """
 from __future__ import annotations
 
@@ -288,6 +295,13 @@ class Metrics:
             buckets=[0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
                      5.0],
         )
+        # Flight recorder dumps (flight_recorder.py).
+        self.flight_recorder_dumps_total = counter(
+            "flight_recorder_dumps_total",
+            "flight-recorder ring dumps written, by trigger (shutdown, "
+            "slo-alert, safety-failure)",
+            labels=("trigger",),
+        )
         # Encode-once fan-out (synchronizer.FrameCache).
         self.dissemination_encode_reuse_total = counter(
             "dissemination_encode_reuse_total",
@@ -420,6 +434,113 @@ class Metrics:
         self.verifier_reconnect_total = counter(
             "verifier_reconnect_total",
             "verifier-service client connections torn down and retried",
+        )
+
+        # Fleet health plane (health.py): consensus-level health signals
+        # derived from state the node already has, refreshed by the
+        # HealthProbe sampler; the same probe serves the /health diagnosis
+        # document next to /healthz.
+        self.mysticeti_health_round_advance_rate = gauge(
+            "mysticeti_health_round_advance_rate",
+            "threshold-clock rounds advanced per second (EMA over probe "
+            "samples)",
+        )
+        self.mysticeti_health_commit_rate = gauge(
+            "mysticeti_health_commit_rate",
+            "committed sub-dags per second (EMA over probe samples)",
+        )
+        self.mysticeti_health_frontier_skew_rounds = gauge(
+            "mysticeti_health_frontier_skew_rounds",
+            "DAG frontier skew: max peer round seen minus own round "
+            "(positive = this node is behind the fleet)",
+        )
+        self.mysticeti_health_authority_lag_rounds = gauge(
+            "mysticeti_health_authority_lag_rounds",
+            "per-authority frontier lag: own round minus the authority's "
+            "last block round seen here (a growing lag names the straggler)",
+            labels=("authority",),
+        )
+        self.mysticeti_health_verifier_breaker_open = gauge(
+            "mysticeti_health_verifier_breaker_open",
+            "1 while the hybrid verifier circuit breaker is open (degraded "
+            "to the CPU oracle)",
+        )
+        self.mysticeti_health_verifier_pinned = gauge(
+            "mysticeti_health_verifier_pinned",
+            "1 while short-circuit routing is pinned to the in-process "
+            "oracle (service advertised a CPU-only backend)",
+        )
+        self.mysticeti_health_wal_backlog = gauge(
+            "mysticeti_health_wal_backlog",
+            "1 while acknowledged WAL appends are still queued in process "
+            "memory (the async drain is behind)",
+        )
+        self.mysticeti_health_status = gauge(
+            "mysticeti_health_status",
+            "1 when no SLO alert is firing, 0 while degraded (the /health "
+            "readiness verdict)",
+        )
+        self.mysticeti_health_slo_alerts_total = counter(
+            "mysticeti_health_slo_alerts_total",
+            "SLO watchdog alerts raised, named by kind, the indicted "
+            "authority (empty = whole node), and the pipeline stage",
+            labels=("kind", "authority", "stage"),
+        )
+        self.commit_critical_path_seconds = histogram(
+            "commit_critical_path_seconds",
+            "per committed leader: time each pipeline stage spent on the "
+            "receive->verify->dag_add->proposal_wait->commit->finalize "
+            "critical path (requires span tracing; see health.py)",
+            labels=("stage",),
+            buckets=[0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5,
+                     5.0, 10.0, 30.0],
+        )
+
+        # Host attribution plane (profiling.py accountant + hostattr.py):
+        # where host time goes, per subsystem, and what the event loop pays
+        # for it.  The cpu-seconds counter is fed by the sampling profiler's
+        # census; the loop-lag / blocking-call / convoy series by a started
+        # HostMonitor.
+        self.mysticeti_cpu_seconds_total = counter(
+            "mysticeti_cpu_seconds_total",
+            "sampled CPU seconds attributed to each subsystem of the "
+            "declarative registry (profiling.SUBSYSTEMS), split by thread "
+            "class (loop / verifier / wal / aux)",
+            labels=("subsystem", "thread_class"),
+        )
+        self.mysticeti_cpu_us_per_leader = gauge(
+            "mysticeti_cpu_us_per_leader",
+            "per-committed-leader normalized subsystem cost: sampled CPU "
+            "microseconds per committed leader (the PERF_ATTR budget rows)",
+            labels=("subsystem",),
+        )
+        self.mysticeti_loop_lag_seconds = histogram(
+            "mysticeti_loop_lag_seconds",
+            "asyncio loop scheduling lag: scheduled-vs-actual callback "
+            "delta of the loop-lag probe (hostattr.LoopLagProbe)",
+            buckets=[0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
+                     2.5],
+        )
+        self.mysticeti_loop_lag_p99_seconds = gauge(
+            "mysticeti_loop_lag_p99_seconds",
+            "p99 loop scheduling lag over the probe's bounded window (the "
+            "loop-lag SLO watchdog input; fleetmon dashboard column)",
+        )
+        self.mysticeti_gil_convoy_ratio = gauge(
+            "mysticeti_gil_convoy_ratio",
+            "fraction of census ticks where >=2 threads were runnable at "
+            "once — with one interpreter lock, a proxy for GIL convoying",
+        )
+        self.mysticeti_blocking_calls_total = counter(
+            "mysticeti_blocking_calls_total",
+            "synchronous core-owner commands that held the event loop past "
+            "MYSTICETI_BLOCKING_CALL_MS (the dynamic twin of the "
+            "async-blocking lint rule), by command site",
+            labels=("site",),
+        )
+        self.mysticeti_blocking_call_last_ms = gauge(
+            "mysticeti_blocking_call_last_ms",
+            "duration of the most recent detected blocking call, ms",
         )
         # Staged dispatch pipeline (verify_pipeline.py): how full the window
         # runs and where each dispatch's time goes.
@@ -675,9 +796,18 @@ class Metrics:
         return generate_latest(self.registry)
 
 
-async def serve_metrics(metrics: Metrics, host: str, port: int):
-    """Minimal asyncio HTTP endpoint: ``/healthz`` (200 + uptime) for
-    liveness probes, anything else the ``/metrics`` scrape."""
+async def serve_metrics(metrics: Metrics, host: str, port: int,
+                        health_probe=None, flight_recorder=None):
+    """Minimal asyncio HTTP endpoint: ``/metrics`` for the scraper,
+    ``/healthz`` (200 + uptime) for liveness probes, and — when a
+    :class:`~mysticeti_tpu_torch.health.HealthProbe` is wired — ``/health``,
+    the readiness/diagnosis JSON document (503 while an SLO alert is firing,
+    so the route doubles as a readiness gate).  With a
+    :class:`~mysticeti_tpu_torch.flight_recorder.FlightRecorder` wired,
+    ``/debug/flight-recorder`` serves the live event-ring dump (the same
+    canonical document the alert dumps write)."""
+    import json as _json
+
     started = time.monotonic()
 
     async def handle(reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
@@ -689,17 +819,32 @@ async def serve_metrics(metrics: Metrics, host: str, port: int):
                     break
             parts = request.split()
             path = parts[1].decode(errors="replace") if len(parts) > 1 else "/"
+            status = b"200 OK"
             if path.split("?", 1)[0] == "/healthz":
                 body = (
                     '{"status":"ok","uptime_s":%.3f}\n'
                     % (time.monotonic() - started)
                 ).encode()
                 content_type = b"application/json"
+            elif (
+                path.split("?", 1)[0] == "/debug/flight-recorder"
+                and flight_recorder is not None
+            ):
+                body = flight_recorder.snapshot_bytes() + b"\n"
+                content_type = b"application/json"
+            elif path.split("?", 1)[0] == "/health" and health_probe is not None:
+                doc = health_probe.diagnosis()
+                body = (_json.dumps(doc, sort_keys=True) + "\n").encode()
+                content_type = b"application/json"
+                if doc.get("status") != "ok":
+                    status = b"503 Service Unavailable"
             else:
+                # Anything else serves the scrape.
                 body = metrics.expose()
                 content_type = b"text/plain; version=0.0.4"
             writer.write(
-                b"HTTP/1.1 200 OK\r\nContent-Type: " + content_type + b"\r\n"
+                b"HTTP/1.1 " + status + b"\r\nContent-Type: " + content_type
+                + b"\r\n"
                 + f"Content-Length: {len(body)}\r\n\r\n".encode()
                 + body
             )

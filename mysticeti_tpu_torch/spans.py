@@ -11,9 +11,11 @@ sub-stages:
     verify_fetch     the result fetch (waits for the kernels)
     verify_dispatch  the whole dispatch
 
-The other registered stages (receive, dag_add, commit, ...) belong to node
-modules the port has not carried over yet; their names stay registered so a
-trace of the port and one of the JAX package read alike.
+The node's modules record the per-block pipeline proper (``receive`` and
+``verify`` in net_sync.py, ``dag_add`` in net_sync.py and core.py,
+``proposal_wait`` in core.py and commit_observer.py, ``commit`` in
+syncer.py, ``finalize`` in commit_observer.py), which
+``health.CriticalPathAnalyzer`` reads through :meth:`SpanTracer.add_sink`.
 
 Spans are clocked by :func:`mysticeti_tpu_torch.runtime.now`.  Track
 identity reuses :data:`tracing.current_authority` as the default, with

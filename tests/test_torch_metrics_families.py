@@ -183,6 +183,29 @@ def test_every_metric_the_port_reads_resolves_on_Metrics():
             "mysticeti_tpu_torch/transactions_generator.py"} == {
         where for name in ingress_families - {"mysticeti_ingress_shed_total"}
         for where in reads[name]}
+    # The observability plane's families, each read by the module that
+    # writes it: the health probe and the critical path (health.py), the
+    # host monitor (hostattr.py), the accountant (profiling.py) and the
+    # flight recorder's dumps (flight_recorder.py).
+    observability = {
+        "mysticeti_tpu_torch/health.py": {
+            "mysticeti_health_round_advance_rate", "mysticeti_health_commit_rate",
+            "mysticeti_health_frontier_skew_rounds", "mysticeti_health_authority_lag_rounds",
+            "mysticeti_health_verifier_breaker_open", "mysticeti_health_verifier_pinned",
+            "mysticeti_health_wal_backlog", "mysticeti_health_status",
+            "mysticeti_health_slo_alerts_total", "commit_critical_path_seconds"},
+        "mysticeti_tpu_torch/hostattr.py": {
+            "mysticeti_loop_lag_seconds", "mysticeti_loop_lag_p99_seconds",
+            "mysticeti_blocking_calls_total", "mysticeti_blocking_call_last_ms"},
+        "mysticeti_tpu_torch/profiling.py": {
+            "mysticeti_cpu_seconds_total", "mysticeti_cpu_us_per_leader",
+            "mysticeti_gil_convoy_ratio"},
+        "mysticeti_tpu_torch/flight_recorder.py": {"flight_recorder_dumps_total"},
+    }
+    for module, families in observability.items():
+        assert families <= set(reads), (module, families - set(reads))
+        assert all(reads[name] == [module] for name in families), {
+            name: reads[name] for name in families}
 
 
 def test_each_family_equals_the_jax_packages():
