@@ -195,10 +195,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    and ``EPOCH_SEEDED``; the generic kernel never launched, the prologue
    and the keyed kernel once a flush; the verdicts are accounted for as in
    step 12; each collector saw one ``note_committee`` a boundary it
-   crossed; and ``FinalizationInterpreter`` over each node's first 50
-   rounds (past both boundaries, below its last committed leader) finds
-   finalized transactions, each with a certifying block in that leader's
-   causal history.
+   crossed; and ``FinalizationInterpreter`` over the first 48 rounds (past
+   both boundaries, below its last committed leader) of node 0's, the
+   rebooter's and the retiree's stores finds finalized transactions, each
+   with a certifying block in that leader's causal history.
 15. Ingress (ingress-10): config 3's 10 validators over the port's
    ``SimulatedNetwork`` (50-100 ms one way, 1 s leader timeout, step 12's
    fault injector), each with a synchronous WAL, its own
@@ -266,13 +266,46 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    stripped) and the alert stream are byte-equal to the ``cpu`` run's and
    their digests and counts equal ``HEALTH_SEEDED``; forged copies and the
    card accounting as in step 13; prologue = keyed = flushes, generic 0.
-17. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
+17. Node (the node assembly as users start it): genesis through ``python -m
+   mysticeti_tpu_torch benchmark-genesis --ips 127.0.0.1`` x10 (config 3's
+   committee; on its ports 1500+i and metrics 2500+i when they are free,
+   else on the first free base from 20,000 up, printed), then ten OS
+   processes, each ``python3 chip_smoke.py --node run ...``: the port's
+   ``cli.main(["run", ...])`` unchanged (``node_child`` reads the kernels'
+   launch counts and the collector's dispatches from the moment its
+   verifier is ready, and at exit whether CUDA was initialized and the
+   committed leaders), started by
+   ``tools.perf_attr.run_fleet`` with ``MYSTICETI_PROFILE`` /
+   ``MYSTICETI_PERF_REPORT``, ``MYSTICETI_EXIT_AFTER`` (20 s), ``TPS``
+   1,000 of 512 B and ``MYSTICETI_FLIGHT_RECORDER``; a thread polls every
+   node's ``/metrics``, ``/health`` and ``/debug/consensus``.  Three fleets
+   in turn: node-proc-10 (``--verifier cuda-only``: ten CUDA contexts on
+   cuda:0), node-svc-10 (the same with ``MYSTICETI_VERIFIER_SOCKET`` on one
+   verifier service on cuda:0 hosted here) and the ``cpu`` kind.  Checks,
+   each fleet: every process exits 0 within 20 + 60 s of its start; every
+   node commits at least ``NODE_10["min_commits"]`` leaders and the
+   sequences agree on their common prefixes; every node answered the three
+   routes (``/debug/consensus`` naming it); each final exposition holds the
+   reporter's ``histogram_pct`` sweep, no invalid block and no batch
+   degraded to the CPU oracle; each node left its shutdown flight-recorder
+   dump and its perf report.  node-proc-10: on each node, since its
+   verifier was ready, prologue = keyed launches = its dispatches > 0 and
+   generic 0.  node-svc-10: the service's prologue = keyed launches = its
+   dispatches > 0 = the nodes' dispatches summed, generic 0, and no node
+   process initialized CUDA.
+   Prints, each fleet: commits a node a wall second, flushes and live
+   lanes, a node's ``verifier-pack`` and busy thread-s, convoy ratio and
+   mean runnable threads (its own perf report), loop lag p50 / p99,
+   ``/health`` statuses, ``transaction_committed_latency`` p50 / p99, the
+   seconds to the verifier's ``ready`` and the kernels' build hits.
+18. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
    workers, 8 iterations, 2 trials and a 30 s budget; its JSON line must
    come from rung 0 with a value above 0.
-Each path of steps 3-16 (the block path and the committee dispatch of step 3
+Each path of steps 3-17 (the block path and the committee dispatch of step 3
 apart) runs with every launch count set to 0 just before it and read just
-after; every kernel must have launched on some path.
-18. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+after (node-proc-10's in its processes, from each verifier's ``ready``); every kernel
+must have launched on some path.
+19. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Every phase runs under ``PYTHONHASHSEED=0`` (``main`` runs the command
@@ -286,7 +319,8 @@ phase fails.
 One phase alone: ``python3 -c 'import chip_smoke as c; raise
 SystemExit(c.main(c.receive_only))'`` (likewise ``consensus_only``,
 ``net_sync_only``, ``storage_only``, ``epoch_only``, ``ingress_only``,
-``health_only``, and ``sharded_only`` for a host with several cards).  Not
+``health_only``, ``node_only``, and ``sharded_only`` for a host with several
+cards).  Not
 in the default run: ``receive_split`` (where the receive burst's host time
 goes) and ``consensus_trace`` (the card's busy share in step 11, from a
 ``torch.profiler`` trace).
@@ -440,16 +474,19 @@ STORAGE_SEEDED = {
 # live node plants one execution batch (``scenarios``' execution workload); node
 # 2 is down from 8 s to 9.5 s and boots from its checkpoint after both
 # boundaries.  Changes are (at_s, via, kind, authority, stake), retirements
-# (at_s, node).  The finalization oracle reads each node's rounds up to
-# ``oracle_rounds``, past both boundaries and below every last committed
-# leader: its work grows with blocks times transactions (its seconds grow
-# ~4x from 20 rounds to 40 and ~17x to 80).
+# (at_s, node).  The finalization oracle reads the rounds up to
+# ``oracle_rounds``, past both boundaries (the last at round 46) and below
+# every last committed leader, of three nodes' stores (``oracle_nodes``):
+# node 0, through which both changes go, the rebooter and the retiree.  Its
+# work grows with blocks times transactions (its seconds grow ~4x from 20
+# rounds to 40 and ~17x to 80): on an 8-core CPU host 40.2 s for all ten
+# stores at 50 rounds, 10.6 s for these three at 48.
 EPOCH_10 = {
     "n": 10, "virtual_s": 12.0, "seed": SEED, "fault_one_in": NETSYNC_FAULT_ONE_IN,
     "storage": {"segment_bytes": 16 * 1024, "checkpoint_interval": 5},
     "changes": ((2.0, 0, "reweight", 1, 3), (5.0, 0, "remove", 4, 0)),
     "retire": ((7.0, 4),), "crashes": ((2, 8.0, 1.5, 0),), "exec_interval_s": 0.5,
-    "epochs": 2, "retiree": 4, "rebooter": 2, "oracle_rounds": 50,
+    "epochs": 2, "retiree": 4, "rebooter": 2, "oracle_rounds": 48,
 }
 # What epoch-10 counts at SEED under HASH_SEED (``epoch_counts`` of a
 # ``cpu``-kind run; the card run must count the same).
@@ -600,6 +637,23 @@ HEALTH_SEEDED = {
     "forged": 136, "forged_rejected": 136, "forged_injected": 137, "redelivered": 167,
     "on_card": 8193, "dumps": [1, 1, 1, 0, 1, 1, 1, 1, 1, 1],
 }
+# The node phase: BASELINE.json config 3's committee (10 validators,
+# ``Parameters.new_for_benchmarks``) as ten OS processes, each started by the
+# port's CLI (``run``, from the files ``benchmark-genesis`` writes, on its
+# ports 1500+i and metrics 2500+i, or on a free base that the phase prints
+# when another run holds those) through ``perf_attr.run_fleet`` with the
+# environment that sets (``MYSTICETI_PROFILE``, ``MYSTICETI_PERF_REPORT``,
+# ``MYSTICETI_EXIT_AFTER``, ``TPS``): 1,000 transactions of 512 B a second a
+# node (the upstream size; ingress-10's 1x), a timed clean exit after
+# ``exit_after_s``, a flight-recorder dump a node at shutdown.  Three fleets
+# in turn: node-proc-10 (``cuda-only``, each node its own CUDA context on
+# cuda:0), node-svc-10 (``cuda-only`` through one verifier service on cuda:0
+# that this script hosts) and the ``cpu`` kind as the control.
+# ``min_commits`` is half the fewest leaders a node committed in any of the
+# three fleets on an H100 80GB HBM3 at 700 W (116, node-proc-10; the fleets
+# committed 116-309 a node): a fleet that stalls early fails.
+NODE_10 = {"n": 10, "tps": 1000, "transaction_size": 512, "exit_after_s": 20.0,
+           "grace_s": 60.0, "min_commits": 58, "scrape_s": 2.0, "port_base": 1500}
 # A run's committed sequences hang on the process's ``bytes`` hash salt (the
 # block fetcher requests missing blocks in a set's order), so ``main`` runs
 # every phase under this one ``PYTHONHASHSEED``.
@@ -3177,16 +3231,22 @@ def finalization_reading(node, anchors, last_round) -> dict:
             "leader_round": last_leader.round()}
 
 
+def oracle_nodes(config) -> list:
+    """The nodes whose stores the epoch phase's finalization oracle reads:
+    node 0 (both changes go through it), the rebooter and the retiree."""
+    return sorted({0, config["rebooter"], config["retiree"]})
+
+
 def epoch_result(fleet, incarnations, roots, conflicts, planted, oracle) -> dict:
     """What the epoch checks and readings read off the finished fleet: the
     committed sequences; each node's last incarnation's epoch, epoch chain,
     execution height, root, state bytes' digest, the planted accounts it
     holds and how many of those do not read (400, 3) (1,000 less two
     transfers of 300, three nonces: the overdraft rejected), its
-    ``mysticeti_execution_txs_total`` by verdict and, with ``oracle``, the
-    finalization oracle's reading over its first ``config["oracle_rounds"]``
-    rounds; every incarnation's boot readings, epoch at its end
-    and ``note_committee`` calls; the roots folded by height; the settled
+    ``mysticeti_execution_txs_total`` by verdict and, with ``oracle`` and
+    for the ``oracle_nodes``, the finalization oracle's reading over its
+    first ``config["oracle_rounds"]`` rounds; every incarnation's boot
+    readings, epoch at its end and ``note_committee`` calls; the roots folded by height; the settled
     receive counts, forged copies, registries' invalid blocks and verified
     signatures; then every node's WAL is closed."""
     import hashlib
@@ -3214,7 +3274,7 @@ def epoch_result(fleet, incarnations, roots, conflicts, planted, oracle) -> dict
             "verdicts": verdicts(metrics[a]),
             "finalization": None,
         })
-        if oracle:
+        if oracle and a in oracle_nodes(config):
             t0 = time.monotonic()
             per_node[-1]["finalization"] = finalization_reading(
                 last[a], fleet.commits.anchors[a], config["oracle_rounds"])
@@ -3361,10 +3421,11 @@ def epoch_checks(card, cpu, config) -> dict:
     # 5: forged copies.
     forged_checks(card)
     # 7: the finalization oracle.
-    for a, node in enumerate(nodes):
-        reading = node["finalization"]
-        check(reading["leader_round"] > config["oracle_rounds"] and reading["finalized"] > 0
-              and reading["uncovered"] == 0, f"node {a}'s finalization oracle: {reading}")
+    for a in oracle_nodes(config):
+        reading = nodes[a]["finalization"]
+        check(reading is not None and reading["leader_round"] > config["oracle_rounds"]
+              and reading["finalized"] > 0 and reading["uncovered"] == 0,
+              f"node {a}'s finalization oracle: {reading}")
     return {
         "nodes": n, "virtual_s": config["virtual_s"], "seed": config["seed"],
         "commits": commits, "epochs": [node["epoch"] for node in nodes],
@@ -3374,7 +3435,7 @@ def epoch_checks(card, cpu, config) -> dict:
         "shared_heights": len(golden), "planted": card["planted"],
         "planted_held": [node["planted_held"] for node in nodes],
         "reboot": {key: boot[key] for key in ("checkpoint_height", "boot_epoch", "boot_height")},
-        "finalized": [node["finalization"]["finalized"] for node in nodes],
+        "finalized": {a: nodes[a]["finalization"]["finalized"] for a in oracle_nodes(config)},
         "forged": card["forged"], "forged_injected": card["forged_injected"],
         "forged_rejected": card["forged_rejected"],
         "counts": epoch_counts(card),
@@ -4376,6 +4437,456 @@ def health_phase(kernels):
     return tcp_launches, sim_launches, reading
 
 
+# -- the node phase: validators as OS processes started by the port's CLI ----
+
+
+def node_child(argv) -> int:
+    """One validator process of the node phase: ``python3 chip_smoke.py
+    --node run --authority A ... --private-config-path DIR`` runs the port's
+    ``cli.main(["run", ...])`` unchanged and, at exit, writes
+    ``DIR/node_smoke.json`` with what only the harness reads: the seconds
+    from this process's start to ``Validator.start_benchmarking``'s return,
+    to the verifier's ``ready`` and to the stop, the collector's dispatch
+    submissions, every kernel's launches and the submissions made since the
+    verifier was ready (counted from a moment past the warm-up when no
+    submission is in progress, so each launch there belongs to a submission
+    counted there), whether this process imported torch and initialized
+    CUDA, the committed leaders in order, the health status and loop lag at
+    the stop, and the metrics exposition after ``Validator.stop`` (the
+    reporter's final sweep)."""
+    import threading
+
+    t0 = time.monotonic()
+    sys.path.insert(0, HERE)
+    from mysticeti_tpu_torch import cli
+    from mysticeti_tpu_torch.block_validator import BatchedSignatureVerifier
+    from mysticeti_tpu_torch.validator import Validator
+
+    record = {"argv": argv, "submits": 0, "error": None}
+    out_path = os.path.join(argv[argv.index("--private-config-path") + 1], "node_smoke.json")
+    start, stop = Validator.start_benchmarking.__func__, Validator.stop
+    submit, submit_lock = BatchedSignatureVerifier._submit_dispatch, threading.Lock()
+    in_flight, at_ready = [0], {}
+
+    def launches():
+        kernels = sys.modules.get("mysticeti_tpu_torch.ops.ed25519_cuda")
+        return {k.name: k.launches for k in kernels.KERNELS} if kernels else {}
+
+    def counted_submit(self, *args):
+        with submit_lock:
+            record["submits"] += 1
+            in_flight[0] += 1
+        try:
+            return submit(self, *args)
+        finally:
+            with submit_lock:
+                in_flight[0] -= 1
+
+    async def started(cls, *args, **kwargs):
+        v = await start(cls, *args, **kwargs)
+        record["started_s"] = time.monotonic() - t0
+        ready = v.network_syncer.block_verifier.ready
+
+        def watch():
+            ready.wait()
+            record["ready_s"] = time.monotonic() - t0
+            while True:
+                with submit_lock:
+                    if not in_flight[0]:
+                        at_ready.update(submits=record["submits"], launches=launches())
+                        return
+                time.sleep(0.001)
+
+        threading.Thread(target=watch, daemon=True, name="smoke-ready-watch").start()
+        return v
+
+    async def stopped(self):
+        record["stopping_s"] = time.monotonic() - t0
+        doc = self.health.diagnosis()
+        record["health"] = {"status": doc["status"],
+                            "alerts": sorted({a["kind"] for a in doc["alerts"]})}
+        lag = self.host_monitor.loop_lag
+        record["loop_lag_s"] = [lag.percentile(50), lag.percentile(99)]
+        await stop(self)
+        record["committed"] = [[ref.authority, ref.round, ref.digest.hex()]
+                               for ref in self.committed_leaders()]
+        record["final_metrics"] = self.metrics.expose().decode()
+
+    BatchedSignatureVerifier._submit_dispatch = counted_submit
+    Validator.start_benchmarking = classmethod(started)
+    Validator.stop = stopped
+    try:
+        return cli.main(argv)
+    except BaseException as exc:
+        record["error"] = repr(exc)
+        raise
+    finally:
+        torch = sys.modules.get("torch")
+        record.update(
+            since_ready={"submits": record["submits"] - at_ready["submits"],
+                         "launches": {name: n - at_ready["launches"].get(name, 0)
+                                      for name, n in launches().items()}}
+            if at_ready else None,
+            torch_imported=torch is not None,
+            cuda_initialized=bool(torch is not None and torch.cuda.is_initialized()),
+            exit_s=time.monotonic() - t0)
+        with open(out_path, "w") as f:
+            json.dump(record, f)
+
+
+class RouteProbe:
+    """Polls, from a thread, every node's ``/metrics``, ``/health`` and
+    ``/debug/consensus`` on 127.0.0.1 until each has answered once;
+    ``answered[a][route]`` is the first answer's status and body."""
+
+    ROUTES = ("/metrics", "/health", "/debug/consensus")
+
+    def __init__(self, ports, interval_s: float = 1.0) -> None:
+        import threading
+
+        self.ports, self.interval_s = list(ports), interval_s
+        self.answered = [{} for _ in self.ports]
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True, name="route-probe")
+
+    def _get(self, port, route):
+        import urllib.error
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}", timeout=10) as r:
+                return r.status, r.read().decode(errors="replace")
+        except urllib.error.HTTPError as exc:  # /health answers 503 while degraded
+            return exc.code, exc.read().decode(errors="replace")
+        except OSError:
+            return None
+
+    def _run(self):
+        while not self._stop.is_set():
+            for a, port in enumerate(self.ports):
+                for route in self.ROUTES:
+                    if route not in self.answered[a]:
+                        got = self._get(port, route)
+                        if got is not None:
+                            self.answered[a][route] = got
+            if all(len(done) == len(self.ROUTES) for done in self.answered):
+                return
+            self._stop.wait(self.interval_s)
+
+    def start(self) -> "RouteProbe":
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join(30)
+
+
+def final_series(text: str) -> dict:
+    """The samples the node phase reads off a node's final exposition."""
+    from mysticeti_tpu_torch.orchestrator.measurement import iter_series
+
+    out = {"pct": {}, "invalid_blocks": 0.0, "fallback": 0.0, "flushes": 0.0, "dispatched": 0.0,
+           "build": {}, "stage_s": {}}
+    for name, labels, value in iter_series(text):
+        if name == "histogram_pct":
+            out["pct"][(labels["name"], labels["pct"])] = value
+        elif name == "mysticeti_invalid_blocks_total":
+            out["invalid_blocks"] += value
+        elif name == "verifier_fallback_total":
+            out["fallback"] += value
+        elif name == "verify_dispatch_batch_size_count":
+            out["flushes"] += value
+        elif name == "verify_dispatch_batch_size_sum":
+            out["dispatched"] += value
+        elif name.startswith("mysticeti_cuda_build") and name.endswith("_total"):
+            out["build"][name] = out["build"].get(name, 0.0) + value
+        elif name == "verify_pipeline_stage_seconds_sum":
+            out["stage_s"][labels["stage"]] = value
+    return out
+
+
+def free_port_base(n, prefer) -> int:
+    """``prefer`` when its node ports (``base+i``) and metrics ports
+    (``base+1000+i``), ``i < n``, are all free, else the first base from
+    20,000 up, in steps of 100, whose ports are: another run on the machine
+    (a second checkout's script, a test) may hold config 3's."""
+    import socket
+
+    from mysticeti_tpu_torch.config import DEFAULT_METRICS_PORT_OFFSET
+
+    def free(base):
+        for port in [base + i for i in range(n)] + [base + DEFAULT_METRICS_PORT_OFFSET + i
+                                                     for i in range(n)]:
+            with socket.socket() as s:
+                # The servers' bind semantics: TIME_WAIT from an earlier
+                # fleet is fine, a live listener is not.
+                s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+                try:
+                    s.bind(("127.0.0.1", port))
+                except OSError:
+                    return False
+        return True
+
+    for base in [prefer, *range(20000, 40000, 100)]:
+        if free(base):
+            return base
+    raise SmokeFailure(f"no free range of {n} node and {n} metrics ports")
+
+
+def node_fleet(name, kind, config, root, env=None) -> dict:
+    """One fleet of the node phase: ``perf_attr.run_fleet`` with every node
+    started as ``python3 chip_smoke.py --node run ...`` (``node_child``),
+    ``config``'s load and exit time, each node's flight recorder dumping to
+    ``recorder-<authority>.json`` at shutdown, and ``env`` over this
+    process's environment; a ``RouteProbe`` on every node meanwhile.
+    Returns the fleet's document, every node's record, perf report and
+    dump, and the probe's answers."""
+    from types import SimpleNamespace
+
+    from mysticeti_tpu_torch.config import DEFAULT_METRICS_PORT_OFFSET
+    from mysticeti_tpu_torch.tools import perf_attr
+
+    n, wd = config["n"], os.path.join(root, name)
+    os.makedirs(wd, exist_ok=True)
+    port_base = free_port_base(n, config["port_base"])
+    print(f"node {name}: ports {port_base}+i, metrics {port_base + DEFAULT_METRICS_PORT_OFFSET}+i"
+          + ("" if port_base == config["port_base"] else
+             f" (config 3's {config['port_base']}+i are in use)"), flush=True)
+    args = SimpleNamespace(committee_size=n, duration=config["exit_after_s"], tps=config["tps"],
+                           verifier=kind, working_dir=wd, scrape_interval=config["scrape_s"],
+                           round=None, port_base=port_base)
+    env = dict(env or {}, TRANSACTION_SIZE=str(config["transaction_size"]),
+               MYSTICETI_FLIGHT_RECORDER=os.path.join(wd, "recorder-%a.json"),
+               PYTHONHASHSEED=HASH_SEED)
+    probe = RouteProbe(port_base + DEFAULT_METRICS_PORT_OFFSET + a
+                       for a in range(n)).start()
+    t0 = time.monotonic()
+    try:
+        doc = perf_attr.run_fleet(args, node_command=(sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                                                      "--node"), env=env)
+    finally:
+        probe.stop()
+    wall_s = time.monotonic() - t0
+
+    def load(path):
+        try:
+            with open(path) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    nodes = []
+    for a in range(n):
+        node_dir = os.path.join(wd, f"validator-{a}")
+        try:
+            with open(os.path.join(node_dir, "node.log"), errors="replace") as f:
+                log_tail = f.read()[-3000:]
+        except OSError:
+            log_tail = None
+        nodes.append({"record": load(os.path.join(node_dir, "node_smoke.json")),
+                      "log_tail": log_tail,
+                      "report": load(os.path.join(node_dir, "perf_report.json")),
+                      "dump": load(os.path.join(wd, f"recorder-{a}.json")),
+                      "routes": probe.answered[a],
+                      "exit_code": doc["exit_codes"].get(str(a))})
+    return {"name": name, "kind": kind, "doc": doc, "nodes": nodes, "wall_s": wall_s}
+
+
+def node_checks(fleet, config, in_process=False, service=None) -> dict:
+    """The node phase's checks on one fleet (see the module docstring, step
+    17); ``in_process`` makes it a fleet whose nodes launch the kernels in
+    process, ``service`` (the verifier service's launches and dispatches) one
+    whose nodes reach the card through the service.  Returns the readings."""
+    n, name = config["n"], fleet["name"]
+    sequences, readings = [], []
+    for a, node in enumerate(fleet["nodes"]):
+        record = node["record"]
+        check(node["exit_code"] == 0 and record is not None and record["error"] is None,
+              f"{name}: node {a} exited {node['exit_code']} ({record and record['error']}); "
+              f"its log ends: {node['log_tail']}")
+        check(record["exit_s"] - record["started_s"] <= config["exit_after_s"] + config["grace_s"],
+              f"{name}: node {a} took {record['exit_s'] - record['started_s']:.1f} s from its start "
+              f"to its exit")
+        for route in RouteProbe.ROUTES:
+            check(route in node["routes"], f"{name}: node {a} never answered {route}")
+        status, body = node["routes"]["/health"]
+        check(status in (200, 503) and json.loads(body)["status"] in ("ok", "degraded"),
+              f"{name}: node {a}'s /health answered {status}: {body[:200]}")
+        status, body = node["routes"]["/debug/consensus"]
+        check(status == 200 and json.loads(body)["authority"] == a,
+              f"{name}: node {a}'s /debug/consensus answered {status}: {body[:200]}")
+        series = final_series(record["final_metrics"])
+        check(("proposed_block_size_bytes", "50") in series["pct"],
+              f"{name}: node {a}'s final exposition holds no histogram_pct sweep")
+        check(series["invalid_blocks"] == 0,
+              f"{name}: node {a} counted {series['invalid_blocks']:.0f} invalid blocks")
+        check(series["fallback"] == 0,
+              f"{name}: node {a} degraded {series['fallback']:.0f} batches to the CPU oracle")
+        dump = node["dump"]
+        check(dump is not None and dump["authority"] == a and dump["events"],
+              f"{name}: node {a} left no flight-recorder dump with events at shutdown")
+        check(node["report"] is not None, f"{name}: node {a} wrote no perf report")
+        since = record["since_ready"]
+        check(since is not None, f"{name}: node {a}'s verifier never became ready")
+        launches = since["launches"]
+        if in_process:
+            check(record["cuda_initialized"], f"{name}: node {a} never initialized CUDA")
+            check(launches["verify_generic"] == 0,
+                  f"{name}: node {a} launched the generic kernel since its verifier was ready: "
+                  f"{launches}")
+            check(launches["prologue"] == launches["verify_keyed"] == since["submits"] > 0,
+                  f"{name}: node {a}'s launches since its verifier was ready {launches} are not "
+                  f"one prologue and one keyed launch for each of its {since['submits']} "
+                  f"dispatches since then")
+            check(series["flushes"] <= record["submits"],
+                  f"{name}: node {a} finished {series['flushes']:.0f} flushes of "
+                  f"{record['submits']} dispatched")
+        else:
+            check(not any(launches.values()), f"{name}: node {a} launched kernels: {launches}")
+        if service is not None:
+            check(not record["cuda_initialized"],
+                  f"{name}: node {a} initialized CUDA behind the verifier service")
+        sequences.append([tuple(ref) for ref in record["committed"]])
+        window = record["stopping_s"] - record["started_s"]
+        report = node["report"]
+        readings.append({
+            "commits": len(record["committed"]), "window_s": window,
+            "flushes": series["flushes"], "dispatched": series["dispatched"],
+            "submits": record["submits"], "launches": launches,
+            "stage_s": series["stage_s"],
+            "verifier_pack_s": report["subsystem_seconds"].get("verifier-pack", 0.0),
+            "busy_s": sum(s for k, s in report["subsystem_seconds"].items()
+                          if k != "event-loop-idle"),
+            "convoy": report["gil_convoy_ratio"], "mean_runnable": report["mean_runnable"],
+            "loop_lag_s": record["loop_lag_s"], "health": record["health"],
+            "latency_s": [series["pct"].get(("transaction_committed_latency", p))
+                          for p in ("50", "99")],
+            "ready_s": record.get("ready_s"), "started_s": record["started_s"],
+            "build": series["build"], "torch_imported": record["torch_imported"],
+            "cuda_initialized": record["cuda_initialized"]})
+    commits = commit_checks(sequences, config["min_commits"])
+    if service is not None:
+        check(service["launches"]["verify_generic"] == 0,
+              f"{name}: the verifier service launched the generic kernel: {service}")
+        check(service["launches"]["prologue"] == service["launches"]["verify_keyed"]
+              == service["dispatches"] > 0,
+              f"{name}: the verifier service's launches {service['launches']} are not one prologue "
+              f"and one keyed launch for each of its {service['dispatches']:.0f} dispatches")
+        submits = sum(r["submits"] for r in readings)
+        check(submits == service["dispatches"],
+              f"{name}: the nodes dispatched {submits} batches and the verifier service "
+              f"{service['dispatches']:.0f}: a node verified off the service")
+
+    def mean(key):
+        return statistics.fmean(r[key] for r in readings)
+
+    flushes = sum(r["flushes"] for r in readings)
+    statuses = {}
+    for r in readings:
+        label = r["health"]["status"] + (f" {'+'.join(r['health']['alerts'])}"
+                                         if r["health"]["alerts"] else "")
+        statuses[label] = statuses.get(label, 0) + 1
+    return {
+        "kind": fleet["kind"], "nodes": n, "wall_s": fleet["wall_s"],
+        "commits": commits, "prefixes_agree": True,
+        "commits_per_node_wall_s": statistics.fmean(
+            r["commits"] / r["window_s"] for r in readings),
+        "flushes": flushes,
+        "live_lanes": sum(r["dispatched"] for r in readings) / flushes if flushes else 0.0,
+        "submits": sum(r["submits"] for r in readings),
+        # The collectors' device stage (submit: pack, upload, launch; or the
+        # request to the service) and fetch stage (the wait for verdicts),
+        # ms a flush over the fleet.
+        "stage_ms_per_flush": {stage: 1e3 * sum(r["stage_s"].get(stage, 0.0) for r in readings)
+                               / flushes if flushes else 0.0
+                               for stage in ("pack", "device", "fetch")},
+        "verifier_pack_s_per_node": mean("verifier_pack_s"),
+        "busy_s_per_node": mean("busy_s"), "convoy": mean("convoy"),
+        "mean_runnable": mean("mean_runnable"),
+        "loop_lag_p50_s": statistics.fmean(r["loop_lag_s"][0] for r in readings),
+        "loop_lag_p99_s": statistics.fmean(r["loop_lag_s"][1] for r in readings),
+        "health": statuses,
+        "committed_latency_p50_s": median_of(r["latency_s"][0] for r in readings),
+        "committed_latency_p99_s": median_of(r["latency_s"][1] for r in readings),
+        "ready_s": [min(r["ready_s"] or 0.0 for r in readings),
+                    max(r["ready_s"] or 0.0 for r in readings)],
+        "started_s": [min(r["started_s"] for r in readings),
+                      max(r["started_s"] for r in readings)],
+        "build": {k: sum(r["build"].get(k, 0.0) for r in readings)
+                  for k in sorted({k for r in readings for k in r["build"]})},
+        "torch_imported": sum(r["torch_imported"] for r in readings),
+        "cuda_initialized": sum(r["cuda_initialized"] for r in readings),
+        "launches_by_node": [r["launches"] for r in readings],
+        "subsystems": fleet["doc"]["subsystems"],
+        **({"service": service} if service is not None else {}),
+    }
+
+
+def median_of(values):
+    """The median of the values that are not None (None if there are none):
+    a node that committed no transaction has no committed-latency sweep."""
+    values = [v for v in values if v is not None]
+    return statistics.median(values) if values else None
+
+
+def node_phase(kernels, config=None):
+    """node-proc-10, node-svc-10 and the ``cpu`` kind's fleet, with the
+    checks of the module docstring, step 17.  Returns the node-proc fleet's
+    launches (summed over its processes, each counted from its verifier's
+    ``ready``), the verifier service's, and the readings."""
+    import tempfile
+
+    from mysticeti_tpu_torch.committee import Committee
+    from mysticeti_tpu_torch.verifier_service import ENV_SOCKET
+
+    config = config or NODE_10
+    n = config["n"]
+    readings = {}
+    with tempfile.TemporaryDirectory(prefix="node-") as root:
+        proc = node_fleet("node-proc-10", "cuda-only", config, root)
+        readings["node_proc_10"] = node_checks(proc, config, in_process=True)
+        proc_launches = {k.name: sum(by_node.get(k.name, 0) for by_node in
+                                     readings["node_proc_10"]["launches_by_node"])
+                         for k in kernels}
+        path = os.path.join(HERE, "build", "svc", "node.sock")
+        service = ServiceThread(path, Committee.new_for_benchmarks(n).public_key_bytes(), "cuda:0")
+        service.start()
+        try:
+            for k in kernels:
+                k.reset_counts()
+            svc = node_fleet("node-svc-10", "cuda-only", config, root, env={ENV_SOCKET: path})
+            svc_launches = {k.name: k.launches for k in kernels}
+        finally:
+            service.stop()
+        dispatches = service.server.metrics.registry.get_sample_value(
+            "verify_dispatch_batch_size_count") or 0.0
+        readings["node_svc_10"] = node_checks(
+            svc, config, service={"launches": svc_launches, "dispatches": dispatches})
+        cpu = node_fleet("node-cpu-10", "cpu", config, root)
+        readings["node_cpu_10"] = node_checks(cpu, config)
+    readings["card"] = card_line()
+    for key in ("node_proc_10", "node_svc_10", "node_cpu_10"):
+        r = readings[key]
+        print(f"node {key.replace('_', '-')} ({r['kind']}): {n} validator processes, "
+              f"{config['exit_after_s']} s each ({r['wall_s']:.1f} s the fleet), commits a node "
+              f"{min(r['commits'])}-{max(r['commits'])} ({r['commits_per_node_wall_s']:.3f} a wall "
+              f"second), prefixes agree; {r['flushes']:.0f} flushes at {r['live_lanes']:.2f} live "
+              f"lanes ({r['submits']} dispatched), stage ms a flush "
+              f"{ {k: round(v, 3) for k, v in r['stage_ms_per_flush'].items()} }; a node: "
+              f"verifier-pack "
+              f"{r['verifier_pack_s_per_node']:.3f} of {r['busy_s_per_node']:.3f} busy thread-s, "
+              f"convoy {r['convoy']:.4f}, mean runnable {r['mean_runnable']:.3f}, loop lag p50 "
+              f"{r['loop_lag_p50_s']:.4f} p99 {r['loop_lag_p99_s']:.4f} s; /health {r['health']}; "
+              f"transaction_committed_latency p50 {r['committed_latency_p50_s']} p99 "
+              f"{r['committed_latency_p99_s']} s; verifier ready {r['ready_s']} s after the "
+              f"process start (started {r['started_s']}); builds {r['build']}; torch imported "
+              f"{r['torch_imported']}, CUDA initialized {r['cuda_initialized']}; "
+              f"{'service ' + json.dumps(r['service']) if 'service' in r else ''} "
+              f"[{readings['card']}]", flush=True)
+    return proc_launches, svc_launches, readings
+
+
 def bench_phase() -> dict:
     """``python -m mysticeti_tpu_torch.bench`` as a child, on BENCH_ENV."""
     env = dict(os.environ, **BENCH_ENV)
@@ -4458,6 +4969,7 @@ def run() -> int:
     by_path["epoch"], epoch = epoch_phase(K.KERNELS)
     by_path["ingress"], ingress = ingress_phase(K.KERNELS)
     by_path["health_tcp"], by_path["health_sim"], health = health_phase(K.KERNELS)
+    by_path["node_proc"], by_path["node_svc"], node = node_phase(K.KERNELS)
     bench = bench_phase()
     # The block path's flushes take the keyed kernel, one key per lane, and
     # never the generic one; the committee dispatch's 8 stragglers take the
@@ -4494,7 +5006,8 @@ def run() -> int:
                       "flat_vs_26col": layout, "sharded": sharded, "hybrid": hybrid,
                       "service": service, "receive": receive, "consensus": consensus,
                       "net_sync": net_sync, "storage": storage, "epoch": epoch,
-                      "ingress": ingress, "health": health, "metrics": metrics_reading,
+                      "ingress": ingress, "health": health, "node": node,
+                      "metrics": metrics_reading,
                       "bench": bench}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4654,6 +5167,26 @@ def health_only() -> int:
     tcp_launches, sim_launches, reading = health_phase(K.KERNELS)
     print(json.dumps({"health": reading, "launches": {"health_tcp": tcp_launches,
                                                       "health_sim": sim_launches}},
+                     default=str), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def node_only() -> int:
+    """The node phase alone: ``python3 -c 'import chip_smoke as c;
+    raise SystemExit(c.main(c.node_only))'``."""
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    proc_launches, svc_launches, reading = node_phase(K.KERNELS)
+    print(json.dumps({"node": reading, "launches": {"node_proc": proc_launches,
+                                                    "node_svc": svc_launches}},
                      default=str), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4894,6 +5427,8 @@ def main(entry=run, *args) -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--node"]:
+        sys.exit(node_child(sys.argv[2:]))
     if sys.argv[1:2] == ["--times"]:
         sys.exit(main(kernel_times, *sys.argv[2:4]))
     sys.exit(main())

@@ -1,0 +1,5 @@
+from .cli import main
+
+import sys
+
+sys.exit(main())

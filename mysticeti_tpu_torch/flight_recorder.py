@@ -1,9 +1,6 @@
 """Always-on flight recorder: the seconds that led up to the incident.
 
-The port's copy of ``mysticeti_tpu.flight_recorder``, without the
-``MYSTICETI_FLIGHT_RECORDER`` path rule (``path_from_env``) and
-``Validator.stop``'s shutdown dump, which come back with the node assembly
-that calls them.
+The port's copy of ``mysticeti_tpu.flight_recorder``.
 
 When an SLO alert or a chaos safety failure fires, the metrics say *that*
 something broke and the spans say where committed blocks spent their time —
@@ -18,9 +15,13 @@ module is the bounded black box that does:
   attribution plane's ``blocking-call`` detections — hostattr.py flags a
   synchronous hold of the core owner past the threshold — never per
   message).  The ring is lock-disciplined (``_ring_lock``) because dumps
-  may be requested from the metrics endpoint while the loop records.
+  may be requested from the metrics endpoint or a signal path while the
+  loop records.
 * Dump triggers, all writing the SAME canonical JSON document atomically
   (tmp + rename):
+  - orderly shutdown / SIGTERM — ``Validator.stop`` dumps to the path from
+    ``MYSTICETI_FLIGHT_RECORDER`` (``%p`` expands to the pid, ``%a`` to the
+    authority);
   - ``GET /debug/flight-recorder`` on the metrics endpoint returns the
     document live (``metrics.serve_metrics``);
   - SLO alert transitions — the health watchdog calls :meth:`on_alert`,
@@ -45,6 +46,8 @@ from .tracing import logger
 
 log = logger(__name__)
 
+ENV_FLIGHT_RECORDER = "MYSTICETI_FLIGHT_RECORDER"
+
 # Ring capacity: at edge granularity (commits batched per handle_commit,
 # transitions, churn) a busy node records a few events per second, so 4096
 # holds many minutes of history in ~1 MB — enough to cover any alert's
@@ -53,6 +56,22 @@ DEFAULT_CAPACITY = 4096
 
 # Minimum seconds between alert-triggered dumps (runtime-clocked).
 ALERT_DEBOUNCE_S = 30.0
+
+
+def path_from_env(authority: Optional[int] = None) -> Optional[str]:
+    """The dump path from ``MYSTICETI_FLIGHT_RECORDER`` (``%p`` -> pid,
+    ``%a`` -> authority index), or None when the operator did not ask for
+    on-disk dumps (the ring still records — the debug route serves it).
+    ``%a`` matters for the in-process testbed, where every validator shares
+    one pid and a bare ``%p`` path would leave only the last-stopped
+    node's dump."""
+    path = os.environ.get(ENV_FLIGHT_RECORDER)
+    if not path:
+        return None
+    path = path.replace("%p", str(os.getpid()))
+    if authority is not None:
+        path = path.replace("%a", str(authority))
+    return path
 
 
 def _canonical(obj) -> bytes:
@@ -77,7 +96,7 @@ class FlightRecorder:
         self.alert_debounce_s = alert_debounce_s
         self._ring_lock = threading.Lock()
         # Guarded by _ring_lock: the loop thread records while the metrics
-        # endpoint snapshots.
+        # endpoint / a signal path snapshots.
         self._flight_ring: Deque[dict] = deque(maxlen=self.capacity)
         self.recorded = 0
         self.dropped = 0

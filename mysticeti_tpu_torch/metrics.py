@@ -27,17 +27,17 @@ family keeps the JAX package's name, help, labels and buckets, except the
 JAX compile and compile-cache families, which become the kernels' build
 families (``mysticeti_cuda_build*``, see
 ``ops.ed25519.install_device_attribution``).  ``serve_metrics`` serves
-``/metrics``, ``/healthz``, and with a probe or a recorder wired ``/health``
-and ``/debug/flight-recorder``; the periodic percentile reporter and the
-``/debug/consensus`` route come back with the node assembly that starts
-them.
+``/metrics``, ``/healthz``, and with a probe, a recorder or a consensus
+document wired ``/health``, ``/debug/flight-recorder`` and
+``/debug/consensus``.  ``MetricReporter`` publishes the exact-percentile
+channels as the ``histogram_pct`` gauges (stat.rs, metrics.rs:534-601).
 """
 from __future__ import annotations
 
 import asyncio
 import time
 from contextlib import contextmanager
-from typing import List, Optional
+from typing import Dict, List, Optional, Sequence
 
 from prometheus_client import (
     CollectorRegistry,
@@ -46,6 +46,11 @@ from prometheus_client import (
     Histogram,
     generate_latest,
 )
+
+from .tracing import logger
+from .utils.tasks import spawn_logged
+
+log = logger(__name__)
 
 LATENCY_SEC_BUCKETS = [
     0.1, 0.25, 0.5, 0.75, 1.0, 1.25, 1.5, 1.75, 2.0, 2.5, 5.0, 10.0, 20.0,
@@ -81,10 +86,9 @@ class PreciseHistogram:
     (Algorithm R) of every observation, so a window busier than
     ``max_samples`` still yields representative percentiles instead of
     freezing on its first ``max_samples`` arrivals (the warmup seconds, the
-    worst possible sample).  ``count``/``sum`` stay cumulative.  The
-    reporter that reads the percentiles and drains the window each sweep
-    (metrics.rs:534-601), with the JAX class's ``pcts`` / ``avg`` /
-    ``clear``, waits for the node assembly that runs it.
+    worst possible sample).  ``count``/``sum`` stay cumulative; the reporter
+    reads the percentiles and drains the window each sweep
+    (metrics.rs:534-601).
     """
 
     __slots__ = ("samples", "count", "sum", "max_samples", "_window_count",
@@ -147,6 +151,23 @@ class PreciseHistogram:
         hit = slots < cap
         for slot, value in zip(slots[hit], np.asarray(values)[hit]):
             self.samples[slot] = float(value)
+
+    def pcts(self, pcts: Sequence[int]) -> Optional[Dict[int, float]]:
+        if not self.samples:
+            return None
+        ordered = sorted(self.samples)
+        out = {}
+        for pct in pcts:
+            idx = min(len(ordered) - 1, int(len(ordered) * pct / 100))
+            out[pct] = ordered[idx]
+        return out
+
+    def avg(self) -> float:
+        return self.sum / self.count if self.count else 0.0
+
+    def clear(self) -> None:
+        self.samples.clear()
+        self._window_count = 0
 
 
 class Metrics:
@@ -739,11 +760,14 @@ class Metrics:
             "latency from closed-loop generators",
         )
 
-        # Exact-percentile channels (stat.rs).  Their periodic reporter
-        # (the ``histogram_pct`` gauges) waits for the node assembly that
-        # runs it.
+        # Exact-percentile channels (stat.rs), reported as gauges.
+        self._precise: Dict[str, PreciseHistogram] = {}
+        self._pct_gauge = gauge(
+            "histogram_pct", "exact percentiles", labels=("name", "pct")
+        )
         for name in PRECISE_CHANNELS:
-            setattr(self, name, PreciseHistogram())
+            self._precise[name] = PreciseHistogram()
+            setattr(self, name, self._precise[name])
 
     def observe_latency_batch(self, workload: str, latencies) -> None:
         """Vectorized ``latency_s.observe`` + ``latency_squared_s.inc`` over a
@@ -792,12 +816,54 @@ class Metrics:
                 int((time.monotonic() - start) * 1e6)
             )
 
+    def report_precise(self) -> None:
+        """One reporter sweep: publish exact percentiles, then DRAIN
+        (metrics.rs:534-601 — the reference's histogram channel empties per
+        sweep, so gauges track the last window; a quiet window keeps the
+        previous published value)."""
+        for name, hist in self._precise.items():
+            pcts = hist.pcts((50, 90, 99))
+            if pcts is None:
+                continue
+            for pct, value in pcts.items():
+                self._pct_gauge.labels(name, str(pct)).set(value)
+            hist.clear()
+
     def expose(self) -> bytes:
         return generate_latest(self.registry)
 
 
+class MetricReporter:
+    """Periodic exact-percentile publisher (metrics.rs:534-601, 60 s cadence)."""
+
+    def __init__(self, metrics: Metrics, interval_s: float = 60.0) -> None:
+        self.metrics = metrics
+        self.interval_s = interval_s
+        self._task: Optional[asyncio.Task] = None
+
+    def start(self) -> "MetricReporter":
+        self._task = spawn_logged(self._run(), log, name="metric-reporter")
+        return self
+
+    async def _run(self) -> None:
+        while True:
+            await asyncio.sleep(self.interval_s)
+            self.metrics.report_precise()
+
+    def stop(self, final: bool = False) -> None:
+        """Cancel the periodic task; ``final=True`` publishes one last
+        percentile sweep so an orderly shutdown never loses the window that
+        accumulated since the previous 60 s tick (short runs lose their
+        ENTIRE sample set without it)."""
+        if self._task is not None:
+            self._task.cancel()
+        if final:
+            self.metrics.report_precise()
+
+
 async def serve_metrics(metrics: Metrics, host: str, port: int,
-                        health_probe=None, flight_recorder=None):
+                        health_probe=None, flight_recorder=None,
+                        consensus_debug=None):
     """Minimal asyncio HTTP endpoint: ``/metrics`` for the scraper,
     ``/healthz`` (200 + uptime) for liveness probes, and — when a
     :class:`~mysticeti_tpu_torch.health.HealthProbe` is wired — ``/health``,
@@ -805,7 +871,10 @@ async def serve_metrics(metrics: Metrics, host: str, port: int,
     so the route doubles as a readiness gate).  With a
     :class:`~mysticeti_tpu_torch.flight_recorder.FlightRecorder` wired,
     ``/debug/flight-recorder`` serves the live event-ring dump (the same
-    canonical document the alert dumps write)."""
+    canonical document the SIGTERM/alert dumps write).  ``consensus_debug``
+    is a zero-arg callable returning the live consensus-state document (DAG
+    frontier, undecided slots, threshold-clock round, last-K decision
+    records) served on ``/debug/consensus``."""
     import json as _json
 
     started = time.monotonic()
@@ -831,6 +900,13 @@ async def serve_metrics(metrics: Metrics, host: str, port: int,
                 and flight_recorder is not None
             ):
                 body = flight_recorder.snapshot_bytes() + b"\n"
+                content_type = b"application/json"
+            elif (
+                path.split("?", 1)[0] == "/debug/consensus"
+                and consensus_debug is not None
+            ):
+                doc = consensus_debug()
+                body = (_json.dumps(doc, sort_keys=True) + "\n").encode()
                 content_type = b"application/json"
             elif path.split("?", 1)[0] == "/health" and health_probe is not None:
                 doc = health_probe.diagnosis()

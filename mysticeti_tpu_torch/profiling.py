@@ -102,8 +102,10 @@ SUBSYSTEMS: Dict[str, str] = {
     "monitor": "tooling", "orchestrator": "tooling", "plot": "tooling",
     "providers": "tooling", "runner": "tooling", "settings": "tooling",
     "ssh": "tooling", "testbed": "tooling", "validator": "tooling",
-    # The entry points, the benchmark and the flamegraph renderer's CLI.
+    # The entry points, the benchmark, the flamegraph renderer's CLI and
+    # the node-a-process attribution probe.
     "entry": "tooling", "bench": "tooling", "mkflamegraph": "tooling",
+    "perf_attr": "tooling",
     # Runtime facade + the deterministic loop.
     "__init__": "runtime", "simulated": "runtime",
 }
