@@ -298,14 +298,46 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    mean runnable threads (its own perf report), loop lag p50 / p99,
    ``/health`` statuses, ``transaction_committed_latency`` p50 / p99, the
    seconds to the verifier's ``ready`` and the kernels' build hits.
-18. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
+18. Byzantine (byzantine-10): the resilience matrix's ``byzantine-at-f``
+   through the port's ``scenarios.run_scenario(..., real_crypto=True)``:
+   config 3's 10 validators (``Committee.new_for_benchmarks(10)``, seed 7,
+   0.3 s leader timeout) as a ``ChaosSimHarness`` fleet under the
+   deterministic loop for 10 virtual s, node 7 equivocating (a re-signed
+   variant of each own block to half its peers), node 8 withholding its
+   blocks from all but two peers and node 9 shipping its blocks with a
+   flipped signature; then the clean twin (same seed, no adversaries).
+   Every node's collector (the scenario's 0.002 s window) dispatches to one
+   ``TorchSignatureVerifier`` on cuda:0, made and warmed before the counts
+   are set to 0; the counts are read and set to 0 between the twins.
+   Checks: safety held and no divergence names an honest node; the honest
+   committed sequences are prefixes of one; every honest node commits at
+   least half its seeded leaders; the attacks and their ledger digest, every
+   honest node's ``invalid_blocks`` census of ``authority=9,reason=
+   signature`` and the per-node counts equal ``BYZANTINE_SEEDED``; every
+   equivocation is attributed to node 7 alone; node 9 has at most one
+   committed block (its genesis) in any honest store; every verdict the
+   card gave equals the sim re-sign oracle's on the same (key, digest,
+   signature) (computed after the run) and they reject as many; each twin
+   launches one prologue and one keyed kernel a collector flush and the
+   generic kernel never; the scenario's own verdict passes (ratio at least
+   its 0.8, every attack detected, safety) and its document's digest is
+   the seeded one.  ``byzantine_only`` also runs the sim re-sign oracle's
+   twin here and requires the same document.
+19. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
    workers, 8 iterations, 2 trials and a 30 s budget; its JSON line must
    come from rung 0 with a value above 0.
-Each path of steps 3-17 (the block path and the committee dispatch of step 3
+Each path of steps 3-18 (the block path and the committee dispatch of step 3
 apart) runs with every launch count set to 0 just before it and read just
-after (node-proc-10's in its processes, from each verifier's ``ready``); every kernel
-must have launched on some path.
-19. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+after (node-proc-10's in its processes, from each verifier's ``ready``;
+byzantine-10's for each twin); every kernel must have launched on some path.
+The whole script skips the ``cpu`` control run of steps 11, 13, 14, 15,
+netsync-50 of step 12 and health-sim-10 of step 16: their seeded constants
+(``CONSENSUS_SEEDED``, ``NETSYNC_SEEDED``, ``STORAGE_SEEDED``,
+``EPOCH_SEEDED``, ``INGRESS_SEEDED``, ``HEALTH_SEEDED``) alone hold the card
+there (each ``<phase>_only`` keeps the control and its comparison; the
+consensus and netsync-50 counts carry a digest of every node's committed
+sequence and own blocks, which the control compared).
+20. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Every phase runs under ``PYTHONHASHSEED=0`` (``main`` runs the command
@@ -319,8 +351,8 @@ phase fails.
 One phase alone: ``python3 -c 'import chip_smoke as c; raise
 SystemExit(c.main(c.receive_only))'`` (likewise ``consensus_only``,
 ``net_sync_only``, ``storage_only``, ``epoch_only``, ``ingress_only``,
-``health_only``, ``node_only``, and ``sharded_only`` for a host with several
-cards).  Not
+``health_only``, ``node_only``, ``byzantine_only``, and ``sharded_only`` for a
+host with several cards).  Not
 in the default run: ``receive_split`` (where the receive burst's host time
 goes) and ``consensus_trace`` (the card's busy share in step 11, from a
 ``torch.profiler`` trace).
@@ -413,6 +445,15 @@ CONSENSUS_LEADER_TIMEOUT_S = 1.0
 CONSENSUS_PUMP_S = 0.25
 CONSENSUS_FORGE_ONE_IN = 50  # deliveries preceded by a copy with a flipped signature bit
 CONSENSUS_MIN_COMMITS = 8
+# From ``seeded_counts(consensus_run("cpu", COMMITTEE, CONSENSUS_VIRTUAL_S,
+# SEED), CONSENSUS_KEYS)`` under ``PYTHONHASHSEED=0``, as
+# ``tests/test_torch_seeded_cells.py`` recomputes it on the CPU: the card
+# must commit the same sequences (``chain``) and own blocks.
+CONSENSUS_KEYS = ("deliveries", "forged")
+CONSENSUS_SEEDED = {
+    "rounds": [14] * 50, "commits": [11] * 50, "deliveries": 32631, "forged": 627,
+    "chain": "f970a88e10cca045a2bca8d940bdd06476a58c8cd9bbd32def8633ed9e394f92",
+}
 # The net_sync phase: the node's own network plane (NetworkSyncer) in place
 # of the consensus phase's stand-in relay.  netsync-50 runs config 4's 50
 # authorities over the port's SimulatedNetwork (its 50-100 ms one way) for
@@ -424,6 +465,15 @@ NETSYNC_REDELIVER_S = (0.0, 0.1)  # a re-delivery's extra delay: 0, or drawn fro
 NETSYNC_TCP_NODES = 10  # BASELINE.json config 3: 10 validators on one host
 NETSYNC_TCP_WALL_S = 10.0
 NETSYNC_TCP_MIN_COMMITS = 3
+# From ``seeded_counts(netsync_run("cpu", COMMITTEE, CONSENSUS_VIRTUAL_S,
+# SEED), NETSYNC_KEYS)`` under ``PYTHONHASHSEED=0``, as
+# ``tests/test_torch_seeded_cells.py`` recomputes it on the CPU.
+NETSYNC_KEYS = ("received", "fresh", "to_verify", "forged", "forged_injected", "redelivered")
+NETSYNC_SEEDED = {
+    "rounds": [13] * 50, "commits": [10] * 50, "received": 31057, "fresh": 30759,
+    "to_verify": 30438, "forged": 602, "forged_injected": 640, "redelivered": 668,
+    "chain": "2b3a38b03c8e978ef41ac72ba1709a4f3bf595945ac05d478dfb6e347b453218",
+}
 # The storage phase (storage-10): config 3's 10 validators over the
 # SimulatedNetwork with the storage lifecycle on
 # (``tests/test_storage_lifecycle.py``'s segment, checkpoint and catch-up
@@ -657,6 +707,34 @@ NODE_10 = {"n": 10, "tps": 1000, "transaction_size": 512, "exit_after_s": 20.0,
 # A run's committed sequences hang on the process's ``bytes`` hash salt (the
 # block fetcher requests missing blocks in a set's order), so ``main`` runs
 # every phase under this one ``PYTHONHASHSEED``.
+# The byzantine phase (byzantine-10): the resilience matrix's
+# ``byzantine-at-f`` (``scenarios.default_matrix()``): BASELINE.json config
+# 3's committee size, ``Committee.new_for_benchmarks(10)`` with f = 3
+# adversaries (node 7 equivocates, node 8 withholds, node 9 signs invalidly),
+# seed 7, a 0.3 s leader timeout and the harness's ``TestBlockHandler``
+# payload, run as ``scenarios.run_scenario(..., real_crypto=True)``: the
+# attacked run and its clean twin, every node's collector (0.002 s window)
+# over one ``TorchSignatureVerifier`` on cuda:0.  Depth cut from the
+# scenario's 20 virtual s to 10: at 8 the scenario's own verdict fails its
+# 0.8 throughput ratio (0.7756; 0.8288 at 10).
+BYZANTINE_10 = {"scenario": "byzantine-at-f", "virtual_s": 10.0, "adversaries": (7, 8, 9),
+                "equivocator": 7, "invalid_signer": 9}
+# From ``byzantine_counts(byzantine_run(scenarios, BYZANTINE_10))`` (the
+# port's sim re-sign oracle, whose verdicts the card's must equal, so every
+# count below is the card run's too) under ``PYTHONHASHSEED=0``;
+# ``tests/test_torch_byzantine.py`` holds it equal to the JAX package's run.
+# Recompute it when anything on the path changes.
+BYZANTINE_SEEDED = {
+    "commits": [67] * 10, "clean_commits": [112, 111, 111, 112, 112, 112, 112, 112, 112, 112],
+    "flushes": [8679, 9622], "lanes": [9320, 10259], "rejected": [864, 0],
+    "attack_counts": {"equivocate-mint:7": 81, "equivocate:7": 475, "invalid_sig:9": 873,
+                      "withhold:8": 680},
+    "attack_digest": "07b8af3fce43448e88748db85d3aef736f546d6f97f267be17f9272b49c2fdba",
+    "invalid_signature": [96] * 9 + [0],
+    "equivocation": [{"authority=7": n} for n in (81, 80, 81, 81, 81, 80, 80, 78, 80, 81)],
+    "node9_blocks": [1] * 10,
+    "document": "8872bd90488fa125b89d18d1c677193cec0a9ff3ab429e29d2539033d28c5fcf",
+}
 HASH_SEED = "0"
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -668,6 +746,15 @@ class SmokeFailure(Exception):
 def check(cond, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def control_text(cpu) -> str:
+    """What a phase's card run was held to besides its seeded constant."""
+    return "the cpu run's and " if cpu is not None else ""
+
+
+def control_seconds(cpu) -> str:
+    return f"{cpu['wall_s']:.1f} s on the cpu kind" if cpu is not None else "no cpu run"
 
 
 def card_line() -> str:
@@ -1926,28 +2013,51 @@ def commit_checks(sequences, min_commits) -> list:
     return commits
 
 
+def chain_digest(result) -> str:
+    """SHA-256 over every node's committed sequence and own blocks
+    (authority, round, digest of each reference)."""
+    import hashlib
+
+    refs = [[[r.authority, r.round, bytes(r.digest).hex()] for r in seq]
+            for key in ("sequences", "own_blocks") for seq in result[key]]
+    return hashlib.sha256(json.dumps(refs).encode()).hexdigest()
+
+
+def seeded_counts(result, keys) -> dict:
+    """A simulated cell's rounds and commits a node, ``keys`` of ``result``
+    and the digest of its sequences and own blocks: what a seeded run must
+    reproduce on any host and backend."""
+    return {"rounds": result["rounds"], "commits": [len(seq) for seq in result["sequences"]],
+            **{key: result[key] for key in keys}, "chain": chain_digest(result)}
+
+
 def consensus_checks(card, cpu, min_commits) -> dict:
     """Checks 1-4 of the consensus phase on the card run and the ``cpu``
-    run of the same seed; returns the readings they share."""
+    run of the same seed (with ``cpu`` None, the whole script, the
+    comparison is left to ``CONSENSUS_SEEDED``); returns the readings they
+    share."""
     commits = commit_checks(card["sequences"], min_commits)
     check(card["forged"] > 0, "no forged copy was delivered")
     check(card["forged_rejected"] == card["forged"],
           f"{card['forged'] - card['forged_rejected']} forged copies were accepted")
     check(card["forged_stored"] == 0, "a forged block is in a node's store")
     check(card["honest_rejected"] == 0, f"{card['honest_rejected']} honest blocks were rejected")
-    check(card["sequences"] == cpu["sequences"], "the committed sequences differ from the cpu run's")
-    check(card["own_blocks"] == cpu["own_blocks"], "the own blocks differ from the cpu run's")
+    if cpu is not None:
+        check(card["sequences"] == cpu["sequences"],
+              "the committed sequences differ from the cpu run's")
+        check(card["own_blocks"] == cpu["own_blocks"], "the own blocks differ from the cpu run's")
     return {"commits_min": min(commits), "commits_max": max(commits),
             "rounds_min": min(card["rounds"]), "rounds_max": max(card["rounds"]),
             "deliveries": card["deliveries"], "signatures_verified": card["signatures_verified"],
             "forged": card["forged"], "forged_rejected": card["forged_rejected"]}
 
 
-def consensus_phase(kernels):
+def consensus_phase(kernels, control=True):
     """The consensus-50 cell: the same seeded simulation over the card
     (``cuda-only`` collectors sharing one ``TorchSignatureVerifier`` on
     cuda:0) and over the ``cpu`` kind, with the six checks (see the module
-    docstring, step 11)."""
+    docstring, step 11).  ``control`` False (the whole script) skips the
+    ``cpu`` run: ``CONSENSUS_SEEDED`` alone holds the card."""
     from mysticeti_tpu_torch.block_validator import TorchSignatureVerifier
     from mysticeti_tpu_torch.committee import Committee
     from mysticeti_tpu_torch.metrics import Metrics
@@ -1961,8 +2071,10 @@ def consensus_phase(kernels):
         k.reset_counts()
     card = consensus_run("cuda-only", n, virtual_s, seed, backend=backend, metrics=metrics)
     launches = {k.name: k.launches for k in kernels}
-    cpu = consensus_run("cpu", n, virtual_s, seed)
+    cpu = consensus_run("cpu", n, virtual_s, seed) if control else None
     reading = consensus_checks(card, cpu, CONSENSUS_MIN_COMMITS)
+    counts = seeded_counts(card, CONSENSUS_KEYS)
+    check(counts == CONSENSUS_SEEDED, f"the counts differ from the seeded ones: {counts}")
     check(launches["prologue"] > 0 and launches["verify_keyed"] > 0,
           f"the consensus path did not take the prologue and the keyed kernel: {launches}")
     check(launches["verify_generic"] == 0,
@@ -1978,17 +2090,18 @@ def consensus_phase(kernels):
           f"verified {card['signatures_verified']}")
     reading.update({
         "committee": n, "virtual_s": virtual_s, "seed": seed, "card_wall_s": card["wall_s"],
-        "cpu_wall_s": cpu["wall_s"], "deliveries_per_wall_s": card["deliveries"] / card["wall_s"],
+        "cpu_wall_s": cpu and cpu["wall_s"],
+        "deliveries_per_wall_s": card["deliveries"] / card["wall_s"],
         "signatures_on_card": on_card, "flushes": flushes,
         "mean_live_lanes": dispatched / flushes if flushes else 0.0,
         "stage_seconds": stage_seconds(metrics),
         "launches": launches, "card": card_line()})
     print(f"consensus: {n} authorities, {virtual_s} virtual s, rounds "
           f"{reading['rounds_min']}-{reading['rounds_max']}, commits a node "
-          f"{reading['commits_min']}-{reading['commits_max']}, prefixes agree and equal the cpu "
-          f"run's; {card['deliveries']} deliveries ({card['forged']} forged, all rejected) in "
-          f"{card['wall_s']:.1f} s on the card ({reading['deliveries_per_wall_s']:.1f}/s), "
-          f"{cpu['wall_s']:.1f} s on the cpu kind; {flushes:.0f} flushes, "
+          f"{reading['commits_min']}-{reading['commits_max']}, prefixes agree and equal "
+          f"{control_text(cpu)}the seeded counts; {card['deliveries']} deliveries "
+          f"({card['forged']} forged, all rejected) in {card['wall_s']:.1f} s on the card "
+          f"({reading['deliveries_per_wall_s']:.1f}/s), {control_seconds(cpu)}; {flushes:.0f} flushes, "
           f"{reading['mean_live_lanes']:.2f} live lanes a flush; launches {launches} "
           f"[{reading['card']}]", flush=True)
     return launches, reading
@@ -2371,11 +2484,14 @@ def card_checks(result) -> dict:
 
 def netsync_checks(card, cpu, min_commits) -> dict:
     """Checks 1-4 of netsync-50 on the card run and the ``cpu`` run of the
-    same seed; returns the readings they share."""
+    same seed (with ``cpu`` None, the whole script, the comparison is left
+    to ``NETSYNC_SEEDED``); returns the readings they share."""
     commits = commit_checks(card["sequences"], min_commits)
     forged_checks(card)
-    check(card["sequences"] == cpu["sequences"], "the committed sequences differ from the cpu run's")
-    check(card["own_blocks"] == cpu["own_blocks"], "the own blocks differ from the cpu run's")
+    if cpu is not None:
+        check(card["sequences"] == cpu["sequences"],
+              "the committed sequences differ from the cpu run's")
+        check(card["own_blocks"] == cpu["own_blocks"], "the own blocks differ from the cpu run's")
     return {"commits_min": min(commits), "commits_max": max(commits),
             "rounds_min": min(card["rounds"]), "rounds_max": max(card["rounds"]),
             "blocks_received": card["received"], "fresh": card["fresh"],
@@ -2476,10 +2592,12 @@ def netsync_tcp_checks(result, min_commits) -> dict:
             "wall_s": result["wall_s"], "commits_per_wall_s": result["commits_per_wall_s"]}
 
 
-def net_sync_phase(kernels):
+def net_sync_phase(kernels, control=True):
     """The net_sync phase: netsync-50 over the card and over the ``cpu``
     kind, then netsync-tcp-10 (see the module docstring, step 12).  Returns
-    the launches of each part and the readings."""
+    the launches of each part and the readings.  ``control`` False (the
+    whole script) skips netsync-50's ``cpu`` run: ``NETSYNC_SEEDED`` alone
+    holds the card."""
     import tempfile
 
     from mysticeti_tpu_torch.block_validator import TorchSignatureVerifier
@@ -2496,20 +2614,23 @@ def net_sync_phase(kernels):
         k.reset_counts()
     card = netsync_run("cuda-only", n, virtual_s, seed, backend=backend, metrics=metrics)
     launches = {k.name: k.launches for k in kernels}
-    cpu = netsync_run("cpu", n, virtual_s, seed)
+    cpu = netsync_run("cpu", n, virtual_s, seed) if control else None
     reading = netsync_checks(card, cpu, CONSENSUS_MIN_COMMITS)
+    counts = seeded_counts(card, NETSYNC_KEYS)
+    check(counts == NETSYNC_SEEDED, f"the counts differ from the seeded ones: {counts}")
     check(launches["prologue"] > 0 and launches["verify_keyed"] > 0,
           f"the net_sync path did not take the prologue and the keyed kernel: {launches}")
     check(launches["verify_generic"] == 0, f"the net_sync path launched the generic kernel: {launches}")
     signatures = netsync_signatures(metrics, card)
     reading.update({
         "committee": n, "virtual_s": virtual_s, "seed": seed, "card_wall_s": card["wall_s"],
-        "cpu_wall_s": cpu["wall_s"], "signatures_on_card": signatures.pop("on_backend"),
+        "cpu_wall_s": cpu and cpu["wall_s"], "signatures_on_card": signatures.pop("on_backend"),
         **signatures, "launches": launches, "card": card_line()})
     print(f"net_sync netsync-50: {n} authorities, {virtual_s} virtual s, rounds "
           f"{reading['rounds_min']}-{reading['rounds_max']}, commits a node "
-          f"{reading['commits_min']}-{reading['commits_max']}, prefixes agree and equal the cpu "
-          f"run's; {card['received']} blocks received, {card['fresh']} fresh, "
+          f"{reading['commits_min']}-{reading['commits_max']}, prefixes agree and equal "
+          f"{control_text(cpu)}the seeded counts; {card['received']} blocks received, "
+          f"{card['fresh']} fresh, "
           f"{reading['signatures_on_card']:.0f} verified on the card, open at stop "
           f"{reading['open_at_stop']}; {card['redelivered']} blocks re-delivered, the dedup "
           f"saved {reading['dedup_saved']} {reading['dedup_saved_by']}; {card['forged']} forged copies verified "
@@ -2517,7 +2638,7 @@ def net_sync_phase(kernels):
           f"{reading['flushes']:.0f} flushes, {reading['mean_live_lanes']:.2f} live "
           f"lanes a flush; core queue {card['core_lock']}, missing {card['missing_blocks']}, "
           f"frame cache {card['frame_cache']}; {card['wall_s']:.1f} s on the card, "
-          f"{cpu['wall_s']:.1f} s on the cpu kind; launches {launches} [{reading['card']}]",
+          f"{control_seconds(cpu)}; launches {launches} [{reading['card']}]",
           flush=True)
 
     # Each node's verifier warms up (one unknown-key batch on the generic
@@ -2982,12 +3103,17 @@ def storage_counts(result) -> dict:
 
 def storage_checks(card, cpu, config) -> dict:
     """The storage phase's checks on the card run and the ``cpu`` run of the
-    same seed (see the module docstring, step 13); returns the readings."""
+    same seed (see the module docstring, step 13); returns the readings.
+    With ``cpu`` None (the whole script) the card is held to
+    ``STORAGE_SEEDED`` alone."""
     from mysticeti_tpu_torch.storage import CHECKPOINT_KEEP
 
-    check(card["sequences"] == cpu["sequences"], "the committed sequences differ from the cpu run's")
-    check(storage_counts(card) == storage_counts(cpu),
-          f"the counts differ from the cpu run's: {storage_counts(card)} vs {storage_counts(cpu)}")
+    if cpu is not None:
+        check(card["sequences"] == cpu["sequences"],
+              "the committed sequences differ from the cpu run's")
+        check(storage_counts(card) == storage_counts(cpu),
+              f"the counts differ from the cpu run's: {storage_counts(card)} vs "
+              f"{storage_counts(cpu)}")
     rejoiner, rebooter = config["rejoiner"], config["rebooter"]
     threshold = config["storage"]["catchup_threshold_commits"]
     nodes = card["nodes"]
@@ -3046,11 +3172,13 @@ def storage_checks(card, cpu, config) -> dict:
     }
 
 
-def storage_phase(kernels):
+def storage_phase(kernels, control=True):
     """storage-10 over the card (``cuda-only`` collectors, every node's
     every incarnation over one ``TorchSignatureVerifier`` on cuda:0) and
     over the ``cpu`` kind, with the checks of the module docstring, step
-    13.  Returns the launches and the readings."""
+    13.  Returns the launches and the readings.  ``control`` False (the
+    whole script) skips the ``cpu`` run: ``STORAGE_SEEDED`` alone holds the
+    card."""
     from mysticeti_tpu_torch.block_validator import TorchSignatureVerifier
     from mysticeti_tpu_torch.committee import Committee
 
@@ -3062,7 +3190,7 @@ def storage_phase(kernels):
         k.reset_counts()
     card = storage_run("cuda-only", config, backend=backend)
     launches = {k.name: k.launches for k in kernels}
-    cpu = storage_run("cpu", config)
+    cpu = storage_run("cpu", config) if control else None
     reading = storage_checks(card, cpu, config)
     check(reading["counts"] == STORAGE_SEEDED,
           f"the counts differ from the seeded ones: {reading['counts']}")
@@ -3075,15 +3203,15 @@ def storage_phase(kernels):
           f"the card verified {card['on_card_twice']} blocks twice for one incarnation "
           f"({card['on_card_twice_one_peer']} of them sent fresh by one peer only)")
     catchup, steady, wal = reading["catchup"], reading["steady"], reading["wal_bytes"]
-    reading.update({"card_wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"],
+    reading.update({"card_wall_s": card["wall_s"], "cpu_wall_s": cpu and cpu["wall_s"],
                     "signatures_on_card": accounted["on_backend"],
                     "open_at_stop": accounted["open_at_stop"],
                     "dedup_saved": accounted["dedup_saved"],
                     "launches": launches,
                     "card": card_line()})
     print(f"storage storage-10: {config['n']} validators, {config['virtual_s']} virtual s, "
-          f"commits a node {reading['commits']}, prefixes agree and equal the cpu run's and the "
-          f"seeded counts; node {config['rejoiner']} crashed at height "
+          f"commits a node {reading['commits']}, prefixes agree and equal "
+          f"{control_text(cpu)}the seeded counts; node {config['rejoiner']} crashed at height "
           f"{reading['rejoiner']['crashed_at_height']}, adopted a snapshot at "
           f"{reading['rejoiner']['adopted_height']} ({reading['snapshot']['blocks']} blocks in "
           f"{reading['snapshot']['chunks']} chunks) and reached {reading['rejoiner']['final_height']}; "
@@ -3099,7 +3227,7 @@ def storage_phase(kernels):
           f"{steady['mean_live_lanes']:.2f} in steady state ({steady['flushes']} flushes); "
           f"catch-up {catchup['wall_s']:.3f} wall s on the card ({catchup['virtual_s']:.3f} "
           f"virtual s); WAL bytes written {wal['written']} against {wal['live']} live; "
-          f"{card['wall_s']:.1f} s on the card, {cpu['wall_s']:.1f} s on the cpu kind "
+          f"{card['wall_s']:.1f} s on the card, {control_seconds(cpu)} "
           f"[{reading['card']}]", flush=True)
     return launches, reading
 
@@ -3364,7 +3492,8 @@ def epoch_counts(result) -> dict:
 def epoch_checks(card, cpu, config) -> dict:
     """The epoch phase's checks 1-5 and 7 on the card run and the ``cpu``
     run of the same seed (see the module docstring, step 14); returns the
-    readings."""
+    readings.  With ``cpu`` None (the whole script) the card is held to
+    ``EPOCH_SEEDED`` alone."""
     n, epochs, retiree, rebooter = (config["n"], config["epochs"], config["retiree"],
                                     config["rebooter"])
     nodes = card["nodes"]
@@ -3381,11 +3510,14 @@ def epoch_checks(card, cpu, config) -> dict:
           f"the epoch boundaries differ across the fleet: {chains}")
     check(longest[-1][2] < config["oracle_rounds"],
           f"the last boundary (round {longest[-1][2]}) lies above the oracle's rounds")
-    check(chains == [node["chain"] for node in cpu["nodes"]],
-          "the epoch boundaries differ from the cpu run's")
+    if cpu is not None:
+        check(chains == [node["chain"] for node in cpu["nodes"]],
+              "the epoch boundaries differ from the cpu run's")
     # 2: committed sequences (CommitLog checked agreement at every height).
     commits = commit_checks(card["sequences"], 1)
-    check(card["sequences"] == cpu["sequences"], "the committed sequences differ from the cpu run's")
+    if cpu is not None:
+        check(card["sequences"] == cpu["sequences"],
+              "the committed sequences differ from the cpu run's")
     # 3: execution roots, verdicts, overdrafts.
     check(not card["root_conflicts"], f"a node folded two roots at one height: "
                                       f"{card['root_conflicts'][:3]}")
@@ -3393,9 +3525,10 @@ def epoch_checks(card, cpu, config) -> dict:
     for a, mine in card["roots"].items():
         for height, root in mine.items():
             check(golden.setdefault(height, root) == root, f"the roots fork at height {height}")
-    check(card["roots"] == cpu["roots"], "the roots differ from the cpu run's")
-    check([node["verdicts"] for node in nodes] == [node["verdicts"] for node in cpu["nodes"]],
-          "the execution verdicts differ from the cpu run's")
+    if cpu is not None:
+        check(card["roots"] == cpu["roots"], "the roots differ from the cpu run's")
+        check([node["verdicts"] for node in nodes] == [node["verdicts"] for node in cpu["nodes"]],
+              "the execution verdicts differ from the cpu run's")
     crashed = {c[0] for c in config["crashes"]}
     for a in live:
         node = nodes[a]
@@ -3442,18 +3575,21 @@ def epoch_checks(card, cpu, config) -> dict:
     }
 
 
-def epoch_phase(kernels):
+def epoch_phase(kernels, control=True):
     """epoch-10 over the card (each incarnation its own
     ``_make_verifier("cuda-only")`` on cuda:0) and over the ``cpu`` kind,
     with the checks of the module docstring, step 14.  Returns the launches
-    and the readings."""
+    and the readings.  ``control`` False (the whole script) skips the
+    ``cpu`` run: ``EPOCH_SEEDED`` alone holds the card."""
     config = EPOCH_10
     card = epoch_run("cuda-only", config, on_ready=lambda: [k.reset_counts() for k in kernels])
     launches = {k.name: k.launches for k in kernels}
-    cpu = epoch_run("cpu", config)
+    cpu = epoch_run("cpu", config) if control else None
     reading = epoch_checks(card, cpu, config)
-    check(epoch_counts(card) == epoch_counts(cpu),
-          f"the counts differ from the cpu run's: {epoch_counts(card)} vs {epoch_counts(cpu)}")
+    if cpu is not None:
+        check(epoch_counts(card) == epoch_counts(cpu),
+              f"the counts differ from the cpu run's: {epoch_counts(card)} vs "
+              f"{epoch_counts(cpu)}")
     check(reading["counts"] == EPOCH_SEEDED,
           f"the counts differ from the seeded ones: {reading['counts']}")
     # 6: on the card.
@@ -3468,24 +3604,25 @@ def epoch_phase(kernels):
               f"node {inc['authority']}'s collector saw {inc['notes']} committee notes crossing "
               f"{inc['boundaries_crossed']} boundaries (epochs {inc['boot_epoch']}-"
               f"{inc['end_epoch']})")
-    reading.update({"card_wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"],
+    reading.update({"card_wall_s": card["wall_s"], "cpu_wall_s": cpu and cpu["wall_s"],
                     "oracle_s": card["oracle_s"], "warmup_s": card["warmup_s"],
                     "signatures_on_card": accounted["on_backend"], "flushes": accounted["flushes"],
                     "mean_live_lanes": accounted["mean_live_lanes"],
                     "open_at_stop": accounted["open_at_stop"],
                     "notes": [(inc["authority"], inc["notes"]) for inc in card["incarnations"]],
                     "launches": launches, "card": card_line()})
+    roots_control = " and equal the cpu run's" if cpu is not None else ""
     print(f"epoch epoch-10: {config['n']} validators, {config['virtual_s']} virtual s, commits a "
-          f"node {reading['commits']}, prefixes agree and equal the cpu run's and the seeded "
+          f"node {reading['commits']}, prefixes agree and equal {control_text(cpu)}the seeded "
           f"counts; epochs {reading['epochs']}, boundaries {reading['boundaries']}; roots agree at "
-          f"{reading['shared_heights']} heights and equal the cpu run's; {reading['planted']} "
+          f"{reading['shared_heights']} heights{roots_control}; {reading['planted']} "
           f"batches planted, held {reading['planted_held']}; node {config['rebooter']} booted from "
           f"checkpoint {reading['reboot']}; finalized {reading['finalized']}; {card['forged']} "
           f"forged copies verified ({card['forged_injected']} injected), all rejected and "
           f"counted; {accounted['flushes']:.0f} flushes, {accounted['mean_live_lanes']:.2f} live "
           f"lanes a flush; committee notes {reading['notes']}; {card['wall_s']:.1f} s on the "
           f"card ({card['oracle_s']:.1f} s of it the oracle; the verifiers warmed in "
-          f"{card['warmup_s']:.1f} s), {cpu['wall_s']:.1f} s on the cpu kind; launches "
+          f"{card['warmup_s']:.1f} s), {control_seconds(cpu)}; launches "
           f"{launches} [{reading['card']}]",
           flush=True)
     return launches, reading
@@ -3732,13 +3869,17 @@ def ingress_counts(result) -> dict:
 def ingress_checks(card, cpu, config) -> dict:
     """The ingress phase's checks 1-3 and 5 on the card run and the ``cpu``
     run of the same seed (see the module docstring, step 15); returns the
-    readings."""
+    readings.  With ``cpu`` None (the whole script) the card is held to
+    ``INGRESS_SEEDED`` alone."""
     n, nodes = config["n"], card["nodes"]
     # 1: the runs agree on every virtual-time quantity.
     commits = commit_checks(card["sequences"], 1)
-    check(card["sequences"] == cpu["sequences"], "the committed sequences differ from the cpu run's")
-    check(ingress_counts(card) == ingress_counts(cpu),
-          f"the counts differ from the cpu run's: {ingress_counts(card)} vs {ingress_counts(cpu)}")
+    if cpu is not None:
+        check(card["sequences"] == cpu["sequences"],
+              "the committed sequences differ from the cpu run's")
+        check(ingress_counts(card) == ingress_counts(cpu),
+              f"the counts differ from the cpu run's: {ingress_counts(card)} vs "
+              f"{ingress_counts(cpu)}")
     # 2: accounting, no transaction committed twice, shed mode in the 3x step.
     step = card["load_started"] + max(t for t, mult in config["scenario"]["multiplier_schedule"]
                                       if mult > 1.0)
@@ -3793,15 +3934,16 @@ def ingress_checks(card, cpu, config) -> dict:
     }
 
 
-def ingress_phase(kernels):
+def ingress_phase(kernels, control=True):
     """ingress-10 over the card (each node its own
     ``_make_verifier("cuda-only")`` on cuda:0) and over the ``cpu`` kind,
     with the checks of the module docstring, step 15.  Returns the launches
-    and the readings."""
+    and the readings.  ``control`` False (the whole script) skips the
+    ``cpu`` run: ``INGRESS_SEEDED`` alone holds the card."""
     config = INGRESS_10
     card = ingress_run("cuda-only", config, on_ready=lambda: [k.reset_counts() for k in kernels])
     launches = {k.name: k.launches for k in kernels}
-    cpu = ingress_run("cpu", config)
+    cpu = ingress_run("cpu", config) if control else None
     reading = ingress_checks(card, cpu, config)
     check(reading["counts"] == INGRESS_SEEDED,
           f"the counts differ from the seeded ones: {reading['counts']}")
@@ -3812,7 +3954,7 @@ def ingress_phase(kernels):
           f"the ingress path's launches {launches} are not one prologue and one keyed launch a "
           f"flush ({card['flushes']:.0f})")
     accounted = card_checks(card)
-    reading.update({"card_wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"],
+    reading.update({"card_wall_s": card["wall_s"], "cpu_wall_s": cpu and cpu["wall_s"],
                     "warmup_s": card["warmup_s"], "signatures_on_card": accounted["on_backend"],
                     "flushes": accounted["flushes"],
                     "mean_live_lanes": accounted["mean_live_lanes"],
@@ -3821,7 +3963,7 @@ def ingress_phase(kernels):
     print(f"ingress ingress-10: {config['n']} validators, {config['virtual_s']} virtual s, "
           f"{config['scenario']['base_tps']} tx/s of {config['scenario']['transaction_size']} B a "
           f"node, schedule {config['scenario']['multiplier_schedule']}; commits a node "
-          f"{reading['commits']}, prefixes agree and equal the cpu run's and the seeded counts; "
+          f"{reading['commits']}, prefixes agree and equal {control_text(cpu)}the seeded counts; "
           f"offered {reading['offered']}, admitted {reading['admitted']}, shed {reading['shed']}; "
           f"committed tx {reading['committed_tx']} ({reading['committed_tx_s']} a virtual s; "
           f"node 0 by virtual second {reading['committed_by_second']}); shed mode entered "
@@ -3830,7 +3972,7 @@ def ingress_phase(kernels):
           f"({card['forged_injected']} injected), all rejected and counted; "
           f"{accounted['flushes']:.0f} flushes, {accounted['mean_live_lanes']:.2f} live lanes a "
           f"flush; WAL bytes {reading['wal_bytes']}; {card['wall_s']:.1f} s on the card (the "
-          f"verifiers warmed in {card['warmup_s']:.1f} s), {cpu['wall_s']:.1f} s on the cpu kind; "
+          f"verifiers warmed in {card['warmup_s']:.1f} s), {control_seconds(cpu)}; "
           f"launches {launches} [{reading['card']}]", flush=True)
     return launches, reading
 
@@ -4333,17 +4475,21 @@ def health_sim_counts(result) -> dict:
 def health_sim_checks(card, cpu, config) -> dict:
     """The checks of health-sim-10 (see the module docstring, step 16) on
     the card run and the ``cpu`` run of the same seed; returns the
-    readings."""
+    readings.  With ``cpu`` None (the whole script) the card is held to
+    ``HEALTH_SEEDED`` alone (its timeline and alert digests included)."""
     n, down = config["n"], config["down"]
     (_, at, downtime, _), = [c for c in config["crashes"] if c[0] == down]
     commit_checks(card["sequences"], 1)
-    check(card["sequences"] == cpu["sequences"], "the committed sequences differ from the cpu run's")
-    check(card["timeline_bytes"] == cpu["timeline_bytes"],
-          "the health timeline differs from the cpu run's")
-    check(card["alert_bytes"] == cpu["alert_bytes"], "the alert stream differs from the cpu run's")
-    check(health_sim_counts(card) == health_sim_counts(cpu),
-          f"the counts differ from the cpu run's: {health_sim_counts(card)} vs "
-          f"{health_sim_counts(cpu)}")
+    if cpu is not None:
+        check(card["sequences"] == cpu["sequences"],
+              "the committed sequences differ from the cpu run's")
+        check(card["timeline_bytes"] == cpu["timeline_bytes"],
+              "the health timeline differs from the cpu run's")
+        check(card["alert_bytes"] == cpu["alert_bytes"],
+              "the alert stream differs from the cpu run's")
+        check(health_sim_counts(card) == health_sim_counts(cpu),
+              f"the counts differ from the cpu run's: {health_sim_counts(card)} vs "
+              f"{health_sim_counts(cpu)}")
     outage = [e for e in card["timeline"] if at < e["t"] < at + downtime]
     check(outage and all(e["nodes"][str(down)] == {"down": True} for e in outage),
           f"node {down} did not read down in every tick of its outage")
@@ -4377,11 +4523,13 @@ def health_sim_checks(card, cpu, config) -> dict:
             "counts": health_sim_counts(card)}
 
 
-def health_phase(kernels):
+def health_phase(kernels, control=True):
     """health-tcp-10 and health-sim-10, each over the card (every node its
     own ``_make_verifier("cuda-only")``) and over the ``cpu`` kind, with the
     checks of the module docstring, step 16.  Returns the launches of the
-    card's TCP and simulated runs and the readings."""
+    card's TCP and simulated runs and the readings.  ``control`` False (the
+    whole script) skips health-sim-10's ``cpu`` run: ``HEALTH_SEEDED`` alone
+    holds the card there (both TCP runs stay: no constant pins them)."""
     tcp_card = health_tcp_run("cuda-only", HEALTH_TCP_10,
                               on_ready=lambda: [k.reset_counts() for k in kernels])
     tcp_launches = {k.name: k.launches for k in kernels}
@@ -4393,7 +4541,7 @@ def health_phase(kernels):
     sim_card = health_sim_run("cuda-only", HEALTH_SIM_10,
                               on_ready=lambda: [k.reset_counts() for k in kernels])
     sim_launches = {k.name: k.launches for k in kernels}
-    sim_cpu = health_sim_run("cpu", HEALTH_SIM_10)
+    sim_cpu = health_sim_run("cpu", HEALTH_SIM_10) if control else None
     sim = health_sim_checks(sim_card, sim_cpu, HEALTH_SIM_10)
     check(sim["counts"] == HEALTH_SEEDED,
           f"the counts differ from the seeded ones: {sim['counts']}")
@@ -4423,15 +4571,15 @@ def health_phase(kernels):
           f"{HEALTH_SIM_10['down']} down {sim['down']}, {sim['ticks']} ticks ({sim['outage_ticks']} "
           f"in the outage, all down), authority-lag ({sim['lag_rounds']} rounds) named by "
           f"{sim['lag_alerts']} observers, first at {sim['first_lag_alert_t']}; alerts "
-          f"{sim['alerts_by_kind']}; dumps {sim['dumps']}; timeline and alert stream equal the cpu "
-          f"run's and the seeded digests; {sim['flushes']:.0f} flushes, "
+          f"{sim['alerts_by_kind']}; dumps {sim['dumps']}; timeline and alert stream equal "
+          f"{control_text(sim_cpu)}the seeded digests; {sim['flushes']:.0f} flushes, "
           f"{sim['mean_live_lanes']:.2f} live lanes a flush; {sim_card['wall_s']:.1f} s on the "
-          f"card (the verifiers warmed in {sim_card['warmup_s']:.1f} s), {sim_cpu['wall_s']:.1f} "
-          f"s on the cpu kind; launches {sim_launches} [{card}]", flush=True)
+          f"card (the verifiers warmed in {sim_card['warmup_s']:.1f} s), "
+          f"{control_seconds(sim_cpu)}; launches {sim_launches} [{card}]", flush=True)
     reading = {"health_tcp_10": {"card": tcp, "cpu": tcp_oracle, "launches": tcp_launches,
                                  "card_wall_s": tcp_card["wall_s"], "cpu_wall_s": tcp_cpu["wall_s"]},
                "health_sim_10": dict(sim, card_wall_s=sim_card["wall_s"],
-                                     cpu_wall_s=sim_cpu["wall_s"],
+                                     cpu_wall_s=sim_cpu and sim_cpu["wall_s"],
                                      warmup_s=sim_card["warmup_s"], launches=sim_launches),
                "card": card}
     return tcp_launches, sim_launches, reading
@@ -4887,6 +5035,277 @@ def node_phase(kernels, config=None):
     return proc_launches, svc_launches, readings
 
 
+# -- the byzantine phase: the adversary engine's attacks on the card ---------
+
+
+class VerdictLog:
+    """A signature backend that records every dispatch made through it —
+    (public keys, digests, signatures, verdicts) — in the order the
+    verdicts come back.  Every other attribute is the backend's."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self.dispatches = []
+
+    def verify_signatures_async(self, public_keys, digests, signatures):
+        args = (list(public_keys), list(digests), list(signatures))
+        return LoggedDispatch(self, self.backend.verify_signatures_async(*args), args)
+
+    def __getattr__(self, name):
+        return getattr(self.backend, name)
+
+
+class LoggedDispatch:
+    def __init__(self, log, handle, args):
+        self.log, self.handle, self.args = log, handle, args
+
+    def result(self):
+        out = self.handle.result()
+        self.log.dispatches.append((*self.args, [bool(ok) for ok in out]))
+        return out
+
+
+class TwinTap:
+    """Interposes on ``scenarios.run_chaos_sim`` for the ``run_scenario``
+    calls inside the ``with``: ``before(i)`` runs before twin ``i`` (0 the
+    attacked run, 1 the clean twin), and each twin's report, per-node
+    registries and wall seconds are kept."""
+
+    def __init__(self, scenarios, before=None):
+        self.scenarios, self.before, self.twins = scenarios, before, []
+
+    def __enter__(self):
+        self.original = self.scenarios.run_chaos_sim
+        self.scenarios.run_chaos_sim = self.run
+        return self
+
+    def __exit__(self, *exc):
+        self.scenarios.run_chaos_sim = self.original
+
+    def run(self, *args, **kwargs):
+        if self.before is not None:
+            self.before(len(self.twins))
+        t0 = time.monotonic()
+        report, harness = self.original(*args, **kwargs)
+        self.twins.append({"report": report, "metrics": harness.metrics,
+                           "wall_s": time.monotonic() - t0})
+        return report, harness
+
+
+def labelled_sum(metrics, name, **labels) -> float:
+    """``name``'s samples whose labels include ``labels``, summed over
+    ``metrics`` (one registry a node)."""
+    return sum(sample.value for m in metrics for family in m.registry.collect()
+               for sample in family.samples if sample.name == name
+               and all(sample.labels.get(k) == v for k, v in labels.items()))
+
+
+def twin_counts(twin) -> dict:
+    """A twin's committed leaders a node, the collectors' flushes, live
+    lanes and rejected signatures (every node's registry), and its
+    detections."""
+    report, metrics = twin["report"], [m for m in twin["metrics"] if m is not None]
+    sequences = report.sequences
+    return {
+        "commits": [len(sequences[a]) for a in sorted(sequences)],
+        "flushes": int(labelled_sum(metrics, "verify_dispatch_batch_size_count")),
+        "lanes": int(labelled_sum(metrics, "verify_dispatch_batch_size_sum")),
+        "rejected": int(labelled_sum(metrics, "verified_signatures_total", outcome="rejected")),
+    }
+
+
+def document_digest(doc) -> str:
+    import hashlib
+
+    return hashlib.sha256(json.dumps(doc, sort_keys=True, separators=(",", ":"))
+                          .encode()).hexdigest()
+
+
+def byzantine_run(scenarios, config, backend=None, before=None) -> dict:
+    """One ``scenarios.run_scenario`` of ``config``'s scenario cut to
+    ``config["virtual_s"]``: through ``real_crypto=True`` on ``backend``
+    (every node's collector over it), or, with ``backend`` None, through the
+    sim re-sign oracle.  ``scenarios`` is the package's module; ``before``
+    as ``TwinTap`` takes it.  Returns the verdict document, the twins and
+    the wall seconds."""
+    import dataclasses
+    import tempfile
+
+    scenario = dataclasses.replace(scenarios.scenario_by_name(config["scenario"]),
+                                   duration_s=config["virtual_s"])
+    with tempfile.TemporaryDirectory(prefix="byzantine-") as root, \
+            TwinTap(scenarios, before) as tap:
+        t0 = time.monotonic()
+        crypto = {} if backend is None else {"real_crypto": True, "backend": backend}
+        doc = scenarios.run_scenario(scenario, root, **crypto)
+        wall_s = time.monotonic() - t0
+    return {"doc": doc, "twins": tap.twins, "wall_s": wall_s}
+
+
+def byzantine_counts(result) -> dict:
+    """The values a seeded run must reproduce on any host and backend."""
+    report = result["twins"][0]["report"]
+    detections = report.detections
+    n = len(report.sequences)
+    twins = [twin_counts(twin) for twin in result["twins"]]
+    return {
+        "commits": twins[0]["commits"], "clean_commits": twins[1]["commits"],
+        "flushes": [t["flushes"] for t in twins], "lanes": [t["lanes"] for t in twins],
+        "rejected": [t["rejected"] for t in twins],
+        "attack_counts": dict(sorted(report.attack_counts.items())),
+        "attack_digest": report.attack_digest(),
+        "invalid_signature": [int(detections.get(a, {}).get("invalid_blocks", {}).get(
+            "authority=9,reason=signature", 0)) for a in range(n)],
+        "equivocation": [{label: int(v) for label, v in detections.get(a, {}).get(
+            "equivocation", {}).items()} for a in range(n)],
+        "node9_blocks": [report.committed_blocks.get(a, {}).get(9, 0) for a in range(n)],
+        "document": document_digest(result["doc"]),
+    }
+
+
+def byzantine_checks(result, config, seeded) -> dict:
+    """Checks 1, 2 and 5 of byzantine-10 (the module docstring, step 18)
+    against ``seeded``; returns the readings."""
+    doc = result["doc"]
+    # 1: safety and liveness.
+    check(doc["safety_ok"] and len(result["twins"]) == 2,
+          f"the honest fleet broke safety: {doc['safety_error']}")
+    report = result["twins"][0]["report"]
+    adversaries = set(config["adversaries"])
+    counts = byzantine_counts(result)
+    honest = [a for a in range(len(counts["commits"])) if a not in adversaries]
+    check(all(d.get("adversary") in adversaries for d in doc["adversary_divergence"]),
+          f"a divergence names an honest node: {doc['adversary_divergence']}")
+    prefixes = {a: [(r.authority, r.round, bytes(r.digest)) for r in report.sequences[a]]
+                for a in honest}
+    longest = max(prefixes.values(), key=len)
+    check(all(seq == longest[:len(seq)] for seq in prefixes.values()),
+          "the honest committed sequences are not prefixes of one sequence")
+    check(all(2 * counts["commits"][a] >= seeded["commits"][a] for a in honest),
+          f"commits a node {counts['commits']}: an honest node committed less than half of "
+          f"{seeded['commits']}")
+    # 2: attacks and detections.
+    check(counts["attack_counts"] == seeded["attack_counts"]
+          and counts["attack_digest"] == seeded["attack_digest"],
+          f"the attacks {counts['attack_counts']} ({counts['attack_digest'][:16]}) are not the "
+          f"seeded ones")
+    check(all(counts["invalid_signature"][a] == seeded["invalid_signature"][a] > 0
+              for a in honest),
+          f"invalid signatures of node {config['invalid_signer']} counted a node "
+          f"{counts['invalid_signature']}, seeded {seeded['invalid_signature']}")
+    check(all(set(census) <= {f"authority={config['equivocator']}"}
+              for census in counts["equivocation"])
+          and any(counts["equivocation"][a] for a in honest),
+          f"equivocations attributed {counts['equivocation']}")
+    check(all(counts["node9_blocks"][a] <= 1 for a in honest),
+          f"node {config['invalid_signer']}'s blocks committed in honest stores: "
+          f"{counts['node9_blocks']}")
+    # 5: the scenario's own verdict and its document.
+    check(doc["passed"] and all(v["ok"] for v in doc["detections"].values())
+          and doc["throughput_ratio"] >= doc["scenario"]["min_ratio"],
+          f"the scenario's verdict failed: ratio {doc['throughput_ratio']}, detections "
+          f"{doc['detections']}")
+    check(counts == seeded, f"the counts differ from the seeded ones: {counts}")
+    return {"commits": counts["commits"], "clean_commits": counts["clean_commits"],
+            "flushes": counts["flushes"], "lanes": counts["lanes"],
+            "mean_live_lanes": [lanes / flushes if flushes else 0.0
+                                for lanes, flushes in zip(counts["lanes"], counts["flushes"])],
+            "rejected": counts["rejected"], "attack_counts": counts["attack_counts"],
+            "invalid_signature": counts["invalid_signature"],
+            "throughput_ratio": doc["throughput_ratio"],
+            "committed_leaders": doc["committed_leaders"],
+            "twin_wall_s": [twin["wall_s"] for twin in result["twins"]],
+            "wall_s": result["wall_s"]}
+
+
+def verdict_checks(log, committee) -> dict:
+    """Check 3: every verdict the card gave equals the sim re-sign oracle's
+    on the same (key, digest, signature).  Runs after the scenario, off its
+    timed path."""
+    from mysticeti_tpu_torch.scenarios import SimResignOracleVerifier
+
+    t0 = time.monotonic()
+    oracle = SimResignOracleVerifier(committee)
+    lanes = mismatches = card_rejected = oracle_rejected = 0
+    for pks, digests, sigs, verdicts in log.dispatches:
+        want = oracle.verify_signatures(pks, digests, sigs)
+        lanes += len(want)
+        mismatches += sum(got != ok for got, ok in zip(verdicts, want))
+        card_rejected += verdicts.count(False)
+        oracle_rejected += want.count(False)
+    check(lanes > 0 and mismatches == 0 and card_rejected == oracle_rejected > 0,
+          f"{mismatches} of {lanes} card verdicts differ from the oracle's (rejected: card "
+          f"{card_rejected}, oracle {oracle_rejected})")
+    return {"lanes": lanes, "mismatches": mismatches, "card_rejected": card_rejected,
+            "oracle_rejected": oracle_rejected, "oracle_s": time.monotonic() - t0}
+
+
+def byzantine_phase(kernels, oracle_twin=False):
+    """byzantine-10 on the card with the checks of the module docstring,
+    step 18: ``run_scenario(real_crypto=True)`` over one warmed
+    ``TorchSignatureVerifier`` on cuda:0, the launch counts set to 0 before
+    each twin and read after it.  ``oracle_twin`` also runs the sim re-sign
+    oracle's twin here and requires its document to be the card's.
+    Returns the launches (both twins) and the readings."""
+    from mysticeti_tpu_torch import scenarios
+    from mysticeti_tpu_torch.block_validator import TorchSignatureVerifier
+    from mysticeti_tpu_torch.committee import Committee
+
+    config, seeded = BYZANTINE_10, BYZANTINE_SEEDED
+    committee = Committee.new_for_benchmarks(10)
+    t0 = time.monotonic()
+    backend = TorchSignatureVerifier(committee_keys=committee.public_key_bytes())
+    backend.warmup()  # the kernels' first launches and the combs' upload
+    warmup_s = time.monotonic() - t0
+    log = VerdictLog(backend)
+    twin_launches = []
+
+    def before(i):
+        if i:
+            twin_launches.append({k.name: k.launches for k in kernels})
+        for k in kernels:
+            k.reset_counts()
+
+    card = byzantine_run(scenarios, config, backend=log, before=before)
+    twin_launches.append({k.name: k.launches for k in kernels})
+    reading = byzantine_checks(card, config, seeded)
+    # 4: one prologue and one keyed launch a flush in each twin, no generic.
+    for twin, launches in zip(("attacked", "clean"), twin_launches):
+        flushes = reading["flushes"][0 if twin == "attacked" else 1]
+        check(launches["prologue"] == launches["verify_keyed"] == flushes > 0
+              and launches["verify_generic"] == 0,
+              f"the {twin} twin's launches {launches} are not one prologue and one keyed "
+              f"launch a flush ({flushes})")
+    check(len(log.dispatches) == sum(reading["flushes"]),
+          f"{len(log.dispatches)} dispatches reached the card, the collectors flushed "
+          f"{reading['flushes']}")
+    verdicts = verdict_checks(log, committee)
+    launches = {name: sum(t[name] for t in twin_launches) for name in twin_launches[0]}
+    reading.update({"verdicts": verdicts, "launches_by_twin": twin_launches,
+                    "warmup_s": warmup_s, "card": card_line()})
+    oracle_text = ""
+    if oracle_twin:
+        oracle = byzantine_run(scenarios, config)
+        check(oracle["doc"] == card["doc"],
+              "the sim re-sign oracle's verdict document differs from the card's")
+        reading["oracle_wall_s"] = oracle["wall_s"]
+        oracle_text = f"; oracle twin {oracle['wall_s']:.1f} s, same document"
+    print(f"byzantine byzantine-10: 10 validators, f = 3 (node 7 equivocates, 8 withholds, 9 "
+          f"signs invalidly), {config['virtual_s']} virtual s a twin; commits a node "
+          f"{reading['commits']} (clean twin {reading['clean_commits']}), honest prefixes agree, "
+          f"safety held; attacks {reading['attack_counts']}; invalid signatures counted a node "
+          f"{reading['invalid_signature']}; ratio {reading['throughput_ratio']}, the verdict "
+          f"passed and equals the seeded document; card verdicts {verdicts['lanes']} lanes, "
+          f"{verdicts['mismatches']} differ from the oracle's, rejected {verdicts['card_rejected']} "
+          f"= oracle {verdicts['oracle_rejected']} (oracle {verdicts['oracle_s']:.1f} s, off the "
+          f"timed path); flushes {reading['flushes']}, live lanes a flush "
+          f"{[round(x, 3) for x in reading['mean_live_lanes']]}; twins "
+          f"{[round(x, 1) for x in reading['twin_wall_s']]} s, the scenario {card['wall_s']:.1f} "
+          f"s on the card (the backend warmed in {warmup_s:.1f} s){oracle_text}; launches by "
+          f"twin {twin_launches} [{reading['card']}]", flush=True)
+    return launches, reading
+
+
 def bench_phase() -> dict:
     """``python -m mysticeti_tpu_torch.bench`` as a child, on BENCH_ENV."""
     env = dict(os.environ, **BENCH_ENV)
@@ -4963,13 +5382,19 @@ def run() -> int:
     by_path["service"], service = service_phase(committee, blocks_and_want, K.KERNELS,
                                                 rates["block_per_s"])
     by_path["receive"], receive = receive_phase(committee, signers, rng, K.KERNELS)
-    by_path["consensus"], consensus = consensus_phase(K.KERNELS)
-    by_path["net_sync"], by_path["net_sync_tcp"], net_sync = net_sync_phase(K.KERNELS)
-    by_path["storage"], storage = storage_phase(K.KERNELS)
-    by_path["epoch"], epoch = epoch_phase(K.KERNELS)
-    by_path["ingress"], ingress = ingress_phase(K.KERNELS)
-    by_path["health_tcp"], by_path["health_sim"], health = health_phase(K.KERNELS)
+    # The whole script holds consensus-50, netsync-50, storage, epoch,
+    # ingress and health-sim to their seeded constants alone (each
+    # ``<phase>_only`` keeps its cpu control).
+    by_path["consensus"], consensus = consensus_phase(K.KERNELS, control=False)
+    by_path["net_sync"], by_path["net_sync_tcp"], net_sync = net_sync_phase(K.KERNELS,
+                                                                          control=False)
+    by_path["storage"], storage = storage_phase(K.KERNELS, control=False)
+    by_path["epoch"], epoch = epoch_phase(K.KERNELS, control=False)
+    by_path["ingress"], ingress = ingress_phase(K.KERNELS, control=False)
+    by_path["health_tcp"], by_path["health_sim"], health = health_phase(K.KERNELS,
+                                                                       control=False)
     by_path["node_proc"], by_path["node_svc"], node = node_phase(K.KERNELS)
+    by_path["byzantine"], byzantine = byzantine_phase(K.KERNELS)
     bench = bench_phase()
     # The block path's flushes take the keyed kernel, one key per lane, and
     # never the generic one; the committee dispatch's 8 stragglers take the
@@ -5007,7 +5432,7 @@ def run() -> int:
                       "service": service, "receive": receive, "consensus": consensus,
                       "net_sync": net_sync, "storage": storage, "epoch": epoch,
                       "ingress": ingress, "health": health, "node": node,
-                      "metrics": metrics_reading,
+                      "byzantine": byzantine, "metrics": metrics_reading,
                       "bench": bench}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5188,6 +5613,25 @@ def node_only() -> int:
     print(json.dumps({"node": reading, "launches": {"node_proc": proc_launches,
                                                     "node_svc": svc_launches}},
                      default=str), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def byzantine_only() -> int:
+    """The byzantine phase alone, with the sim re-sign oracle's twin:
+    ``python3 -c 'import chip_smoke as c; raise
+    SystemExit(c.main(c.byzantine_only))'``."""
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    launches, reading = byzantine_phase(K.KERNELS, oracle_twin=True)
+    print(json.dumps({"byzantine": reading, "launches": launches}, default=str), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

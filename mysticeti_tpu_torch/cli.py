@@ -1,7 +1,8 @@
-"""Node binary: genesis, run, dry-run, testbed and verifier-service subcommands.
+"""Node binary: genesis, run, dry-run, testbed, verifier-service and the
+simulator subcommands.
 
-The port's copy of ``mysticeti_tpu.cli``'s node commands.  Capability parity
-with ``mysticeti/src/main.rs``:
+The port's copy of ``mysticeti_tpu.cli``'s node and simulator commands.
+Capability parity with ``mysticeti/src/main.rs``:
 
 * ``benchmark-genesis`` (:36-43,116-156) — emit committee.yaml, parameters.yaml
   and per-authority private configs (key seed + storage dir).
@@ -11,6 +12,8 @@ with ``mysticeti/src/main.rs``:
 * ``testbed`` (:68-73,187-227) — N in-process validators on localhost.
 * ``verifier-service`` — the shared per-host verifier service
   (verifier_service.py) that nodes reach through ``MYSTICETI_VERIFIER_SOCKET``.
+* ``chaos``, ``overload`` and ``scenarios`` — the seeded virtual-time sims
+  (chaos.py, ingress.py, scenarios.py).
 
 ``--verifier`` selects the signature backend (validator.py): ``cuda`` is the
 hybrid router (the CUDA kernels for large batches, the CPU oracle for small
@@ -19,7 +22,13 @@ OpenSSL oracle, ``accept`` skips signature checks, and ``-agg`` turns on the
 collector's threshold-aggregate mode.  The default is ``cuda-only`` (the JAX
 CLI's is ``cpu``): a node runs on the card unless it is asked for the CPU, and
 without a card, or with a kernel that fails to build, ``run``, ``dry-run`` and
-``testbed`` exit non-zero.
+``testbed`` exit non-zero.  ``chaos`` and ``scenarios`` take the same kinds
+(each node's collector at the scenarios' 0.002 s window over one backend the
+fleet shares, ``scenarios.verifier_factory``) plus ``sim-oracle``, the JAX
+CLI's own choice (``chaos``: the sim re-sign oracle for a plan with
+adversaries, no verifier for a benign plan; ``scenarios``: the oracle), and
+default to ``cuda-only`` as well; ``overload``'s nodes verify nothing, as the
+JAX package's do.
 """
 from __future__ import annotations
 
@@ -40,6 +49,8 @@ log = logger(__name__)
 
 VERIFIER_CHOICES = ["accept", "cpu", "cuda", "cuda-only", "cpu-agg", "cuda-agg"]
 DEFAULT_VERIFIER = ACCELERATOR_KIND
+SIM_ORACLE = "sim-oracle"
+SIM_VERIFIER_CHOICES = VERIFIER_CHOICES + [SIM_ORACLE]
 
 # The thread ``validator._make_verifier`` warms an accelerator kind in: an
 # exception escaping it (a kernel that fails to build or load, a verifier
@@ -359,6 +370,86 @@ def build_parser() -> argparse.ArgumentParser:
     vs.add_argument("--device", default=None,
                     help="torch device of the backend (default cuda; cpu "
                     "runs the kernels' plain versions)")
+
+    def add_sim_verifier_flags(p, oracle_help):
+        p.add_argument("--verifier", choices=SIM_VERIFIER_CHOICES,
+                       default=DEFAULT_VERIFIER,
+                       help=f"each node's signature verifier; {SIM_ORACLE}: "
+                       f"{oracle_help}")
+        p.add_argument("--device", default=None,
+                       help="torch device of the kernel kinds (default cuda; "
+                       "cpu runs the kernels' plain versions)")
+
+    ch = sub.add_parser(
+        "chaos",
+        help="deterministic chaos sim: replay a FaultPlan from JSON over the "
+        "virtual-time simulator (seeded network faults, timed partitions, "
+        "crash-restarts with WAL replay) and audit commit safety",
+    )
+    ch.add_argument("--plan", required=True, help="FaultPlan JSON path")
+    ch.add_argument("--nodes", type=int, default=10)
+    ch.add_argument("--duration", type=float, default=30.0,
+                    help="virtual seconds to simulate")
+    ch.add_argument("--working-directory", default=None,
+                    help="WAL directory (default: a fresh temp dir)")
+    ch.add_argument("--dump-schedule", action="store_true",
+                    help="print the resolved fault schedule and exit")
+    ch.add_argument("--slo", default=None,
+                    help="SLOThresholds JSON path (default: built-in chaos "
+                    "thresholds); the run's health timeline + alerts ride "
+                    "in the report")
+    ch.add_argument("--health-out", default=None,
+                    help="write the deterministic health timeline + SLO "
+                    "alert stream as JSON")
+    add_sim_verifier_flags(ch, "the JAX CLI's choice (the sim re-sign "
+                           "oracle for a plan with adversaries, none for a "
+                           "benign plan)")
+
+    ov = sub.add_parser(
+        "overload",
+        help="deterministic overload sim: seeded N-node fleet under an "
+        "offered-load multiplier ramp through the admission-controlled "
+        "ingress plane; prints committed-vs-offered, the shed ledger, and "
+        "the byte-stable shed-schedule digest",
+    )
+    ov.add_argument("--seed", type=int, default=0)
+    ov.add_argument("--nodes", type=int, default=10)
+    ov.add_argument("--duration", type=float, default=15.0,
+                    help="virtual seconds to simulate")
+    ov.add_argument("--base-tps", type=int, default=300,
+                    help="per-node offered load at 1x")
+    ov.add_argument("--schedule", default="0:3",
+                    help="offered-load multiplier ramp, t:mult pairs "
+                    "(e.g. '0:1,5:3,10:5')")
+    ov.add_argument("--clients", type=int, default=3,
+                    help="fairness lanes per node")
+    ov.add_argument("--closed-loop", action="store_true",
+                    help="clients consume SHED/retry-after verdicts")
+    ov.add_argument("--report-out", default=None,
+                    help="write the full report JSON here")
+
+    sc = sub.add_parser(
+        "scenarios",
+        help="declarative resilience scenario matrix: run one named "
+        "scenario (or the whole matrix) of composed Byzantine adversary "
+        "mixes + benign chaos + storage churn + geo latency + version "
+        "skew, each as an attacked run vs a same-seed clean twin",
+    )
+    sc.add_argument("--list", action="store_true",
+                    help="list the matrix scenarios and exit")
+    sc.add_argument("--scenario", default=None,
+                    help="run only this named scenario (default: the whole "
+                    "matrix)")
+    sc.add_argument("--duration", type=float, default=None,
+                    help="override the scenario's virtual duration")
+    sc.add_argument("--seed", type=int, default=None,
+                    help="override the scenario's seed")
+    sc.add_argument("--working-directory", default=None,
+                    help="WAL root (default: a fresh temp dir, removed)")
+    sc.add_argument("--out", default=None,
+                    help="write the matrix verdict document as JSON")
+    add_sim_verifier_flags(sc, "the JAX CLI's choice (the sim re-sign "
+                           "oracle)")
     return parser
 
 
@@ -416,4 +507,217 @@ def main(argv: Optional[List[str]] = None) -> int:
         run_service(args.socket, keys, metrics_port=args.metrics_port,
                     device=args.device)
         return 0
+    if args.command == "chaos":
+        return run_chaos(args)
+    if args.command == "overload":
+        return run_overload(args)
+    if args.command == "scenarios":
+        return run_scenarios(args)
     return 1
+
+
+def run_chaos(args) -> int:
+    """The `chaos` subcommand: replay a FaultPlan from JSON on the
+    deterministic simulator, print per-node commit progress, the injected
+    fault tally, and the fault-schedule digest (byte-identical across runs
+    of the same plan), and fail loudly on any commit-safety violation.
+    Every node verifies through ``--verifier`` (the kernel kinds over the
+    benchmark committee's keys, so the harness's signers verify)."""
+    import json
+    import tempfile
+
+    from .chaos import (
+        FaultPlan,
+        SafetyViolation,
+        resolve_schedule,
+        run_chaos_sim,
+    )
+
+    with open(args.plan, "r", encoding="utf-8") as f:
+        plan = FaultPlan.from_json(f.read())
+    if args.dump_schedule:
+        for event in resolve_schedule(plan):
+            print(event)
+        return 0
+    from .health import SLOThresholds
+
+    if args.slo:
+        with open(args.slo, "r", encoding="utf-8") as f:
+            slo = SLOThresholds.from_dict(json.load(f))
+    else:
+        slo = SLOThresholds(
+            max_round_stall_s=8.0,
+            max_commit_stall_s=10.0,
+            max_authority_lag_rounds=15,
+        )
+    verifier = {}
+    if args.verifier != SIM_ORACLE:
+        from .scenarios import verifier_factory
+
+        committee = Committee.new_for_benchmarks(args.nodes)
+        verifier = dict(
+            committee=committee,
+            verifier_factory=verifier_factory(
+                args.verifier, committee, device=args.device
+            ),
+        )
+    wal_dir = args.working_directory or tempfile.mkdtemp(prefix="chaos-")
+    os.makedirs(wal_dir, exist_ok=True)
+    try:
+        report, _harness = run_chaos_sim(
+            plan, args.nodes, args.duration, wal_dir, with_metrics=True,
+            slo=slo, **verifier,
+        )
+    except SafetyViolation as exc:
+        print(f"SAFETY VIOLATION: {exc}")
+        return 1
+    for authority, sequence in sorted(report.sequences.items()):
+        print(f"validator {authority}: {len(sequence)} committed leaders")
+    faults = ", ".join(
+        f"{kind}={count}" for kind, count in sorted(report.fault_counts.items())
+    )
+    print(f"faults injected: {faults or 'none'}")
+    print(f"fault schedule digest: {report.schedule_digest()}")
+    if plan.adversaries:
+        attacks = ", ".join(
+            f"{key}={count}"
+            for key, count in sorted(report.attack_counts.items())
+        )
+        print(f"attacks injected: {attacks or 'none'}")
+        print(f"attack ledger digest: {report.attack_digest()}")
+        for authority, census in sorted(report.detections.items()):
+            for surface, labels in sorted(census.items()):
+                tally = ", ".join(
+                    f"{label}={int(count)}"
+                    for label, count in sorted(labels.items())
+                )
+                print(f"detected by A{authority} [{surface}]: {tally}")
+    for alert in report.slo_alerts:
+        who = "node" if alert["authority"] is None else f"A{alert['authority']}"
+        print(
+            f"SLO alert t={alert['t']:.1f}s {alert['kind']} [{alert['stage']}]"
+            f" {who} (observed by A{alert['observer']}): {alert['detail']}"
+        )
+    print(
+        f"health: {len(report.slo_alerts)} SLO alert(s) over "
+        f"{len(report.health_timeline)} timeline sample(s)"
+    )
+    if args.health_out:
+        with open(args.health_out, "w", encoding="utf-8") as f:
+            json.dump(
+                {
+                    "slo": slo.to_dict(),
+                    "timeline": report.health_timeline,
+                    "alerts": report.slo_alerts,
+                },
+                f, indent=1,
+            )
+            f.write("\n")
+        print(f"health timeline written to {args.health_out}")
+    print("safety: OK (identical committed prefixes on all nodes)")
+    return 0
+
+
+def run_scenarios(args) -> int:
+    """The `scenarios` subcommand: the resilience matrix (scenarios.py).
+    Each scenario prints its verdict line; the exit code is 0 only when
+    every scenario run passed (safety + detection + throughput ratio)."""
+    import dataclasses
+    import json
+
+    from .scenarios import default_matrix, run_matrix, scenario_by_name
+
+    if args.list:
+        for scenario in default_matrix():
+            print(f"{scenario.name:<24} n={scenario.nodes:<3} "
+                  f"{scenario.duration_s:>5.0f}s  {scenario.description}")
+        return 0
+    if args.scenario:
+        selected = [scenario_by_name(args.scenario)]
+    else:
+        selected = default_matrix()
+    overrides = {}
+    if args.duration is not None:
+        overrides["duration_s"] = args.duration
+    if args.seed is not None:
+        overrides["seed"] = args.seed
+    if overrides:
+        selected = [dataclasses.replace(s, **overrides) for s in selected]
+    doc = run_matrix(selected, wal_root=args.working_directory,
+                     device=args.device, verifier=args.verifier)
+    for verdict in doc["scenarios"]:
+        name = verdict["scenario"]["name"]
+        status = "PASS" if verdict["passed"] else "FAIL"
+        detections = verdict.get("detections", {})
+        print(
+            f"{name:<24} {status}  ratio={verdict.get('throughput_ratio', 0.0):.2f} "
+            f"committed={verdict.get('committed_tx', 0)} "
+            f"attacks={sum(verdict.get('attack_counts', {}).values())} "
+            f"detected={sum(1 for d in detections.values() if d['ok'])}"
+            f"/{len(detections)}"
+            + ("" if verdict["safety_ok"] else "  SAFETY-VIOLATION")
+        )
+    print(f"matrix: {doc['passed']} passed, {doc['failed']} failed")
+    if args.out:
+        with open(args.out, "w", encoding="utf-8") as f:
+            json.dump(doc, f, indent=1, sort_keys=True)
+            f.write("\n")
+        print(f"matrix verdicts written to {args.out}")
+    return 0 if doc["all_pass"] else 1
+
+
+def run_overload(args) -> int:
+    """The `overload` subcommand: one seeded overload scenario on the
+    deterministic simulator.  Commit safety under overload is audited by
+    the chaos SafetyChecker inside the runner."""
+    import json
+
+    from .ingress import OverloadScenario, run_overload_sim
+    from .transactions_generator import parse_overload_schedule
+
+    scenario = OverloadScenario(
+        seed=args.seed,
+        nodes=args.nodes,
+        duration_s=args.duration,
+        base_tps=args.base_tps,
+        multiplier_schedule=parse_overload_schedule(args.schedule),
+        clients_per_node=args.clients,
+        closed_loop=args.closed_loop,
+        max_per_proposal=30,
+        mempool_max_transactions=600,
+    )
+    report = run_overload_sim(scenario)
+    print(
+        f"committed: {report.committed_tx} tx "
+        f"({report.committed_tx_s:.1f} tx/s) of {report.offered_tx} offered "
+        f"({report.admitted_tx} admitted)"
+    )
+    for reason, count in sorted(report.shed_by_reason.items()):
+        print(f"shed[{reason}]: {count}")
+    for lane, stats in sorted(report.lane_stats.items()):
+        print(
+            f"lane {lane}: drained={stats['drained']} shed={stats['shed']}"
+            f" pending={stats['pending']}"
+        )
+    print(f"shed schedule digest: {report.shed_schedule_digest}")
+    print("safety: OK (identical committed prefixes on all nodes)")
+    if args.report_out:
+        with open(args.report_out, "w", encoding="utf-8") as f:
+            json.dump(
+                {
+                    "scenario": scenario.to_dict(),
+                    "committed_tx": report.committed_tx,
+                    "committed_tx_s": report.committed_tx_s,
+                    "offered_tx": report.offered_tx,
+                    "admitted_tx": report.admitted_tx,
+                    "shed_by_reason": report.shed_by_reason,
+                    "shed_schedule_digest": report.shed_schedule_digest,
+                    "lane_stats": report.lane_stats,
+                    "commit_heights": report.commit_heights,
+                    "generator_stats": report.generator_stats,
+                },
+                f, indent=1,
+            )
+            f.write("\n")
+        print(f"report written to {args.report_out}")
+    return 0

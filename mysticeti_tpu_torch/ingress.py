@@ -1,11 +1,7 @@
 """Overload-resilient ingress plane: gateway, admission-controlled mempool,
 graceful degradation under saturation.
 
-The port's copy of ``mysticeti_tpu.ingress``, without the seeded overload
-simulation (``run_overload_sim`` and its ``OverloadReport``), which needs the
-chaos tier's safety checker; :class:`OverloadScenario` is here, and its
-``ingress_parameters()`` configures a seeded overload run of the port's
-fleet.
+The port's copy of ``mysticeti_tpu.ingress``.
 
 The MAXLOAD artifacts show why ingress policy matters: committed throughput
 *collapses* past saturation (r4: 40.3k committed at 57.6k offered) because
@@ -36,9 +32,10 @@ edge and a finality core):
   length-prefixed framing (wire tags 13-16, docs/wire-format.md §5b):
   SUBMIT -> ACK/QUEUED/SHED plus an optional commit-notification stream fed
   from the committed sequence.
-* :class:`OverloadScenario` — a seeded, deterministic N-node overload
+* :func:`run_overload_sim` — a seeded, deterministic N-node overload
   scenario on the virtual-time simulator (the chaos tier's shape): offered
-  load ramps to a multiple of the 1x rate.
+  load ramps to a multiple of the 1x rate and the run asserts graceful
+  degradation, full shed accounting, and a byte-identical shed schedule.
 
 Everything is clocked by the RUNTIME clock (virtual under the deterministic
 simulator) and dedup is count-bounded, not time-bounded, so seeded sims are
@@ -1171,6 +1168,255 @@ class OverloadScenario:
             "clients_per_node": self.clients_per_node,
             "duplicate_flood": self.duplicate_flood,
         }
+
+
+@dataclass
+class OverloadReport:
+    """What an overload scenario pins: throughput, full shed accounting,
+    fairness, and the deterministic shed schedule."""
+
+    committed_tx: int
+    committed_tx_s: float
+    offered_tx: int
+    admitted_tx: int
+    shed_by_reason: Dict[str, int]
+    shed_log_bytes: bytes
+    shed_schedule_digest: str
+    lane_stats: Dict[str, dict]
+    commit_heights: Dict[int, int]
+    generator_stats: Dict[str, dict]
+    shed_mode_entered: bool
+    # Finality SLI plane (defaults keep older constructors working):
+    # fleet-merged server-side submit→finalized and client-observed
+    # submit→notification percentiles over the sampled keys.
+    server_finality: Dict[str, float] = field(default_factory=dict)
+    client_finality: Dict[str, float] = field(default_factory=dict)
+
+
+def run_overload_sim(scenario: OverloadScenario) -> OverloadReport:
+    """Run one seeded overload scenario to completion on a fresh
+    DeterministicLoop; commit safety is audited by the chaos tier's
+    :class:`~mysticeti_tpu_torch.chaos.SafetyChecker` (prefix consistency across
+    the fleet survives overload)."""
+    import os
+    import shutil
+    import tempfile
+
+    from .block_handler import BenchmarkFastPathBlockHandler
+    from .block_store import BlockStore
+    from .chaos import SafetyChecker, _SimNodeNetwork
+    from .commit_observer import TestCommitObserver
+    from .committee import Committee
+    from .config import Parameters
+    from .core import Core, CoreOptions
+    from .net_sync import NetworkSyncer
+    from .runtime.simulated import run_simulation
+    from .simulated_network import SimulatedNetwork
+    from .transactions_generator import TransactionGenerator
+    from .types import Share
+    from .wal import walf
+
+    n = scenario.nodes
+    committee = Committee.new_test([1] * n)
+    signers = Committee.benchmark_signers(n)
+    parameters = Parameters(leader_timeout_s=scenario.leader_timeout_s)
+    checker = SafetyChecker()
+    share_counts: Dict[int, int] = {a: 0 for a in range(n)}
+
+    class _CountingObserver(TestCommitObserver):
+        """Counts committed Share statements per node, feeds the ingress
+        commit hook and the cross-node safety audit."""
+
+        def __init__(self, authority, plane, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self._authority = authority
+            self._plane = plane
+
+        def handle_commit(self, committed_leaders):
+            committed = super().handle_commit(committed_leaders)
+            for commit in committed:
+                for block in commit.blocks:
+                    share_counts[self._authority] += sum(
+                        1 for st in block.statements if isinstance(st, Share)
+                    )
+            self._plane.note_committed(committed)
+            checker.observe(self._authority, committed)
+            return committed
+
+    tmp_dir = tempfile.mkdtemp(prefix="overload-sim-")
+    planes: List[IngressPlane] = []
+    generators: Dict[str, TransactionGenerator] = {}
+    nodes: List[NetworkSyncer] = []
+    flood_tasks: List[asyncio.Task] = []
+    flood_offered = [0]  # offered-load ledger for the duplicate flooders
+
+    async def _duplicate_flood(plane: IngressPlane, seed: int) -> None:
+        """Re-submit one fixed batch forever: everything past the first
+        submission must shed as duplicate."""
+        import random as _random
+
+        rng = _random.Random(seed)
+        batch = [
+            rng.getrandbits(64).to_bytes(8, "little")
+            * (scenario.transaction_size // 8)
+            for _ in range(10)
+        ]
+        while True:
+            plane.submit("flooder", batch)
+            flood_offered[0] += len(batch)
+            await asyncio.sleep(0.5)
+
+    async def main() -> None:
+        sim_net = SimulatedNetwork(n)
+        for authority in range(n):
+            # Synchronous WAL: the async writer's drain THREAD runs in
+            # wall-clock time, and the admission controller observes its
+            # progress through the wal_backlog signal — with async writes
+            # a seeded virtual-time run would absorb real thread timing
+            # and the committed sequence would drift across same-seed runs.
+            wal_writer, wal_reader = walf(
+                os.path.join(tmp_dir, f"wal-{authority}"), async_writes=False
+            )
+            recovered, observer_recovered = BlockStore.open(
+                authority, wal_reader, wal_writer, committee
+            )
+            plane = IngressPlane(
+                scenario.ingress_parameters(), authority=authority
+            )
+            handler = BenchmarkFastPathBlockHandler(
+                committee, authority, ingress=plane
+            )
+            core = Core(
+                block_handler=handler,
+                authority=authority,
+                committee=committee,
+                parameters=parameters,
+                recovered=recovered,
+                wal_writer=wal_writer,
+                options=CoreOptions.test(),
+                signer=signers[authority],
+            )
+            observer = _CountingObserver(
+                authority,
+                plane,
+                core.block_store,
+                committee,
+                transaction_time=handler.transaction_time,
+                recovered_state=observer_recovered,
+            )
+
+            node = NetworkSyncer(
+                core,
+                observer,
+                _SimNodeNetwork(sim_net.node_connections[authority]),
+                parameters=parameters,
+            )
+            plane.attach(core=core, net_syncer=node)
+            clients = max(1, scenario.clients_per_node)
+            for i in range(clients):
+                if clients == 1:
+                    submit_fn = handler.submit
+                    name = f"a{authority}/local"
+                else:
+                    submit_fn = (
+                        lambda txs, p=plane, c=f"client-{i}": p.submit(c, txs)
+                    )
+                    name = f"a{authority}/client-{i}"
+                generator = TransactionGenerator(
+                    submit=submit_fn,
+                    seed=scenario.seed * 1000 + authority * 16 + i,
+                    tps=max(1, scenario.base_tps // clients),
+                    transaction_size=scenario.transaction_size,
+                    overload_schedule=list(scenario.multiplier_schedule),
+                    closed_loop=scenario.closed_loop,
+                    finality_sample_every=(
+                        scenario.ingress_parameters().finality_sample_every
+                    ),
+                )
+                generators[name] = generator
+                # Client-observed finality: this node's commit stream
+                # closes the client's sampled submit stamps (the sim's
+                # stand-in for a gateway subscription).
+                plane.add_commit_sink(
+                    lambda height, keys, info, g=generator: (
+                        g.note_commit_notification(keys, info)
+                    )
+                )
+            planes.append(plane)
+            nodes.append(node)
+        for node in nodes:
+            await node.start()
+        await sim_net.connect_all()
+        for authority, plane in enumerate(planes):
+            plane.start()
+            if scenario.duplicate_flood:
+                flood_tasks.append(
+                    spawn_logged(
+                        _duplicate_flood(
+                            plane, scenario.seed * 7919 + authority
+                        ),
+                        log,
+                        name=f"dup-flood-{authority}",
+                    )
+                )
+        for generator in generators.values():
+            generator.start()
+        await asyncio.sleep(scenario.duration_s)
+        for task in flood_tasks:
+            task.cancel()
+        for generator in generators.values():
+            generator.stop()
+        for plane in planes:
+            plane.stop()
+        for node in nodes:
+            await node.stop()
+            node.core.wal_writer.close()
+            node.core.block_store.close()
+        sim_net.close()
+
+    try:
+        run_simulation(main(), seed=scenario.seed)
+    finally:
+        # The per-node WAL segments are scratch: every sim (CLI, bench
+        # determinism leg, tier-1 tests) would otherwise leave an
+        # overload-sim-* directory in /tmp forever.
+        shutil.rmtree(tmp_dir, ignore_errors=True)
+    checker.check()
+    shed_by_reason: Dict[str, int] = {}
+    for plane in planes:
+        for reason, count in plane.shed_by_reason.items():
+            shed_by_reason[reason] = shed_by_reason.get(reason, 0) + count
+    offered = sum(g.submitted for g in generators.values()) + flood_offered[0]
+    admitted = sum(p.admitted_total for p in planes)
+    committed = share_counts[0]
+    return OverloadReport(
+        committed_tx=committed,
+        committed_tx_s=round(committed / scenario.duration_s, 3),
+        offered_tx=offered,
+        admitted_tx=admitted,
+        shed_by_reason=shed_by_reason,
+        shed_log_bytes=planes[0].shed_log_bytes(),
+        shed_schedule_digest=planes[0].shed_schedule_digest(),
+        lane_stats=planes[0].mempool.lane_stats(),
+        commit_heights={
+            a: checker.committed_height(a) for a in range(n)
+        },
+        generator_stats={
+            name: gen.stats() for name, gen in sorted(generators.items())
+        },
+        shed_mode_entered=any(
+            entry["reason"] == SHED_ADMISSION
+            for plane in planes
+            for entry in plane.shed_log
+        )
+        or any(p.controller.shed_mode for p in planes),
+        server_finality=_merged_finality(
+            [p.finality for p in planes if p.finality is not None]
+        ),
+        client_finality=_merged_finality(
+            [g.finality for g in generators.values() if g.finality is not None]
+        ),
+    )
 
 
 def _merged_finality(trackers) -> Dict[str, float]:

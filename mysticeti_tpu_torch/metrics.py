@@ -691,6 +691,11 @@ class Metrics:
             "crash_recovery_total",
             "node boots that recovered state by replaying a non-empty WAL",
         )
+        self.chaos_faults_total = counter(
+            "chaos_faults_total",
+            "faults injected by the deterministic chaos engine",
+            labels=("kind",),
+        )
         self.mysticeti_equivocation_detected_total = counter(
             "mysticeti_equivocation_detected_total",
             "distinct conflicting blocks observed at one (authority, round) "
@@ -707,6 +712,18 @@ class Metrics:
             "claimed author), malformed (undecodable block bytes; "
             "attributed to the DELIVERING peer)",
             labels=("authority", "reason"),
+        )
+        # Determinism sanitizer plane (detsan.py): wall-clock reads reaching
+        # package code while the deterministic virtual-time loop is running.
+        # MUST stay zero in any healthy sim — a non-zero count is a
+        # reproducibility leak, attributed to the reading call-site
+        # (module:line).
+        self.mysticeti_detsan_wallclock_reads_total = counter(
+            "mysticeti_detsan_wallclock_reads_total",
+            "un-gated time.monotonic()/time()/perf_counter() reads from "
+            "package code under simulation, caught by the detsan tripwire "
+            "(strict mode raises WallClockLeak instead), by call-site",
+            labels=("site",),
         )
         self.mysticeti_leader_wait_skipped_total = counter(
             "mysticeti_leader_wait_skipped_total",

@@ -102,10 +102,11 @@ SUBSYSTEMS: Dict[str, str] = {
     "monitor": "tooling", "orchestrator": "tooling", "plot": "tooling",
     "providers": "tooling", "runner": "tooling", "settings": "tooling",
     "ssh": "tooling", "testbed": "tooling", "validator": "tooling",
-    # The entry points, the benchmark, the flamegraph renderer's CLI and
-    # the node-a-process attribution probe.
+    # The entry points, the benchmark, the flamegraph renderer's CLI, the
+    # node-a-process attribution probe and the scenario-matrix probe (the
+    # detsan driver shares ``detsan``'s row).
     "entry": "tooling", "bench": "tooling", "mkflamegraph": "tooling",
-    "perf_attr": "tooling",
+    "perf_attr": "tooling", "scenario_matrix": "tooling",
     # Runtime facade + the deterministic loop.
     "__init__": "runtime", "simulated": "runtime",
 }

@@ -69,6 +69,22 @@ class DeterministicLoop(base_events.BaseEventLoop):
         self._selector = _NullSelector(self._clock)
         self.rng = random.Random(seed)
         self.seed = seed
+        # Determinism-sanitizer seam (detsan.py): when a DetsanRecorder is
+        # attached, every scheduled callback is wrapped so the recorder
+        # digests events in EXECUTION order.  None = zero overhead.
+        self.detsan = None
+
+    # -- detsan event capture --
+
+    def call_soon(self, callback, *args, context=None):
+        if self.detsan is not None:
+            callback, args = self.detsan.wrap(self, callback, args)
+        return super().call_soon(callback, *args, context=context)
+
+    def call_at(self, when, callback, *args, context=None):
+        if self.detsan is not None:
+            callback, args = self.detsan.wrap(self, callback, args)
+        return super().call_at(when, callback, *args, context=context)
 
     # -- virtual clock --
 
@@ -95,13 +111,17 @@ def run_simulation(
     main: Awaitable,
     seed: int = 0,
     timeout_s: Optional[float] = None,
+    detsan=None,
 ):
     """Run ``main`` to completion on a fresh DeterministicLoop; returns its result.
 
     ``timeout_s`` bounds *virtual* time: exceeding it raises TimeoutError —
-    reproducibly, since everything is seeded.
+    reproducibly, since everything is seeded.  ``detsan`` attaches a
+    :class:`mysticeti_tpu_torch.detsan.DetsanRecorder` that digests every
+    executed event for run-twice divergence bisection.
     """
     loop = DeterministicLoop(seed)
+    loop.detsan = detsan
     from ..types import StatementBlock
 
     StatementBlock.enable_decode_memo()
@@ -110,6 +130,11 @@ def run_simulation(
         if timeout_s is not None:
             main = asyncio.wait_for(main, timeout=timeout_s)
         result = loop.run_until_complete(main)
+        # The detsan trace certifies the run THROUGH its result.  The
+        # straggler sweep below iterates the all_tasks() set, whose order
+        # is interpreter address noise, not simulated behavior — recording
+        # it would make every run-twice diff 'diverge' during teardown.
+        loop.detsan = None
         # Cancel stragglers and let their cancellation run, so no coroutine is
         # destroyed mid-await after the loop closes.
         pending = [t for t in asyncio.all_tasks(loop) if not t.done()]

@@ -1,0 +1,182 @@
+"""Determinism sanitizer driver: run-twice chaos sim + leak bisection.
+
+The port's copy of the JAX package's ``tools/detsan.py``, less its static
+``sim-taint`` fixtures (the port has no lint yet) and its ``BENCH_TREND``
+append.  One invocation exercises the dynamic layers and can write the
+``DETSAN_rNN.json`` artifact:
+
+1. **clean** — the seeded N-node chaos sim runs twice under a
+   :class:`~mysticeti_tpu_torch.detsan.DetsanRecorder`; the per-event
+   digest chains must match exactly (``identical: true``).
+2. **planted** — the same sim with a deliberately wall-clock-derived
+   timer cadence injected via the chaos ``extra_fault`` seam; the
+   bisector must report ``identical: false`` and name the first
+   diverging event.
+3. **tripwire** — the strict-mode wall-clock tripwire is self-tested:
+   counting mode must attribute a read to its call-site (and tick
+   ``mysticeti_detsan_wallclock_reads_total``); strict mode must raise
+   :class:`~mysticeti_tpu_torch.detsan.WallClockLeak`.
+
+Usage:
+    python -m mysticeti_tpu_torch.tools.detsan
+    python -m mysticeti_tpu_torch.tools.detsan --out DETSAN.json
+    python -m mysticeti_tpu_torch.tools.detsan --nodes 10 --duration 3 --seed 42
+
+Exit code 0 when every section passes, 1 otherwise.
+"""
+from __future__ import annotations
+
+import argparse
+import asyncio
+import json
+import os
+import sys
+import tempfile
+import textwrap
+import time
+
+from mysticeti_tpu_torch import detsan
+from mysticeti_tpu_torch.chaos import FaultPlan, run_chaos_sim
+from mysticeti_tpu_torch.metrics import Metrics
+from mysticeti_tpu_torch.runtime.simulated import run_simulation
+
+
+# ---------------------------------------------------------------------------
+# The planted leak: host-clock-derived virtual timer cadence, injected
+# through the chaos extra_fault seam so the sim itself stays untouched.
+
+
+async def _planted_leak(harness):
+    # The exact bug class detsan exists for: a timer delay derived from the
+    # HOST clock inside a virtual-time run.  Two same-seed runs draw
+    # different jitter, so their event schedules fork.
+    while True:
+        jitter = (time.perf_counter_ns() % 997) / 1e5
+        await asyncio.sleep(0.05 + jitter)
+
+
+def _run_recorded(nodes, duration_s, seed, cap, extra_fault=None):
+    recorder = detsan.DetsanRecorder(cap)
+    with tempfile.TemporaryDirectory(prefix="detsan-wal-") as wal_dir:
+        run_chaos_sim(
+            FaultPlan(seed=seed),
+            nodes,
+            duration_s,
+            wal_dir,
+            extra_fault=extra_fault,
+            detsan=recorder,
+        )
+    return recorder
+
+
+def _run_twice(nodes, duration_s, seed, cap, extra_fault=None):
+    a = _run_recorded(nodes, duration_s, seed, cap, extra_fault)
+    b = _run_recorded(nodes, duration_s, seed, cap, extra_fault)
+    return detsan.find_divergence(a, b)
+
+
+# ---------------------------------------------------------------------------
+# Tripwire self-test: a synthetic 'package module' reads the wall clock
+# under simulation; counting mode must attribute it, strict mode must raise.
+
+_TRIPWIRE_PROBE = textwrap.dedent(
+    """
+    import time
+
+
+    def read_clock():
+        return time.monotonic()
+    """
+)
+
+
+def _tripwire_selftest() -> dict:
+    namespace = {"__name__": "mysticeti_tpu_torch._detsan_probe"}
+    exec(compile(_TRIPWIRE_PROBE, "<detsan-probe>", "exec"), namespace)
+    read_clock = namespace["read_clock"]
+
+    async def main():
+        return read_clock()
+
+    metrics = Metrics()
+    counting = detsan.Tripwire(metrics=metrics, strict=False)
+    with counting:
+        run_simulation(main())
+
+    raised = False
+    try:
+        with detsan.Tripwire(strict=True):
+            run_simulation(main())
+    except detsan.WallClockLeak:
+        raised = True
+
+    return {
+        "counted_reads": counting.total_reads,
+        "sites": dict(counting.reads),
+        "strict_mode_raised": raised,
+        "metric": "mysticeti_detsan_wallclock_reads_total",
+    }
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--nodes", type=int, default=10)
+    parser.add_argument("--duration", type=float, default=3.0,
+                        help="virtual seconds per run")
+    parser.add_argument("--seed", type=int, default=42)
+    parser.add_argument("--cap", type=int, default=detsan.DEFAULT_TRACE_CAP,
+                        help="max stored trace events per run")
+    parser.add_argument("--out", default=None,
+                        help="write the DETSAN artifact JSON here")
+    args = parser.parse_args(argv)
+
+    print(f"detsan: clean run-twice ({args.nodes} nodes, "
+          f"{args.duration}s virtual, seed {args.seed}) ...")
+    clean = _run_twice(args.nodes, args.duration, args.seed, args.cap)
+    print(f"  identical={clean.identical} events={clean.events_a}")
+
+    print("detsan: planted wall-clock leak run-twice ...")
+    planted = _run_twice(
+        args.nodes, args.duration, args.seed, args.cap,
+        extra_fault=_planted_leak,
+    )
+    print(f"  identical={planted.identical} "
+          f"first_divergence={planted.first_divergence}")
+
+    tripwire = _tripwire_selftest()
+    print(f"detsan: tripwire counted={tripwire['counted_reads']} "
+          f"strict_raised={tripwire['strict_mode_raised']}")
+
+    passed = (
+        clean.identical
+        and not planted.identical
+        and planted.first_divergence is not None
+        and tripwire["counted_reads"] > 0
+        and tripwire["strict_mode_raised"]
+    )
+
+    artifact = {
+        "metric": "detsan",
+        "nodes": args.nodes,
+        "duration_s": args.duration,
+        "seed": args.seed,
+        "trace_cap": args.cap,
+        "clean": clean.to_dict(),
+        "planted": planted.to_dict(),
+        "tripwire": tripwire,
+        "passed": passed,
+    }
+
+    if args.out:
+        path = os.path.abspath(args.out)
+        with open(path, "w") as f:
+            json.dump(artifact, f, indent=2)
+            f.write("\n")
+        print(f"detsan: artifact -> {args.out}")
+
+    print(f"detsan: {'PASS' if passed else 'FAIL'}")
+    return 0 if passed else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

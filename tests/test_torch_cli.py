@@ -36,6 +36,7 @@ from mysticeti_tpu_torch.tools import perf_attr
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KIND_MAP = {"tpu": "cuda", "tpu-only": "cuda-only", "tpu-agg": "cuda-agg"}
 NODE_SUBCOMMANDS = ("benchmark-genesis", "run", "dry-run", "testbed", "verifier-service")
+SIM_SUBCOMMANDS = ("chaos", "overload", "scenarios")
 
 
 def _free_port_base(n):
@@ -125,13 +126,21 @@ def _flags(subparser, kinds=None):
 def test_parser_equals_the_jax_clis_with_the_kinds_mapped(monkeypatch):
     jax = _subcommands(_jax_parser(monkeypatch))
     port = _subcommands(cli.build_parser())
-    assert tuple(port) == NODE_SUBCOMMANDS
-    assert set(NODE_SUBCOMMANDS) <= set(jax)
-    for name in NODE_SUBCOMMANDS:
+    assert tuple(port) == NODE_SUBCOMMANDS + SIM_SUBCOMMANDS
+    assert set(NODE_SUBCOMMANDS + SIM_SUBCOMMANDS) <= set(jax)
+    device = (("--device",), None, None, False, None, None, None)
+    for name in NODE_SUBCOMMANDS + SIM_SUBCOMMANDS:
         want = _flags(jax[name], kinds=KIND_MAP)
         if name == "verifier-service":
             # The port's service also takes the backend's torch device.
-            want["device"] = (("--device",), None, None, False, None, None, None)
+            want["device"] = device
+        if name in ("chaos", "scenarios"):
+            # The simulator's nodes verify through a port kind (the card's
+            # by default) or the JAX CLI's own choice, ``sim-oracle``.
+            want["verifier"] = (("--verifier",), "cuda-only",
+                                tuple(cli.VERIFIER_CHOICES) + ("sim-oracle",), False, None,
+                                None, None)
+            want["device"] = device
         assert _flags(port[name]) == want, name
     verifier = _flags(port["run"])["verifier"]
     assert verifier[1] == "cuda-only" == cli.DEFAULT_VERIFIER

@@ -206,6 +206,9 @@ def test_every_metric_the_port_reads_resolves_on_Metrics():
         assert families <= set(reads), (module, families - set(reads))
         assert all(reads[name] == [module] for name in families), {
             name: reads[name] for name in families}
+    # The Byzantine and chaos planes' families, each read by its writer.
+    assert reads["chaos_faults_total"] == ["mysticeti_tpu_torch/chaos.py"]
+    assert reads["mysticeti_detsan_wallclock_reads_total"] == ["mysticeti_tpu_torch/detsan.py"]
 
 
 def test_each_family_equals_the_jax_packages():
@@ -260,3 +263,38 @@ def test_precise_channel_reservoir_equals_the_jax_packages(n):
         got[pkg] = (list(channel.samples), channel.count, channel.sum)
     assert got["mysticeti_tpu_torch"] == got["mysticeti_tpu"]
     assert len(got["mysticeti_tpu"][0]) == min(n, 64)
+
+
+def test_chaos_and_detsan_families_count_what_the_jax_packages_count(tmp_path):
+    """``chaos_faults_total{kind}`` over a seeded chaos run (crash, restart,
+    drops, a blackhole partition) and ``mysticeti_detsan_wallclock_reads_total
+    {site}`` under a tripwire hold the JAX package's samples, node by node."""
+    got = {}
+    for pkg in PACKAGES:
+        chaos = _mod(pkg, "chaos")
+        plan = chaos.FaultPlan(
+            seed=4, link_faults=[chaos.LinkFault(drop_p=0.05, duplicate_p=0.02, delay_p=0.02)],
+            partitions=[chaos.PartitionFault(start_s=1.0, end_s=2.0, group_a=(0,),
+                                             group_b=(1, 2, 3))],
+            crashes=[chaos.CrashFault(node=3, at_s=0.5, downtime_s=1.0)])
+        (tmp_path / pkg).mkdir()
+        _, harness = chaos.run_chaos_sim(plan, 4, 3.0, str(tmp_path / pkg), with_metrics=True)
+        nodes = [_samples(m, {"chaos_faults"}) for m in harness.metrics]
+        detsan, metrics = _mod(pkg, "detsan"), _mod(pkg, "metrics").Metrics()
+        namespace = {"__name__": f"{pkg}._families_probe"}
+        exec("import time\ndef read():\n    return time.monotonic()\n", namespace)
+
+        async def main():
+            return namespace["read"]()
+
+        with detsan.Tripwire(metrics=metrics, strict=False):
+            _mod(pkg, "runtime.simulated").run_simulation(main())
+        reads = {labels: v for (name, labels), v in
+                 _samples(metrics, {"mysticeti_detsan_wallclock_reads"}).items()}
+        got[pkg] = (nodes, {tuple((k, v.replace(pkg, "PKG")) for k, v in labels): value
+                            for labels, value in reads.items()})
+    assert got["mysticeti_tpu_torch"] == got["mysticeti_tpu"]
+    nodes, reads = got["mysticeti_tpu_torch"]
+    kinds = {dict(labels)["kind"] for node in nodes for (_, labels) in node}
+    assert {"crash", "restart", "drop", "blackhole"} <= kinds
+    assert list(reads.values()) == [1.0]

@@ -115,7 +115,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "consensus/base_committer", "consensus/universal_committer", "consensus/linearizer",
         "decisions", "threshold_clock", "epoch_close", "range_map", "log", "block_handler",
         "commit_observer", "core", "syncer", "net_sync", "reconfig", "execution",
-        "finalization_interpreter", "validator", "cli", "__main__", "tools/perf_attr")} <= names
+        "finalization_interpreter", "validator", "cli", "__main__", "tools/perf_attr",
+        "adversary", "detsan", "chaos", "scenarios", "tools/detsan",
+        "tools/scenario_matrix")} <= names
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "mysticeti_tpu"}, path
