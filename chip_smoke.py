@@ -276,13 +276,13 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    verifier is ready, and at exit whether CUDA was initialized and the
    committed leaders), started by
    ``tools.perf_attr.run_fleet`` with ``MYSTICETI_PROFILE`` /
-   ``MYSTICETI_PERF_REPORT``, ``MYSTICETI_EXIT_AFTER`` (20 s), ``TPS``
+   ``MYSTICETI_PERF_REPORT``, ``MYSTICETI_EXIT_AFTER`` (12 s), ``TPS``
    1,000 of 512 B and ``MYSTICETI_FLIGHT_RECORDER``; a thread polls every
    node's ``/metrics``, ``/health`` and ``/debug/consensus``.  Three fleets
    in turn: node-proc-10 (``--verifier cuda-only``: ten CUDA contexts on
    cuda:0), node-svc-10 (the same with ``MYSTICETI_VERIFIER_SOCKET`` on one
    verifier service on cuda:0 hosted here) and the ``cpu`` kind.  Checks,
-   each fleet: every process exits 0 within 20 + 60 s of its start; every
+   each fleet: every process exits 0 within 12 + 60 s of its start; every
    node commits at least ``NODE_10["min_commits"]`` leaders and the
    sequences agree on their common prefixes; every node answered the three
    routes (``/debug/consensus`` naming it); each final exposition holds the
@@ -298,7 +298,34 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    mean runnable threads (its own perf report), loop lag p50 / p99,
    ``/health`` statuses, ``transaction_committed_latency`` p50 / p99, the
    seconds to the verifier's ``ready`` and the kernels' build hits.
-18. Byzantine (byzantine-10): the resilience matrix's ``byzantine-at-f``
+18. Orchestrator (orchestrator-10): config 3's fleet as the reference's
+   orchestrator runs it: the port's ``Orchestrator`` over its
+   ``LocalProcessRunner(verifier="cuda-only", transaction_size=512)`` and a
+   ``ParametersGenerator`` of two fixed loads, 10,000 and 30,000
+   transactions a second over the 10 nodes, 12 s a run, every node scraped
+   every 4 s (``Measurement.from_prometheus``, the host sample, the health
+   snapshot); each run's genesis on config 3's ports or a free base, ten
+   ``python -m mysticeti_tpu_torch run`` processes behind one verifier
+   service on cuda:0 that the runner starts and warms; then
+   ``plot_latency_throughput`` and ``analyze_logs``.  The runner runs
+   unchanged; around its steps the phase reads the card's compute processes
+   (``nvidia-smi --query-compute-apps``) before each run and at every
+   scrape, each node's last ``/metrics``, and the service's launch counts
+   (through a ``sitecustomize`` the phase puts on the children's
+   ``PYTHONPATH``: SIGUSR1 makes the service write them) once it is warm,
+   before the first node boots, and once every node is killed, before the
+   runner kills the service.  Checks, each run: every node scraped at least
+   twice; a benchmark duration and tps above 0 and a finite average
+   latency; ``measurements-<i>.json`` written and loading back equal; the
+   last health sample reaching every node; no invalid block and no batch
+   degraded to the CPU oracle on any node; the service the only compute
+   process the run added to the card (so no node opened a CUDA context); the
+   service launching the prologue and the keyed kernel once a dispatch, at
+   least as often as the nodes' flushes at their last scrape, and the
+   generic kernel never.  Prints, each run: the offered load, tps, average
+   and stdev latency, the benchmark duration, the nodes' flushes and live
+   lanes, the service's launches, and the phase's seconds.
+19. Byzantine (byzantine-10): the resilience matrix's ``byzantine-at-f``
    through the port's ``scenarios.run_scenario(..., real_crypto=True)``:
    config 3's 10 validators (``Committee.new_for_benchmarks(10)``, seed 7,
    0.3 s leader timeout) as a ``ChaosSimHarness`` fleet under the
@@ -323,13 +350,14 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    its 0.8, every attack detected, safety) and its document's digest is
    the seeded one.  ``byzantine_only`` also runs the sim re-sign oracle's
    twin here and requires the same document.
-19. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
+20. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
    workers, 8 iterations, 2 trials and a 30 s budget; its JSON line must
    come from rung 0 with a value above 0.
-Each path of steps 3-18 (the block path and the committee dispatch of step 3
+Each path of steps 3-19 (the block path and the committee dispatch of step 3
 apart) runs with every launch count set to 0 just before it and read just
 after (node-proc-10's in its processes, from each verifier's ``ready``;
-byzantine-10's for each twin); every kernel must have launched on some path.
+byzantine-10's for each twin; orchestrator-10's on its verifier service, from
+its warm state); every kernel must have launched on some path.
 The whole script skips the ``cpu`` control run of steps 11, 13, 14, 15,
 netsync-50 of step 12 and health-sim-10 of step 16: their seeded constants
 (``CONSENSUS_SEEDED``, ``NETSYNC_SEEDED``, ``STORAGE_SEEDED``,
@@ -337,7 +365,7 @@ netsync-50 of step 12 and health-sim-10 of step 16: their seeded constants
 there (each ``<phase>_only`` keeps the control and its comparison; the
 consensus and netsync-50 counts carry a digest of every node's committed
 sequence and own blocks, which the control compared).
-20. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+21. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Every phase runs under ``PYTHONHASHSEED=0`` (``main`` runs the command
@@ -351,7 +379,8 @@ phase fails.
 One phase alone: ``python3 -c 'import chip_smoke as c; raise
 SystemExit(c.main(c.receive_only))'`` (likewise ``consensus_only``,
 ``net_sync_only``, ``storage_only``, ``epoch_only``, ``ingress_only``,
-``health_only``, ``node_only``, ``byzantine_only``, and ``sharded_only`` for a
+``health_only``, ``node_only``, ``orchestrator_only``, ``byzantine_only``, and
+``sharded_only`` for a
 host with several cards).  Not
 in the default run: ``receive_split`` (where the receive burst's host time
 goes) and ``consensus_trace`` (the card's busy share in step 11, from a
@@ -695,15 +724,28 @@ HEALTH_SEEDED = {
 # environment that sets (``MYSTICETI_PROFILE``, ``MYSTICETI_PERF_REPORT``,
 # ``MYSTICETI_EXIT_AFTER``, ``TPS``): 1,000 transactions of 512 B a second a
 # node (the upstream size; ingress-10's 1x), a timed clean exit after
-# ``exit_after_s``, a flight-recorder dump a node at shutdown.  Three fleets
+# ``exit_after_s`` (12 s; 20 before the orchestrator phase came), a
+# flight-recorder dump a node at shutdown.  Three fleets
 # in turn: node-proc-10 (``cuda-only``, each node its own CUDA context on
 # cuda:0), node-svc-10 (``cuda-only`` through one verifier service on cuda:0
 # that this script hosts) and the ``cpu`` kind as the control.
 # ``min_commits`` is half the fewest leaders a node committed in any of the
-# three fleets on an H100 80GB HBM3 at 700 W (116, node-proc-10; the fleets
-# committed 116-309 a node): a fleet that stalls early fails.
-NODE_10 = {"n": 10, "tps": 1000, "transaction_size": 512, "exit_after_s": 20.0,
-           "grace_s": 60.0, "min_commits": 58, "scrape_s": 2.0, "port_base": 1500}
+# three fleets on an H100 80GB HBM3 at 700 W at this depth: 43 at 12 s
+# (node-proc-10; the fleets committed 43-78 a node); it was 58 at 20 s (116,
+# node-proc-10, of 116-309).  A fleet that stalls early fails.
+NODE_10 = {"n": 10, "tps": 1000, "transaction_size": 512, "exit_after_s": 12.0,
+           "grace_s": 60.0, "min_commits": 21, "scrape_s": 2.0, "port_base": 1500}
+# The orchestrator phase (orchestrator-10): BASELINE.json config 3, the
+# "10-validator orchestrator run", as the reference's orchestrator runs it:
+# the port's ``Orchestrator`` over its ``LocalProcessRunner`` on
+# ``cuda-only`` (so one verifier service on cuda:0 that the runner starts,
+# its nodes behind it) and a ``ParametersGenerator`` of two fixed loads,
+# 10,000 and 30,000 transactions of 512 B a second over the fleet (1,000 and
+# 3,000 a node), 12 s a run, a scrape of every node every 4 s.  Cut: depth
+# (12 s a run against the CLI's 60 s default and the reference's 180 s).
+ORCHESTRATOR_10 = {"n": 10, "loads": (10000, 30000), "duration_s": 12.0, "scrape_s": 4.0,
+                   "transaction_size": 512, "verifier": "cuda-only", "port_base": 1500,
+                   "min_scrapes": 2}
 # A run's committed sequences hang on the process's ``bytes`` hash salt (the
 # block fetcher requests missing blocks in a set's order), so ``main`` runs
 # every phase under this one ``PYTHONHASHSEED``.
@@ -5035,6 +5077,293 @@ def node_phase(kernels, config=None):
     return proc_launches, svc_launches, readings
 
 
+# -- the orchestrator phase: config 3's fleet through the port's Orchestrator -
+
+
+# Written by ``orchestrator_phase`` as ``sitecustomize.py`` into a directory
+# it puts first on the children's ``PYTHONPATH``: in the verifier service the
+# runner starts (and in no other process) SIGUSR1 writes the kernels' launch
+# counts and whether CUDA is initialized to ``$SMOKE_LAUNCH_DIR/<pid>.json``;
+# every child then runs the site's own ``sitecustomize`` if there is one.
+LAUNCH_HOOK = '''"""Launch reporter of chip_smoke.py's orchestrator phase."""
+import os
+import sys
+
+_dir = os.environ.get("SMOKE_LAUNCH_DIR")
+if _dir and "verifier-service" in sys.orig_argv:
+    import json
+    import signal
+
+    def _report(signum, frame):
+        kernels = sys.modules.get("mysticeti_tpu_torch.ops.ed25519_cuda")
+        torch = sys.modules.get("torch")
+        doc = {"pid": os.getpid(),
+               "launches": {k.name: k.launches for k in kernels.KERNELS} if kernels else {},
+               "cuda_initialized": bool(torch is not None and torch.cuda.is_initialized())}
+        path = os.path.join(_dir, f"{os.getpid()}.json")
+        with open(path + ".tmp", "w") as f:
+            json.dump(doc, f)
+        os.replace(path + ".tmp", path)
+
+    signal.signal(signal.SIGUSR1, _report)
+
+
+def _chain():
+    import importlib.machinery
+    import importlib.util
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.machinery.PathFinder.find_spec(
+        "sitecustomize", [p for p in sys.path if os.path.abspath(p or os.curdir) != here])
+    if spec is not None:
+        spec.loader.exec_module(importlib.util.module_from_spec(spec))
+
+
+_chain()
+'''
+
+
+async def compute_apps() -> list:
+    """``nvidia-smi --query-compute-apps=pid,used_memory`` as a list of lines:
+    one a process holding a context on the card.  (On the card's machine
+    every pid reads 1, from another pid namespace, so the phase counts
+    lines.)"""
+    proc = await asyncio.create_subprocess_exec(
+        "nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader",
+        stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
+    out, err = await asyncio.wait_for(proc.communicate(), 30)
+    check(proc.returncode == 0, f"nvidia-smi --query-compute-apps exited {proc.returncode}: "
+                                f"{err.decode(errors='replace')[-500:]}")
+    return [line.strip() for line in out.decode().splitlines() if line.strip()]
+
+
+def runner_tap(runner_cls):
+    """``runner_cls`` (the port's ``LocalProcessRunner``) with readings taken
+    around its own steps, which it runs unchanged: after ``configure`` (the
+    verifier service warm, no node yet) the service's launch counts; with
+    each tick's host sample the card's compute processes; each node's last
+    ``/metrics`` text; and in ``cleanup``, after the nodes are killed and
+    the service has had a moment to answer their last requests, the
+    service's launch counts again, before the runner kills it."""
+
+    class RunnerTap(runner_cls):
+        def __init__(self, *args, launch_dir, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.launch_dir = launch_dir
+            self.runs = []
+
+        async def service_launches(self) -> dict:
+            import signal
+
+            pid = self._verifier_service.pid
+            path = os.path.join(self.launch_dir, f"{pid}.json")
+            if os.path.exists(path):
+                os.unlink(path)
+            os.kill(pid, signal.SIGUSR1)
+            for _ in range(200):
+                if os.path.exists(path):
+                    with open(path) as f:
+                        return json.load(f)
+                await asyncio.sleep(0.05)
+            raise SmokeFailure(f"the verifier service (pid {pid}) wrote no launch counts")
+
+        async def configure(self, committee_size, load_tx_s=0):
+            # The card's processes before the fleet; after a first run, once
+            # its killed service has left the card.
+            apps = await compute_apps()
+            for _ in range(60):
+                if not self.runs or len(apps) <= len(self.runs[0]["apps_before"]):
+                    break
+                await asyncio.sleep(0.5)
+                apps = await compute_apps()
+            t0 = time.monotonic()
+            await super().configure(committee_size, load_tx_s)
+            check(self._verifier_service is not None,
+                  f"the runner started no verifier service for the {self.verifier} kind")
+            self.runs.append({"load": load_tx_s, "apps_before": apps,
+                              "service_boot_s": time.monotonic() - t0,
+                              "warm": await self.service_launches(), "ticks": [],
+                              "texts": {}, "t0": time.monotonic()})
+
+        async def scrape(self, authority):
+            text = await super().scrape(authority)
+            if text is not None and self.runs:
+                self.runs[-1]["texts"][authority] = text
+            return text
+
+        async def host_sample(self):
+            if self.runs:
+                self.runs[-1]["ticks"].append(await compute_apps())
+            return await super().host_sample()
+
+        async def cleanup(self):
+            if self._verifier_service is not None and self.processes:
+                for authority in list(self.processes):
+                    await self.kill_node(authority)
+                await asyncio.sleep(1.0)
+                run = self.runs[-1]
+                run["final"] = await self.service_launches()
+                run["wall_s"] = time.monotonic() - run["t0"]
+            await super().cleanup()
+
+    return RunnerTap
+
+
+def orchestrator_run_checks(collection, run, path, config) -> dict:
+    """The checks of the module docstring, step 18, on one run; returns its
+    readings."""
+    import math
+
+    from mysticeti_tpu_torch.orchestrator.measurement import MeasurementsCollection
+
+    n, load = config["n"], run["load"]
+    what = f"orchestrator-10 at {load} tx/s"
+    counts = {a: len(series) for a, series in collection.scrapers.items()}
+    check(len(counts) == n and min(counts.values()) >= config["min_scrapes"],
+          f"{what}: scrapes by node {counts}, want {n} nodes with {config['min_scrapes']} each")
+    duration, tps = collection.benchmark_duration(), collection.aggregate_tps()
+    latency, stdev = (collection.aggregate_average_latency_s(),
+                      collection.aggregate_stdev_latency_s())
+    check(duration > 0 and tps > 0 and math.isfinite(latency) and latency > 0,
+          f"{what}: duration {duration} s, tps {tps}, average latency {latency} s")
+    check(os.path.exists(path), f"{what}: {path} was not written")
+    def document(c):
+        return json.dumps({
+            "parameters": c.parameters,
+            "scrapers": {k: [m.to_dict() for m in v] for k, v in c.scrapers.items()},
+            "host_samples": c.host_samples, "health_samples": c.health_samples},
+            sort_keys=True)
+
+    check(document(MeasurementsCollection.load(path)) == document(collection),
+          f"{what}: {path} does not load back equal")
+    last = collection.health_samples[-1] if collection.health_samples else {}
+    check(sorted(last.get("reachable", [])) == sorted(str(a) for a in range(n)),
+          f"{what}: the last health sample reached {last.get('reachable')}")
+    invalid, fallback, flushes, lanes = {}, {}, 0.0, 0.0
+    for a in range(n):
+        series = final_series(run["texts"][a])
+        invalid[a], fallback[a] = series["invalid_blocks"], series["fallback"]
+        flushes += series["flushes"]
+        lanes += series["dispatched"]
+    check(not any(invalid.values()), f"{what}: invalid blocks counted by node {invalid}")
+    check(not any(fallback.values()), f"{what}: batches degraded to the CPU oracle {fallback}")
+    base = len(run["apps_before"])
+    check(run["ticks"] and all(len(apps) == base + 1 for apps in run["ticks"]),
+          f"{what}: compute processes on the card by tick {run['ticks']} (before the fleet "
+          f"{run['apps_before']}): the verifier service must be the only one added")
+    warm, final = run["warm"]["launches"], run["final"]["launches"]
+    launches = {name: final.get(name, 0) - warm.get(name, 0) for name in final}
+    check(run["final"]["cuda_initialized"], f"{what}: the verifier service never initialized CUDA")
+    check(launches.get("verify_generic", 0) == 0,
+          f"{what}: the verifier service launched the generic kernel: {launches}")
+    check(launches.get("prologue", 0) == launches.get("verify_keyed", 0) >= flushes > 0,
+          f"{what}: the verifier service's launches {launches} are not one prologue and one "
+          f"keyed launch a dispatch, at least the {flushes:.0f} its nodes had counted at their "
+          f"last scrape")
+    return {
+        "load": load, "tps": tps, "avg_latency_s": latency, "stdev_latency_s": stdev,
+        "benchmark_duration_s": duration, "scrapes": counts,
+        "node_flushes": flushes, "live_lanes": lanes / flushes if flushes else 0.0,
+        "service_launches": launches, "service_warm_launches": warm,
+        "service_boot_s": run["service_boot_s"], "fleet_s": run.get("wall_s"),
+        "compute_apps": {"before": run["apps_before"], "ticks": run["ticks"]},
+        "health": {k: last.get(k) for k in ("status", "quorum_participation",
+                                            "commit_skew_rounds")},
+        "host_samples": len(collection.host_samples),
+    }
+
+
+def orchestrator_phase(kernels, config=None):
+    """orchestrator-10 with the checks of the module docstring, step 18.
+    Returns the verifier service's launches over both runs (each counted
+    from the service's warm state, before the run's first node boots, to
+    its last node's kill) and the readings."""
+    import shutil
+
+    from mysticeti_tpu_torch import config as port_config
+    from mysticeti_tpu_torch.orchestrator.benchmark import LoadType, ParametersGenerator
+    from mysticeti_tpu_torch.orchestrator.logs import analyze_logs
+    from mysticeti_tpu_torch.orchestrator.orchestrator import Orchestrator
+    from mysticeti_tpu_torch.orchestrator.plot import plot_latency_throughput
+    from mysticeti_tpu_torch.orchestrator.runner import LocalProcessRunner
+
+    config = config or ORCHESTRATOR_10
+    n = config["n"]
+    root = os.path.join(HERE, "build", "orchestrator-10")
+    shutil.rmtree(root, ignore_errors=True)
+    wd, results, hook, launch_dir = (os.path.join(root, d) for d in (
+        "fleet", "results", "hook", "launches"))
+    for d in (wd, hook, launch_dir):
+        os.makedirs(d)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(LAUNCH_HOOK)
+    port_base = free_port_base(n, config["port_base"])
+    print(f"orchestrator-10: ports {port_base}+i" + (
+        "" if port_base == config["port_base"] else
+        f" (config 3's {config['port_base']}+i are in use)"), flush=True)
+    saved_env = {k: os.environ.get(k) for k in ("PYTHONPATH", "SMOKE_LAUNCH_DIR",
+                                                "MYSTICETI_NO_VERIFIER_SERVICE")}
+    saved_base = port_config.DEFAULT_PORT_BASE
+    os.environ.update(PYTHONPATH=os.pathsep.join(
+        [hook] + ([saved_env["PYTHONPATH"]] if saved_env["PYTHONPATH"] else [])),
+        SMOKE_LAUNCH_DIR=launch_dir)
+    os.environ.pop("MYSTICETI_NO_VERIFIER_SERVICE", None)
+    port_config.DEFAULT_PORT_BASE = port_base
+    runner = runner_tap(LocalProcessRunner)(
+        wd, verifier=config["verifier"], transaction_size=config["transaction_size"],
+        launch_dir=launch_dir)
+    orchestrator = Orchestrator(
+        runner, ParametersGenerator(n, LoadType.fixed(list(config["loads"])),
+                                    duration_s=config["duration_s"]),
+        results_dir=results, scrape_interval_s=config["scrape_s"])
+    async def drive():
+        try:
+            return await orchestrator.run_benchmarks()
+        finally:
+            await runner.cleanup()
+
+    t0 = time.monotonic()
+    try:
+        collections = asyncio.run(drive())
+    finally:
+        port_config.DEFAULT_PORT_BASE = saved_base
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    phase_s = time.monotonic() - t0
+    check(len(collections) == len(config["loads"]) == len(runner.runs),
+          f"orchestrator-10 ran {len(collections)} of {len(config['loads'])} loads")
+    readings = {"runs": [orchestrator_run_checks(c, run, os.path.join(
+        results, f"measurements-{i}.json"), config)
+        for i, (c, run) in enumerate(zip(collections, runner.runs))]}
+    written = plot_latency_throughput(collections, os.path.join(results, "latency-throughput"))
+    check(written and written[0].endswith(".txt"), f"the plot wrote {written}")
+    analysis = analyze_logs(wd)
+    check(sorted(analysis.node_errors) == [f"node-{a}.log" for a in range(n)],
+          f"the log analysis read {sorted(analysis.node_errors)}")
+    with open(written[0]) as f:
+        plot_text = f.read()
+    launches = {k.name: sum(r["service_launches"].get(k.name, 0) for r in readings["runs"])
+                for k in kernels}
+    readings.update(phase_s=phase_s, plot=[os.path.basename(p) for p in written],
+                    plot_text=plot_text, logs=analysis.display(), card=card_line())
+    print(analysis.display(), flush=True)
+    for r in readings["runs"]:
+        print(f"orchestrator-10 at {r['load']} tx/s ({r['load'] // n} a node, "
+              f"{config['transaction_size']} B): tps {r['tps']:.1f}, latency avg "
+              f"{r['avg_latency_s']:.4f} s stdev {r['stdev_latency_s']:.4f} s, benchmark "
+              f"duration {r['benchmark_duration_s']:.3f} s; scrapes {r['scrapes']}; the nodes' "
+              f"{r['node_flushes']:.0f} flushes at {r['live_lanes']:.2f} live lanes (last "
+              f"scrape), the service's launches {r['service_launches']} (warm-up "
+              f"{r['service_warm_launches']}), service boot {r['service_boot_s']:.1f} s, fleet "
+              f"{r['fleet_s']:.1f} s; compute processes before {len(r['compute_apps']['before'])}"
+              f", by tick {[len(t) for t in r['compute_apps']['ticks']]}; last health "
+              f"{r['health']}; the phase {phase_s:.1f} s [{readings['card']}]", flush=True)
+    return launches, readings
+
+
 # -- the byzantine phase: the adversary engine's attacks on the card ---------
 
 
@@ -5394,6 +5723,7 @@ def run() -> int:
     by_path["health_tcp"], by_path["health_sim"], health = health_phase(K.KERNELS,
                                                                        control=False)
     by_path["node_proc"], by_path["node_svc"], node = node_phase(K.KERNELS)
+    by_path["orchestrator"], orchestrator = orchestrator_phase(K.KERNELS)
     by_path["byzantine"], byzantine = byzantine_phase(K.KERNELS)
     bench = bench_phase()
     # The block path's flushes take the keyed kernel, one key per lane, and
@@ -5432,7 +5762,8 @@ def run() -> int:
                       "service": service, "receive": receive, "consensus": consensus,
                       "net_sync": net_sync, "storage": storage, "epoch": epoch,
                       "ingress": ingress, "health": health, "node": node,
-                      "byzantine": byzantine, "metrics": metrics_reading,
+                      "orchestrator": orchestrator, "byzantine": byzantine,
+                      "metrics": metrics_reading,
                       "bench": bench}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -5613,6 +5944,24 @@ def node_only() -> int:
     print(json.dumps({"node": reading, "launches": {"node_proc": proc_launches,
                                                     "node_svc": svc_launches}},
                      default=str), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def orchestrator_only() -> int:
+    """The orchestrator phase alone: ``python3 -c 'import chip_smoke as c;
+    raise SystemExit(c.main(c.orchestrator_only))'``."""
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    launches, reading = orchestrator_phase(K.KERNELS)
+    print(json.dumps({"orchestrator": reading, "launches": launches}, default=str), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,8 @@ Capability parity with ``mysticeti/src/main.rs``:
   (verifier_service.py) that nodes reach through ``MYSTICETI_VERIFIER_SOCKET``.
 * ``chaos``, ``overload`` and ``scenarios`` — the seeded virtual-time sims
   (chaos.py, ingress.py, scenarios.py).
+* ``orchestrator`` and ``fleet`` — the benchmark sweep over a local fleet of
+  node processes and the testbed lifecycle over a host pool (orchestrator/).
 
 ``--verifier`` selects the signature backend (validator.py): ``cuda`` is the
 hybrid router (the CUDA kernels for large batches, the CPU oracle for small
@@ -28,7 +30,10 @@ fleet shares, ``scenarios.verifier_factory``) plus ``sim-oracle``, the JAX
 CLI's own choice (``chaos``: the sim re-sign oracle for a plan with
 adversaries, no verifier for a benign plan; ``scenarios``: the oracle), and
 default to ``cuda-only`` as well; ``overload``'s nodes verify nothing, as the
-JAX package's do.
+JAX package's do.  ``orchestrator`` takes the node kinds and defaults to
+``cuda-only`` too (the JAX CLI's default is ``cpu``): a ``cuda*`` fleet
+shares one verifier service on the card, and without a card the sweep
+raises before any node starts.
 """
 from __future__ import annotations
 
@@ -450,6 +455,51 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write the matrix verdict document as JSON")
     add_sim_verifier_flags(sc, "the JAX CLI's choice (the sim re-sign "
                            "oracle)")
+
+    o = sub.add_parser(
+        "orchestrator",
+        help="run a local benchmark sweep: boot a fleet, scrape, summarize, plot",
+    )
+    o.add_argument("--settings", help="settings.json path (overrides most flags)")
+    o.add_argument("--nodes", type=int, default=4)
+    o.add_argument("--loads", type=int, nargs="+", default=[100],
+                   help="fixed offered loads (tx/s) to sweep")
+    o.add_argument("--search", action="store_true",
+                   help="binary-search the max sustainable load instead")
+    o.add_argument("--starting-load", type=int, default=100)
+    o.add_argument("--max-iterations", type=int, default=7,
+                   help="search: probe budget (doubling + bisection runs)")
+    o.add_argument("--duration", type=float, default=60.0)
+    o.add_argument("--faults", type=int, default=0)
+    o.add_argument("--fault-kind", choices=["none", "permanent", "crash-recovery"],
+                   default="none")
+    o.add_argument("--fault-interval", type=float, default=30.0)
+    o.add_argument("--verifier", choices=VERIFIER_CHOICES, default=DEFAULT_VERIFIER)
+    o.add_argument("--tps-per-node", type=int, default=None,
+                   help="override the generator load split (default: load/nodes)")
+    o.add_argument("--working-directory", default="benchmark-fleet")
+    o.add_argument("--results-dir", default="benchmark-results")
+    o.add_argument("--scrape-interval", type=float, default=10.0)
+    o.add_argument("--plot", action="store_true", help="write latency-throughput plot")
+
+    f = sub.add_parser(
+        "fleet",
+        help="testbed lifecycle over a host pool: deploy/start/stop/destroy/"
+        "status/install/update/logs",
+    )
+    f.add_argument("action", choices=[
+        "deploy", "start", "stop", "destroy", "status", "install", "update",
+        "logs",
+    ])
+    f.add_argument("--settings", help="settings.json with the host pool")
+    f.add_argument("--hosts", nargs="*", default=None,
+                   help="host pool override (user@addr ...)")
+    f.add_argument("--count", type=int, default=None,
+                   help="deploy: number of instances (default: whole pool)")
+    f.add_argument("--region", default="local")
+    f.add_argument("--state", default="testbed-state.json",
+                   help="inventory state file")
+    f.add_argument("--dest", default="downloaded-logs", help="logs: local dir")
     return parser
 
 
@@ -513,6 +563,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         return run_overload(args)
     if args.command == "scenarios":
         return run_scenarios(args)
+    if args.command == "orchestrator":
+        return run_orchestrator(args)
+    if args.command == "fleet":
+        return run_fleet(args)
     return 1
 
 
@@ -721,3 +775,132 @@ def run_overload(args) -> int:
             f.write("\n")
         print(f"report written to {args.report_out}")
     return 0
+
+
+def run_fleet(args) -> int:
+    """Testbed lifecycle CLI (orchestrator/src/main.rs testbed commands +
+    testbed.rs:21-210): inventory over a static host pool, ssh-backed
+    install/update/log-download."""
+    from .orchestrator.settings import Settings
+    from .orchestrator.ssh import SshManager
+    from .orchestrator.testbed import StaticProvider, Testbed
+
+    settings = Settings.load(args.settings) if args.settings else Settings()
+    pool = args.hosts if args.hosts is not None else settings.hosts
+    if settings.provider != "static":
+        provider = settings.make_provider(state_path=args.state)
+        if (
+            settings.provider in ("rest", "aws")
+            and args.action == "deploy"
+            and not args.count
+        ):
+            raise SystemExit(
+                f"{settings.provider} provider: `fleet deploy` requires --count"
+            )
+        # The ssh pool comes from the PROVIDER's live instances (a cloud
+        # fleet has no static hosts list); resolved per-action below since
+        # listing is async.
+        ssh = None
+    else:
+        provider = StaticProvider(pool, state_path=args.state)
+        ssh = SshManager(pool) if pool else None
+    # settings.remote_repo's "." default addresses the ssh *runner* (commands
+    # run from the checkout); as a clone target it would hit $HOME — keep
+    # Testbed's own directory default unless the operator set a real path.
+    remote_repo = (
+        settings.remote_repo if settings.remote_repo not in ("", ".") else None
+    )
+    tb = Testbed(
+        provider,
+        ssh=ssh,
+        repo_url=settings.repo_url,
+        **({"remote_repo": remote_repo} if remote_repo else {}),
+    )
+
+    async def dispatch() -> None:
+        if settings.provider in ("rest", "aws") and tb.ssh is None:
+            hosts = [i.host for i in await provider.list_instances() if i.host]
+            if hosts:
+                tb.ssh = SshManager(hosts)
+        if args.action == "deploy":
+            await tb.deploy(args.count or len(pool), args.region)
+        elif args.action == "start":
+            await tb.start()
+        elif args.action == "stop":
+            await tb.stop()
+        elif args.action == "destroy":
+            await tb.destroy()
+        elif args.action == "status":
+            await tb.status()
+        elif args.action == "install":
+            await tb.install()
+        elif args.action == "update":
+            await tb.update()
+        elif args.action == "logs":
+            await tb.download_logs(settings.working_dir, args.dest)
+
+    asyncio.run(dispatch())
+    return 0
+
+
+def run_orchestrator(args) -> int:
+    """The orchestrator CLI (orchestrator/src/main.rs:36-195 equivalent):
+    fixed-load sweep or max-load binary search over a local fleet, with
+    summaries, log analysis, and an optional latency-throughput plot."""
+    from .orchestrator.benchmark import LoadType, ParametersGenerator
+    from .orchestrator.faults import FaultsType
+    from .orchestrator.logs import analyze_logs
+    from .orchestrator.orchestrator import Orchestrator
+    from .orchestrator.plot import plot_latency_throughput
+    from .orchestrator.settings import Settings
+
+    if args.settings:
+        settings = Settings.load(args.settings)
+    else:
+        settings = Settings(
+            working_dir=args.working_directory,
+            results_dir=args.results_dir,
+            verifier=args.verifier,
+        )
+    if args.tps_per_node is not None:
+        settings.tps_per_node = args.tps_per_node
+    # Otherwise the per-run offered load flows through Runner.configure
+    # (parameters.load // nodes) and any settings.json value stays the default.
+
+    if args.fault_kind == "permanent":
+        faults = FaultsType.permanent(args.faults)
+    elif args.fault_kind == "crash-recovery":
+        faults = FaultsType.crash_recovery(args.faults, args.fault_interval)
+    else:
+        faults = FaultsType.none()
+
+    load_type = (
+        LoadType.search(args.starting_load, max_iterations=args.max_iterations)
+        if args.search
+        else LoadType.fixed(list(args.loads))
+    )
+    generator = ParametersGenerator(
+        args.nodes, load_type, duration_s=args.duration, faults=faults
+    )
+    runner = settings.make_runner()
+    orchestrator = Orchestrator(
+        runner,
+        generator,
+        results_dir=settings.results_dir,
+        scrape_interval_s=args.scrape_interval,
+    )
+    collections = asyncio.run(orchestrator.run_benchmarks())
+    for c in collections:
+        print(c.display_summary())
+    if args.search:
+        print(f"max sustainable load: {generator.max_sustainable_load()} tx/s")
+    analysis = analyze_logs(settings.working_dir)
+    print(analysis.display())
+    if args.plot:
+        written = plot_latency_throughput(
+            collections, os.path.join(settings.results_dir, "latency-throughput")
+        )
+        for path in written:
+            print(f"wrote {path}")
+    return 0
+

@@ -24,9 +24,10 @@ Usage:
     python -m mysticeti_tpu_torch.tools.perf_attr --committee-size 4 \\
         --duration 60 --verifier cpu --out PERF_ATTR_r14.json
 
-The artifact lands in the repository root.  Left out against the JAX tool:
-the host-weather block (``orchestrator.hostmon``) and the BENCH_TREND.json
-append, which come with the port's orchestrator and trend tool.
+The artifact lands in the repository root, with the host-weather block
+(``orchestrator.hostmon``) where psutil is installed.  Left out against the
+JAX tool: the BENCH_TREND.json append, which comes with the port's trend
+tool.
 """
 from __future__ import annotations
 
@@ -399,7 +400,24 @@ def run_fleet(args, node_command: Sequence[str] = NODE_COMMAND,
     )
     if args.round is not None:
         doc["round"] = args.round
+    weather = host_weather()
+    if weather is not None:
+        doc["weather"] = weather
     return doc
+
+
+def host_weather() -> Optional[dict]:
+    """The host conditions the artifact was measured under (load averages,
+    CPU steal, the interpreter's switch interval, free memory, net bytes):
+    one ``orchestrator.hostmon.HostSampler`` sample without its per-process
+    block, or None on a host without psutil (the artifact rides without)."""
+    try:
+        from mysticeti_tpu_torch.orchestrator.hostmon import HostSampler
+
+        sample = HostSampler().sample()
+    except Exception:  # noqa: BLE001 - no psutil: artifact rides without
+        return None
+    return {k: v for k, v in sample.items() if k != "per_process"}
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -3,7 +3,7 @@ reporter and its node-a-process attribution probe, against the JAX
 package's.
 
 ``benchmark-genesis`` writes the JAX CLI's files byte for byte; the parser's
-node subcommands, flags and defaults are the JAX parser's with the verifier
+subcommands, flags and defaults are the JAX parser's with the verifier
 kinds mapped (``tpu`` -> ``cuda``, ``tpu-only`` -> ``cuda-only``, ``tpu-agg``
 -> ``cuda-agg``) and ``cuda-only`` the default; ``testbed`` commits;
 ``run --verifier cuda-only`` exits non-zero with no card, and a node whose
@@ -37,6 +37,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KIND_MAP = {"tpu": "cuda", "tpu-only": "cuda-only", "tpu-agg": "cuda-agg"}
 NODE_SUBCOMMANDS = ("benchmark-genesis", "run", "dry-run", "testbed", "verifier-service")
 SIM_SUBCOMMANDS = ("chaos", "overload", "scenarios")
+ORCHESTRATOR_SUBCOMMANDS = ("orchestrator", "fleet")
 
 
 def _free_port_base(n):
@@ -126,10 +127,11 @@ def _flags(subparser, kinds=None):
 def test_parser_equals_the_jax_clis_with_the_kinds_mapped(monkeypatch):
     jax = _subcommands(_jax_parser(monkeypatch))
     port = _subcommands(cli.build_parser())
-    assert tuple(port) == NODE_SUBCOMMANDS + SIM_SUBCOMMANDS
-    assert set(NODE_SUBCOMMANDS + SIM_SUBCOMMANDS) <= set(jax)
+    subcommands = NODE_SUBCOMMANDS + SIM_SUBCOMMANDS + ORCHESTRATOR_SUBCOMMANDS
+    assert tuple(port) == subcommands
+    assert set(subcommands) == set(jax)
     device = (("--device",), None, None, False, None, None, None)
-    for name in NODE_SUBCOMMANDS + SIM_SUBCOMMANDS:
+    for name in subcommands:
         want = _flags(jax[name], kinds=KIND_MAP)
         if name == "verifier-service":
             # The port's service also takes the backend's torch device.
@@ -238,6 +240,30 @@ def test_perf_attr_boots_a_node_a_process_fleet(tmp_path):
     assert doc["reports_written"] == 4 and doc["scraped_nodes"] == 4
     assert all(leaders > 0 for leaders in doc["committed_leaders_by_node"].values())
     assert "verifier-pack" in doc["subsystems"] and doc["attributed_ratio"] > 0
+    # psutil is installed here, so the host-weather block rides along.
+    assert doc["weather"]["load_1m"] >= 0 and "per_process" not in doc["weather"]
+
+
+def test_perf_attr_host_weather_block(monkeypatch):
+    """The JAX tool's host-weather block: one ``HostSampler`` sample less its
+    per-process part, the same keys as the JAX package's sampler; without
+    psutil the document goes without it."""
+    import builtins
+
+    from mysticeti_tpu.orchestrator.hostmon import HostSampler as JaxHostSampler
+
+    weather = perf_attr.host_weather()
+    assert set(weather) == set(JaxHostSampler().sample()) - {"per_process"}
+    assert weather["mem_available_mb"] > 0 and weather["switch_interval_s"] > 0
+    real_import = builtins.__import__
+
+    def no_psutil(name, *args, **kwargs):
+        if name == "psutil":
+            raise ImportError(name)
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_psutil)
+    assert perf_attr.host_weather() is None
 
 
 def test_perf_attr_refuses_ports_in_use(tmp_path):

@@ -117,7 +117,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "commit_observer", "core", "syncer", "net_sync", "reconfig", "execution",
         "finalization_interpreter", "validator", "cli", "__main__", "tools/perf_attr",
         "adversary", "detsan", "chaos", "scenarios", "tools/detsan",
-        "tools/scenario_matrix")} <= names
+        "tools/scenario_matrix", "orchestrator/__init__", *(
+            f"orchestrator/{m}" for m in (
+                "benchmark", "display", "faults", "hostmon", "logs", "measurement",
+                "monitor", "orchestrator", "plot", "providers", "runner", "settings", "ssh",
+                "testbed")))} <= names
     for path in files:
         roots = set(_imported_roots(path))
         assert not roots & {"jax", "jaxlib", "mysticeti_tpu"}, path
