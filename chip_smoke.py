@@ -325,7 +325,35 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    generic kernel never.  Prints, each run: the offered load, tps, average
    and stdev latency, the benchmark duration, the nodes' flushes and live
    lanes, the service's launches, and the phase's seconds.
-19. Byzantine (byzantine-10): the resilience matrix's ``byzantine-at-f``
+19. Watch and trace the fleet, on step 18's 10,000 tx/s run (``WATCH_10``):
+   its ten nodes boot with ``MYSTICETI_TRACE=<working dir>/trace-%p.json``
+   and the wire timestamps on (``timestamp_frames`` in the parameters
+   file), and once the last is booted the port's fleetmon runs as a child
+   for the run's length, as its docstring tells users to watch an
+   orchestrator run
+   (``python -m mysticeti_tpu_torch.tools.fleetmon --fleet-dir <working
+   dir> --no-dashboard --interval 2 --duration 12 --out <working
+   dir>/fleetmon.json``); the nodes are killed after it ends.  After the
+   phase, the port's tools run as children on what the run left:
+   ``trace_report`` over node 0's trace, plain and with
+   ``--critical-path``; ``fleet_trace`` over the ten traces with ``--out``;
+   ``trace_report`` over step 9's ``build/chip_smoke_trace.json``; and the
+   port's lint (``python -m mysticeti_tpu_torch.analysis --no-cache``).
+   Checks (``watch_checks``): fleetmon's last snapshot reached all 10
+   nodes; a fleetmon snapshot within one scrape interval of the phase's
+   last scrape has its quorum participation and a commit skew apart by at
+   most the fleet's highest commit round moved between them, plus one;
+   fleetmon exits 0 or 3 as its own last status says (3 when degraded);
+   one trace a node, each parsing; the stage table holds ``receive``,
+   ``verify``, ``dag_add`` and ``commit``; the critical path attributes a
+   committed leader; the merge's skew table covers the 10 authorities, the
+   traces hold transit samples and a journey is a committed block's; step
+   9's trace reports its ``verify_dispatch`` stage; the lint exits 0 with 0
+   findings.  Step 18's checks hold for the traced run as for the other.
+   Prints fleetmon's exit code and last frame, the merge's largest absolute
+   skew and journeys, the traced run's tps and latency beside its untraced
+   readings (not a gate), the lint's seconds, and the tools' output.
+20. Byzantine (byzantine-10): the resilience matrix's ``byzantine-at-f``
    through the port's ``scenarios.run_scenario(..., real_crypto=True)``:
    config 3's 10 validators (``Committee.new_for_benchmarks(10)``, seed 7,
    0.3 s leader timeout) as a ``ChaosSimHarness`` fleet under the
@@ -350,10 +378,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    its 0.8, every attack detected, safety) and its document's digest is
    the seeded one.  ``byzantine_only`` also runs the sim re-sign oracle's
    twin here and requires the same document.
-20. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
+21. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
    workers, 8 iterations, 2 trials and a 30 s budget; its JSON line must
    come from rung 0 with a value above 0.
-Each path of steps 3-19 (the block path and the committee dispatch of step 3
+Each path of steps 3-20 (the block path and the committee dispatch of step 3
 apart) runs with every launch count set to 0 just before it and read just
 after (node-proc-10's in its processes, from each verifier's ``ready``;
 byzantine-10's for each twin; orchestrator-10's on its verifier service, from
@@ -365,7 +393,7 @@ netsync-50 of step 12 and health-sim-10 of step 16: their seeded constants
 there (each ``<phase>_only`` keeps the control and its comparison; the
 consensus and netsync-50 counts carry a digest of every node's committed
 sequence and own blocks, which the control compared).
-21. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+22. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Every phase runs under ``PYTHONHASHSEED=0`` (``main`` runs the command
@@ -746,6 +774,15 @@ NODE_10 = {"n": 10, "tps": 1000, "transaction_size": 512, "exit_after_s": 12.0,
 ORCHESTRATOR_10 = {"n": 10, "loads": (10000, 30000), "duration_s": 12.0, "scrape_s": 4.0,
                    "transaction_size": 512, "verifier": "cuda-only", "port_base": 1500,
                    "min_scrapes": 2}
+# Step 19 (watch and trace the fleet) rides on orchestrator-10's 10,000 tx/s
+# run: its nodes trace to ``<working dir>/trace-%p.json``, and the port's
+# ``fleetmon`` watches the run as its docstring tells users to watch an
+# orchestrator run, every ``interval_s`` for the run's length.
+# ``untraced`` is that run's readings without tracing (tps, average latency
+# in s), in the script's full runs before this step came (H100 80GB HBM3 at
+# 700 W, PERF.md section 6): printed beside the traced readings, not a gate.
+WATCH_10 = {"load": 10000, "interval_s": 2.0,
+            "untraced": {"tps": (12637.5, 13528.6), "avg_latency_s": (0.638, 0.926)}}
 # A run's committed sequences hang on the process's ``bytes`` hash salt (the
 # block fetcher requests missing blocks in a set's order), so ``main`` runs
 # every phase under this one ``PYTHONHASHSEED``.
@@ -5141,15 +5178,22 @@ def runner_tap(runner_cls):
     """``runner_cls`` (the port's ``LocalProcessRunner``) with readings taken
     around its own steps, which it runs unchanged: after ``configure`` (the
     verifier service warm, no node yet) the service's launch counts; with
-    each tick's host sample the card's compute processes; each node's last
-    ``/metrics`` text; and in ``cleanup``, after the nodes are killed and
-    the service has had a moment to answer their last requests, the
-    service's launch counts again, before the runner kills it."""
+    each tick's host sample the card's compute processes; each node's pid,
+    its last ``/metrics`` text and the wall time of the run's last scrape;
+    and in ``cleanup``, after the nodes are killed and the service has had a
+    moment to answer their last requests, the service's launch counts again,
+    before the runner kills it.  ``watch`` is ``WATCH_10`` with the run's
+    length: the run of its load is step 19's: its nodes boot with
+    ``MYSTICETI_TRACE`` set (after the service has started, which so traces
+    nothing) and ``timestamp_frames`` on in the parameters file, the port's
+    ``fleetmon`` starts as a child once the last node is booted, and
+    ``cleanup`` waits for it to end before the nodes are killed."""
 
     class RunnerTap(runner_cls):
-        def __init__(self, *args, launch_dir, **kwargs):
+        def __init__(self, *args, launch_dir, watch, **kwargs):
             super().__init__(*args, **kwargs)
             self.launch_dir = launch_dir
+            self.watch = watch
             self.runs = []
 
         async def service_launches(self) -> dict:
@@ -5180,16 +5224,55 @@ def runner_tap(runner_cls):
             await super().configure(committee_size, load_tx_s)
             check(self._verifier_service is not None,
                   f"the runner started no verifier service for the {self.verifier} kind")
+            traced = load_tx_s == self.watch["load"]
+            if traced:
+                # The wire timestamps (tag 12) that give fleet_trace its
+                # transit samples: the parameters file's knob, which every
+                # node of this fleet understands.
+                self.parameters.synchronizer.timestamp_frames = True
+                self.parameters.dump(os.path.join(self.working_dir, "parameters.yaml"))
+                os.environ["MYSTICETI_TRACE"] = os.path.join(self.working_dir, "trace-%p.json")
             self.runs.append({"load": load_tx_s, "apps_before": apps,
                               "service_boot_s": time.monotonic() - t0,
                               "warm": await self.service_launches(), "ticks": [],
-                              "texts": {}, "t0": time.monotonic()})
+                              "texts": {}, "t0": time.monotonic(), "traced": traced,
+                              "pids": {}})
+
+        async def boot_node(self, authority):
+            await super().boot_node(authority)
+            run = self.runs[-1]
+            run["pids"][authority] = self.processes[authority].pid
+            if run["traced"] and len(run["pids"]) == self.committee_size:
+                run["fleetmon"] = await asyncio.create_subprocess_exec(
+                    sys.executable, "-m", "mysticeti_tpu_torch.tools.fleetmon",
+                    "--fleet-dir", self.working_dir, "--no-dashboard",
+                    "--interval", str(self.watch["interval_s"]),
+                    "--duration", str(self.watch["duration_s"]),
+                    "--out", os.path.join(self.working_dir, "fleetmon.json"),
+                    cwd=HERE, stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
 
         async def scrape(self, authority):
             text = await super().scrape(authority)
             if text is not None and self.runs:
                 self.runs[-1]["texts"][authority] = text
+                self.runs[-1]["last_scrape_wall"] = time.time()
             return text
+
+        async def await_fleetmon(self):
+            run = self.runs[-1] if self.runs else {}
+            proc = run.pop("fleetmon", None)
+            if proc is None:
+                return
+            try:
+                out, err = await asyncio.wait_for(proc.communicate(),
+                                                  self.watch["duration_s"] + 60)
+                run["fleetmon_rc"] = proc.returncode
+            except asyncio.TimeoutError:
+                proc.kill()
+                out, err = await proc.communicate()
+                run["fleetmon_rc"] = None
+            run["fleetmon_out"], run["fleetmon_err"] = out.decode(), err.decode()[-2000:]
+            os.environ.pop("MYSTICETI_TRACE", None)
 
         async def host_sample(self):
             if self.runs:
@@ -5197,6 +5280,7 @@ def runner_tap(runner_cls):
             return await super().host_sample()
 
         async def cleanup(self):
+            await self.await_fleetmon()
             if self._verifier_service is not None and self.processes:
                 for authority in list(self.processes):
                     await self.kill_node(authority)
@@ -5273,11 +5357,156 @@ def orchestrator_run_checks(collection, run, path, config) -> dict:
     }
 
 
-def orchestrator_phase(kernels, config=None):
-    """orchestrator-10 with the checks of the module docstring, step 18.
-    Returns the verifier service's launches over both runs (each counted
-    from the service's warm state, before the run's first node boots, to
-    its last node's kill) and the readings."""
+def report_stages(text: str) -> list:
+    """The stage column of ``trace_report``'s table."""
+    lines = text.splitlines()
+    if not lines or not lines[0].startswith("stage"):
+        return []
+    return [line.split()[0] for line in lines[1:] if line.strip()]
+
+
+def watch_checks(run, collection, config, traces, report, critical, merged, lint,
+                 smoke=None) -> dict:
+    """The checks of the module docstring, step 19, on what the traced run
+    left: ``run`` is its ``runner_tap`` record (the node pids, the wall time
+    of the phase's last scrape, fleetmon's exit code and output),
+    ``collection`` the phase's ``MeasurementsCollection`` of it, ``traces``
+    every ``trace-*.json`` of the working directory (path -> the parsed
+    document, or the error that parsing raised), ``merged`` the
+    ``fleet_trace --out`` artifact (or None), and ``report``, ``critical``,
+    ``lint`` and ``smoke`` each a child's ``(exit code, stdout, stderr)``:
+    ``trace_report`` over node 0's trace, the same with
+    ``--critical-path``, the port's lint, and ``trace_report`` over the
+    metrics step's trace (None when that step did not run).  Returns the
+    step's readings."""
+    import re
+
+    n, what = config["n"], "fleet-watch"
+    rc, doc = run.get("fleetmon_rc"), run.get("fleetmon_doc")
+    check(doc is not None and doc.get("timeline"),
+          f"{what}: fleetmon wrote no timeline (exit {rc}): {run.get('fleetmon_err', '')}")
+    last = doc["timeline"][-1]
+    nodes = sorted(str(a) for a in range(n))
+    check(sorted(last["reachable"]) == nodes and not last["unreachable"],
+          f"{what}: fleetmon's last snapshot reached {last['reachable']}, not the {n} nodes")
+    check(rc in (0, 3) and rc == (3 if last["status"] == "degraded" else 0),
+          f"{what}: fleetmon exited {rc} on a last snapshot of status {last['status']}")
+    # Agreement with the phase's own last scrape of the same nodes: some
+    # fleetmon snapshot within one scrape interval of it, with the same
+    # quorum participation and a commit skew apart by no more than the
+    # fleet's highest commit round moved between the two (+1).
+    phase = collection.health_samples[-1]
+    start = doc["window_utc"][0]
+    near = [s for s in doc["timeline"]
+            if abs(start + s["t"] - run["last_scrape_wall"]) <= config["scrape_s"]]
+    agree = [s for s in near
+             if s["quorum_participation"] == phase["quorum_participation"]
+             and abs(s["commit_skew_rounds"] - phase["commit_skew_rounds"])
+             <= abs(s["max_commit_round"] - phase["max_commit_round"]) + 1]
+    keys = ("quorum_participation", "commit_skew_rounds", "max_commit_round")
+    check(agree, f"{what}: no fleetmon snapshot within {config['scrape_s']} s of the phase's "
+                 f"last scrape agrees with it ({[phase[k] for k in keys]}); near, at their "
+                 f"t: {[(s['t'], [s[k] for k in keys]) for s in near]}")
+    want = {f"trace-{pid}.json" for pid in run["pids"].values()}
+    check({os.path.basename(p) for p in traces} == want and len(want) == n,
+          f"{what}: trace files {sorted(os.path.basename(p) for p in traces)}, want one a node "
+          f"{sorted(want)}")
+    bad = {os.path.basename(p): d for p, d in traces.items() if not isinstance(d, dict)}
+    check(not bad, f"{what}: trace files that do not parse: {bad}")
+    check(report[0] == 0, f"{what}: trace_report exited {report[0]}: {report[2][-1000:]}")
+    stages = report_stages(report[1])
+    check({"receive", "verify", "dag_add", "commit"} <= set(stages),
+          f"{what}: trace_report's stage table holds {stages}")
+    check(critical[0] == 0, f"{what}: trace_report --critical-path exited {critical[0]}: "
+                            f"{critical[2][-1000:]}")
+    found = re.search(r"critical-path attribution over (\d+) committed", critical[1])
+    check(found and int(found.group(1)) >= 1,
+          f"{what}: the critical path attributes no committed leader: {critical[1][:500]}")
+    check(merged is not None, f"{what}: fleet_trace wrote no artifact")
+    offsets = merged["skew"]["offsets_us"]
+    check(sorted(offsets) == nodes, f"{what}: the merge's skew table covers {sorted(offsets)}")
+    check(merged["transit_observations"] > 0,
+          f"{what}: the traces hold no transit sample (the wire timestamps were off)")
+    committed = [j for j in merged["journeys"]
+                 if any("commit" in stages_ for stages_ in j["nodes"].values())]
+    check(merged["journeys_total"] >= 1 and committed,
+          f"{what}: the merge has {merged['journeys_total']} journeys, none a committed leader's")
+    check(lint[0] == 0 and "mysticeti-lint: 0 new finding(s)" in lint[1],
+          f"{what}: the port's lint exited {lint[0]}: {lint[1][-2000:]}{lint[2][-1000:]}")
+    if smoke is not None:
+        check(smoke[0] == 0 and "verify_dispatch" in report_stages(smoke[1]),
+              f"{what}: trace_report over the metrics step's trace exited {smoke[0]}: "
+              f"{smoke[1][-500:]}{smoke[2][-500:]}")
+    return {
+        "fleetmon_rc": rc, "fleetmon_status": last["status"],
+        "fleetmon_reasons": last.get("degraded_reasons"), "fleetmon_ticks": len(doc["timeline"]),
+        "fleetmon_last": {k: last[k] for k in ("quorum_participation", "commit_skew_rounds",
+                                               "max_commit_round")},
+        "phase_last": {k: phase[k] for k in ("quorum_participation", "commit_skew_rounds",
+                                             "max_commit_round")},
+        "traces": len(traces), "stages": stages,
+        "critical_path_leaders": int(found.group(1)),
+        "max_abs_skew_ms": max(abs(v) for v in offsets.values()) / 1e3,
+        "skew_authorities": len(offsets),
+        "journeys": merged["journeys_total"], "fully_stitched": merged["fully_stitched"],
+        "transit_observations": merged["transit_observations"],
+        "smoke_trace_stages": report_stages(smoke[1]) if smoke is not None else None,
+    }
+
+
+def watch_phase(run, collection, config, wd, smoke_trace=None) -> dict:
+    """Step 19 after orchestrator-10: the port's tools as children on what
+    the traced run left in ``wd`` (its traces and fleetmon's timeline), the
+    metrics step's trace (``smoke_trace``, when given) and the port's lint;
+    then ``watch_checks``."""
+    import glob
+
+    def tool(module, *args):
+        t0 = time.monotonic()
+        proc = subprocess.run([sys.executable, "-m", f"mysticeti_tpu_torch.{module}", *args],
+                              cwd=HERE, capture_output=True, text=True, timeout=600)
+        return (proc.returncode, proc.stdout, proc.stderr), time.monotonic() - t0
+
+    t0 = time.monotonic()
+    path = os.path.join(wd, "fleetmon.json")
+    if os.path.exists(path):
+        with open(path) as f:
+            run["fleetmon_doc"] = json.load(f)
+    traces = {}
+    for trace in sorted(glob.glob(os.path.join(wd, "trace-*.json"))):
+        try:
+            with open(trace) as f:
+                traces[trace] = json.load(f)
+        except ValueError as exc:
+            traces[trace] = repr(exc)
+    node0 = os.path.join(wd, f"trace-{run['pids'].get(0)}.json")
+    report, report_s = tool("tools.trace_report", node0)
+    critical, _ = tool("tools.trace_report", node0, "--critical-path")
+    out = os.path.join(wd, "fleet-trace.json")
+    merge, merge_s = tool("tools.fleet_trace", *sorted(traces), "--out", out)
+    merged = None
+    if merge[0] == 0 and os.path.exists(out):
+        with open(out) as f:
+            merged = json.load(f)
+    smoke = tool("tools.trace_report", smoke_trace)[0] if smoke_trace else None
+    lint, lint_s = tool("analysis", "--no-cache")
+    reading = watch_checks(run, collection, config, traces, report, critical, merged, lint, smoke)
+    reading.update(
+        report_s=report_s, merge_s=merge_s, lint_s=lint_s, step_s=time.monotonic() - t0,
+        trace_bytes=sum(os.path.getsize(p) for p in traces), report=report[1],
+        critical_path=critical[1].splitlines()[:8], merge_summary=merge[1].splitlines()[:3],
+        smoke_report=smoke[1] if smoke is not None else None, lint=lint[1].strip(),
+        fleetmon_frame=run.get("fleetmon_out", "").strip())
+    return reading
+
+
+def orchestrator_phase(kernels, config=None, smoke_trace=None):
+    """orchestrator-10 with the checks of the module docstring, step 18,
+    and step 19 on its 10,000 tx/s run (``watch_phase``; ``smoke_trace`` is
+    the metrics step's trace, None when that step did not run).  Returns
+    the verifier service's launches over both runs (each counted from the
+    service's warm state, before the run's first node boots, to its last
+    node's kill) and the readings."""
     import shutil
 
     from mysticeti_tpu_torch import config as port_config
@@ -5302,16 +5531,18 @@ def orchestrator_phase(kernels, config=None):
         "" if port_base == config["port_base"] else
         f" (config 3's {config['port_base']}+i are in use)"), flush=True)
     saved_env = {k: os.environ.get(k) for k in ("PYTHONPATH", "SMOKE_LAUNCH_DIR",
-                                                "MYSTICETI_NO_VERIFIER_SERVICE")}
+                                                "MYSTICETI_NO_VERIFIER_SERVICE",
+                                                "MYSTICETI_TRACE")}
     saved_base = port_config.DEFAULT_PORT_BASE
     os.environ.update(PYTHONPATH=os.pathsep.join(
         [hook] + ([saved_env["PYTHONPATH"]] if saved_env["PYTHONPATH"] else [])),
         SMOKE_LAUNCH_DIR=launch_dir)
-    os.environ.pop("MYSTICETI_NO_VERIFIER_SERVICE", None)
+    for k in ("MYSTICETI_NO_VERIFIER_SERVICE", "MYSTICETI_TRACE"):
+        os.environ.pop(k, None)
     port_config.DEFAULT_PORT_BASE = port_base
     runner = runner_tap(LocalProcessRunner)(
         wd, verifier=config["verifier"], transaction_size=config["transaction_size"],
-        launch_dir=launch_dir)
+        launch_dir=launch_dir, watch=dict(WATCH_10, duration_s=config["duration_s"]))
     orchestrator = Orchestrator(
         runner, ParametersGenerator(n, LoadType.fixed(list(config["loads"])),
                                     duration_s=config["duration_s"]),
@@ -5347,8 +5578,12 @@ def orchestrator_phase(kernels, config=None):
         plot_text = f.read()
     launches = {k.name: sum(r["service_launches"].get(k.name, 0) for r in readings["runs"])
                 for k in kernels}
+    traced = [i for i, run in enumerate(runner.runs) if run["traced"]]
+    check(len(traced) == 1, f"orchestrator-10 traced runs {traced}, want the "
+                            f"{WATCH_10['load']} tx/s run's")
+    watch = watch_phase(runner.runs[traced[0]], collections[traced[0]], config, wd, smoke_trace)
     readings.update(phase_s=phase_s, plot=[os.path.basename(p) for p in written],
-                    plot_text=plot_text, logs=analysis.display(), card=card_line())
+                    plot_text=plot_text, logs=analysis.display(), card=card_line(), watch=watch)
     print(analysis.display(), flush=True)
     for r in readings["runs"]:
         print(f"orchestrator-10 at {r['load']} tx/s ({r['load'] // n} a node, "
@@ -5361,6 +5596,33 @@ def orchestrator_phase(kernels, config=None):
               f"{r['fleet_s']:.1f} s; compute processes before {len(r['compute_apps']['before'])}"
               f", by tick {[len(t) for t in r['compute_apps']['ticks']]}; last health "
               f"{r['health']}; the phase {phase_s:.1f} s [{readings['card']}]", flush=True)
+    traced_run = readings["runs"][traced[0]]
+
+    def beside(key, value):
+        low, high = WATCH_10["untraced"][key]
+        where = "inside" if low <= value <= high else "OUTSIDE"
+        return f"{where} the untraced {low}-{high}"
+
+    print(f"fleet-watch (step 19) on the {traced_run['load']} tx/s run: fleetmon exit "
+          f"{watch['fleetmon_rc']} ({watch['fleetmon_status']}: {watch['fleetmon_reasons']}), "
+          f"{watch['fleetmon_ticks']} ticks, last {watch['fleetmon_last']} against the phase's "
+          f"last scrape {watch['phase_last']}; {watch['traces']} traces "
+          f"({watch['trace_bytes']} B), stages {watch['stages']}, critical path over "
+          f"{watch['critical_path_leaders']} committed leaders; merge: {watch['journeys']} "
+          f"journeys ({watch['fully_stitched']} fully stitched, "
+          f"{watch['transit_observations']} transit samples), largest |skew| "
+          f"{watch['max_abs_skew_ms']:.3f} ms over {watch['skew_authorities']} authorities; "
+          f"tracing on: tps {traced_run['tps']:.1f} ({beside('tps', traced_run['tps'])}), "
+          f"latency avg {traced_run['avg_latency_s']:.4f} s "
+          f"({beside('avg_latency_s', traced_run['avg_latency_s'])} s); lint: {watch['lint']} "
+          f"in {watch['lint_s']:.2f} s; trace_report {watch['report_s']:.2f} s, fleet_trace "
+          f"{watch['merge_s']:.2f} s, the step's tools {watch['step_s']:.1f} s "
+          f"[{readings['card']}]", flush=True)
+    print(watch["fleetmon_frame"], flush=True)
+    print(watch["report"], flush=True)
+    print("\n".join(watch["critical_path"]), flush=True)
+    if watch["smoke_report"] is not None:
+        print(watch["smoke_report"], flush=True)
     return launches, readings
 
 
@@ -5493,7 +5755,7 @@ def byzantine_counts(result) -> dict:
 
 
 def byzantine_checks(result, config, seeded) -> dict:
-    """Checks 1, 2 and 5 of byzantine-10 (the module docstring, step 18)
+    """Checks 1, 2 and 5 of byzantine-10 (the module docstring, step 20)
     against ``seeded``; returns the readings."""
     doc = result["doc"]
     # 1: safety and liveness.
@@ -5571,7 +5833,7 @@ def verdict_checks(log, committee) -> dict:
 
 def byzantine_phase(kernels, oracle_twin=False):
     """byzantine-10 on the card with the checks of the module docstring,
-    step 18: ``run_scenario(real_crypto=True)`` over one warmed
+    step 20: ``run_scenario(real_crypto=True)`` over one warmed
     ``TorchSignatureVerifier`` on cuda:0, the launch counts set to 0 before
     each twin and read after it.  ``oracle_twin`` also runs the sim re-sign
     oracle's twin here and requires its document to be the card's.
@@ -5723,7 +5985,8 @@ def run() -> int:
     by_path["health_tcp"], by_path["health_sim"], health = health_phase(K.KERNELS,
                                                                        control=False)
     by_path["node_proc"], by_path["node_svc"], node = node_phase(K.KERNELS)
-    by_path["orchestrator"], orchestrator = orchestrator_phase(K.KERNELS)
+    by_path["orchestrator"], orchestrator = orchestrator_phase(
+        K.KERNELS, smoke_trace=metrics_reading["trace"]["path"])
     by_path["byzantine"], byzantine = byzantine_phase(K.KERNELS)
     bench = bench_phase()
     # The block path's flushes take the keyed kernel, one key per lane, and

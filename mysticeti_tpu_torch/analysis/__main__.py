@@ -1,0 +1,6 @@
+"""``python -m mysticeti_tpu_torch.analysis`` entry point."""
+import sys
+
+from .cli import main
+
+sys.exit(main())

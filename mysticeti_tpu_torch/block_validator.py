@@ -594,7 +594,10 @@ class HybridSignatureVerifier(SignatureVerifier):
             if provided is None:
                 started = time.monotonic()
                 self.tpu.verify_signatures([pk], [digest], [sig])
-                provided = (time.monotonic() - started, 0.0)
+                # Real-backend boot calibration only: sims construct oracle
+                # verifiers (chaos.py), so these EMAs keep their
+                # deterministic __init__ defaults in virtual time.
+                provided = (time.monotonic() - started, 0.0)  # lint: ignore[sim-taint]
         except self.BREAKER_EXCEPTIONS as exc:
             if isinstance(exc, VerifierProtocolError):
                 raise  # misconfiguration, not an outage: fail fast
@@ -606,7 +609,8 @@ class HybridSignatureVerifier(SignatureVerifier):
         started = time.monotonic()
         reps = 32
         self.cpu.verify_signatures([pk] * reps, [digest] * reps, [sig] * reps)
-        cpu_probe = (time.monotonic() - started) / reps
+        # Same boot-calibration exemption as the card probe above.
+        cpu_probe = (time.monotonic() - started) / reps  # lint: ignore[sim-taint]
         # Warmup runs on a background thread while live dispatches may
         # already be updating the EMAs from executor threads — the
         # calibration writes must join the same lock or a concurrent RMW

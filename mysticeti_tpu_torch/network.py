@@ -1,3 +1,7 @@
+# lint: ignore-module[sim-taint] — real socket plane: the deterministic
+# loop's selector refuses socket registration (_NullSelector), so nothing
+# in this module can execute inside a seeded sim; simulated_network.py is
+# the virtual-time twin.
 """Validator mesh networking: wire protocol, framing, TCP transport, RTT probes.
 
 The port's copy of ``mysticeti_tpu.network``, whole: the frames are

@@ -103,10 +103,12 @@ SUBSYSTEMS: Dict[str, str] = {
     "providers": "tooling", "runner": "tooling", "settings": "tooling",
     "ssh": "tooling", "testbed": "tooling", "validator": "tooling",
     # The entry points, the benchmark, the flamegraph renderer's CLI, the
-    # node-a-process attribution probe and the scenario-matrix probe (the
-    # detsan driver shares ``detsan``'s row).
+    # node-a-process attribution probe, the scenario-matrix probe, the lint's
+    # alias and the trace and fleet-health tools (the detsan driver shares
+    # ``detsan``'s row).
     "entry": "tooling", "bench": "tooling", "mkflamegraph": "tooling",
-    "perf_attr": "tooling", "scenario_matrix": "tooling",
+    "perf_attr": "tooling", "scenario_matrix": "tooling", "lint": "tooling",
+    "trace_report": "tooling", "fleet_trace": "tooling", "fleetmon": "tooling",
     # Runtime facade + the deterministic loop.
     "__init__": "runtime", "simulated": "runtime",
 }

@@ -1,9 +1,10 @@
 """Determinism sanitizer driver: run-twice chaos sim + leak bisection.
 
-The port's copy of the JAX package's ``tools/detsan.py``, less its static
-``sim-taint`` fixtures (the port has no lint yet) and its ``BENCH_TREND``
-append.  One invocation exercises the dynamic layers and can write the
-``DETSAN_rNN.json`` artifact:
+The port's copy of the JAX package's ``tools/detsan.py``, less its
+``BENCH_TREND`` append.  The dynamic half of the determinism plane (the
+static half is the port's lint, ``python -m mysticeti_tpu_torch.analysis``,
+and its ``sim-taint`` rule).  One invocation exercises every layer and can
+write the ``DETSAN_rNN.json`` artifact:
 
 1. **clean** — the seeded N-node chaos sim runs twice under a
    :class:`~mysticeti_tpu_torch.detsan.DetsanRecorder`; the per-event
@@ -12,7 +13,11 @@ append.  One invocation exercises the dynamic layers and can write the
    timer cadence injected via the chaos ``extra_fault`` seam; the
    bisector must report ``identical: false`` and name the first
    diverging event.
-3. **tripwire** — the strict-mode wall-clock tripwire is self-tested:
+3. **fixtures** — the two historical leak shapes (the ``wal_backlog``
+   thread-progress admission signal, and the wall-clock dispatch EMA
+   arming a virtual flush timer) are re-checked against the port's
+   *static* ``sim-taint`` rule, proving the lint still catches both.
+4. **tripwire** — the strict-mode wall-clock tripwire is self-tested:
    counting mode must attribute a read to its call-site (and tick
    ``mysticeti_detsan_wallclock_reads_total``); strict mode must raise
    :class:`~mysticeti_tpu_torch.detsan.WallClockLeak`.
@@ -27,6 +32,7 @@ Exit code 0 when every section passes, 1 otherwise.
 from __future__ import annotations
 
 import argparse
+import ast
 import asyncio
 import json
 import os
@@ -36,9 +42,67 @@ import textwrap
 import time
 
 from mysticeti_tpu_torch import detsan
+from mysticeti_tpu_torch.analysis import checker, detflow
 from mysticeti_tpu_torch.chaos import FaultPlan, run_chaos_sim
 from mysticeti_tpu_torch.metrics import Metrics
 from mysticeti_tpu_torch.runtime.simulated import run_simulation
+
+
+# ---------------------------------------------------------------------------
+# Historical-leak fixtures (mirrored in tests/test_static_analysis.py): the
+# exact dataflow shapes that once shipped before being reverted.
+
+WAL_BACKLOG_FIXTURE = textwrap.dedent(
+    """
+    class HealthProbe:
+        def __init__(self, core):
+            self.core = core
+
+        def sample(self):
+            signals = {}
+            # real drain-thread progress observed into a sim-visible signal
+            signals["wal_backlog"] = bool(self.core.wal_writer.pending())
+            return signals
+
+
+    class AdmissionController:
+        def admit(self, signals):
+            if signals.get("wal_backlog"):
+                return False
+            return True
+    """
+)
+
+DISPATCH_EMA_FIXTURE = textwrap.dedent(
+    """
+    import time
+
+
+    class BatchedVerifier:
+        def __init__(self, loop):
+            self.loop = loop
+            self._dispatch_ema_s = 0.001
+
+        def _observe_dispatch(self, started):
+            wall = time.monotonic() - started
+            self._dispatch_ema_s = 0.9 * self._dispatch_ema_s + 0.1 * wall
+
+        def _effective_delay_s(self):
+            return min(0.05, self._dispatch_ema_s * 4.0)
+
+        def _arm_flush(self):
+            self.loop.call_later(self._effective_delay_s(), self._flush)
+
+        def _flush(self):
+            pass
+    """
+)
+
+
+def _fixture_detected(source: str) -> bool:
+    tree = ast.parse(source)
+    aliases = checker._collect_aliases(tree)
+    return bool(detflow.check_sim_taint(tree, aliases))
 
 
 # ---------------------------------------------------------------------------
@@ -52,7 +116,7 @@ async def _planted_leak(harness):
     # different jitter, so their event schedules fork.
     while True:
         jitter = (time.perf_counter_ns() % 997) / 1e5
-        await asyncio.sleep(0.05 + jitter)
+        await asyncio.sleep(0.05 + jitter)  # lint: ignore[sim-taint] — the planted leak
 
 
 def _run_recorded(nodes, duration_s, seed, cap, extra_fault=None):
@@ -143,6 +207,12 @@ def main(argv=None) -> int:
     print(f"  identical={planted.identical} "
           f"first_divergence={planted.first_divergence}")
 
+    fixtures = {
+        "pr11_wal_backlog": _fixture_detected(WAL_BACKLOG_FIXTURE),
+        "pr12_dispatch_ema": _fixture_detected(DISPATCH_EMA_FIXTURE),
+    }
+    print(f"detsan: static fixtures detected: {fixtures}")
+
     tripwire = _tripwire_selftest()
     print(f"detsan: tripwire counted={tripwire['counted_reads']} "
           f"strict_raised={tripwire['strict_mode_raised']}")
@@ -151,6 +221,7 @@ def main(argv=None) -> int:
         clean.identical
         and not planted.identical
         and planted.first_divergence is not None
+        and all(fixtures.values())
         and tripwire["counted_reads"] > 0
         and tripwire["strict_mode_raised"]
     )
@@ -163,6 +234,7 @@ def main(argv=None) -> int:
         "trace_cap": args.cap,
         "clean": clean.to_dict(),
         "planted": planted.to_dict(),
+        "fixtures": fixtures,
         "tripwire": tripwire,
         "passed": passed,
     }

@@ -1,3 +1,6 @@
+# lint: ignore-module[sim-taint] — standalone socket-server process: runs
+# outside any validator's event loop (real or simulated); its calibration
+# clocks can never leak into a seeded sim's timeline.
 """Shared per-host verifier service: ONE warmed card runtime for the fleet.
 
 The port's copy of ``mysticeti_tpu.verifier_service``.  Giving every

@@ -278,8 +278,9 @@ def test_chaos_sim_event_chain_equals_the_jax_packages():
 
 def test_tool_detsan_passes(tmp_path, capsys):
     """``python -m mysticeti_tpu_torch.tools.detsan`` at 4 nodes: the clean
-    runs are identical, the planted leak is bisected, the tripwire counts
-    and raises, and the artifact says so."""
+    runs are identical, the planted leak is bisected, the port's lint
+    detects both static fixtures, the tripwire counts and raises, and the
+    artifact says so."""
     import json
 
     from mysticeti_tpu_torch.tools import detsan as tool
@@ -289,5 +290,9 @@ def test_tool_detsan_passes(tmp_path, capsys):
     doc = json.loads(out.read_text())
     assert doc["passed"] and doc["clean"]["identical"]
     assert not doc["planted"]["identical"] and doc["planted"]["first_divergence"]
+    assert doc["fixtures"] == {"pr11_wal_backlog": True, "pr12_dispatch_ema": True}
     assert doc["tripwire"]["counted_reads"] == 1 and doc["tripwire"]["strict_mode_raised"]
-    assert "detsan: PASS" in capsys.readouterr().out
+    printed = capsys.readouterr().out
+    assert ("detsan: static fixtures detected: "
+            "{'pr11_wal_backlog': True, 'pr12_dispatch_ema': True}") in printed
+    assert "detsan: PASS" in printed

@@ -77,15 +77,17 @@ def test_subsystem_mapping_totality():
 def test_registry_extends_the_jax_packages():
     """The port's registry is the JAX package's plus the port's own modules
     (the CUDA wrappers and their build as ``verifier-pack``, the
-    entries, the benchmark, the flamegraph CLI, the attribution probe and
-    the scenario-matrix probe as ``tooling``); the overrides, waiting leaves
-    and subsystem names are the JAX package's."""
+    entries, the benchmark, the flamegraph CLI, the attribution probe, the
+    scenario-matrix probe, the lint's alias and the trace and fleet-health
+    tools as ``tooling``); the overrides, waiting leaves and subsystem names
+    are the JAX package's."""
     jax = _mod("mysticeti_tpu", "profiling")
     assert {k: v for k, v in SUBSYSTEMS.items() if k in jax.SUBSYSTEMS} == jax.SUBSYSTEMS
     assert {k: v for k, v in SUBSYSTEMS.items() if k not in jax.SUBSYSTEMS} == {
         "ed25519_cuda": "verifier-pack", "cuda_build": "verifier-pack",
         "entry": "tooling", "bench": "tooling", "mkflamegraph": "tooling",
-        "perf_attr": "tooling", "scenario_matrix": "tooling"}
+        "perf_attr": "tooling", "scenario_matrix": "tooling", "lint": "tooling",
+        "trace_report": "tooling", "fleet_trace": "tooling", "fleetmon": "tooling"}
     assert FRAME_SUBSYSTEMS == jax.FRAME_SUBSYSTEMS
     assert profiling.WAITING_LEAVES == jax.WAITING_LEAVES
     assert SUBSYSTEM_NAMES == jax.SUBSYSTEM_NAMES

@@ -117,7 +117,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "commit_observer", "core", "syncer", "net_sync", "reconfig", "execution",
         "finalization_interpreter", "validator", "cli", "__main__", "tools/perf_attr",
         "adversary", "detsan", "chaos", "scenarios", "tools/detsan",
-        "tools/scenario_matrix", "orchestrator/__init__", *(
+        "tools/scenario_matrix", "tools/lint", "tools/trace_report", "tools/fleet_trace",
+        "tools/fleetmon", *(f"analysis/{m}" for m in (
+            "__init__", "__main__", "checker", "cli", "detflow", "races", "lockgraph")),
+        "orchestrator/__init__", *(
             f"orchestrator/{m}" for m in (
                 "benchmark", "display", "faults", "hostmon", "logs", "measurement",
                 "monitor", "orchestrator", "plot", "providers", "runner", "settings", "ssh",
