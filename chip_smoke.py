@@ -380,12 +380,43 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    twin here and requires the same document.
 21. Bench: ``python -m mysticeti_tpu_torch.bench`` as a child with 2
    workers, 8 iterations, 2 trials and a 30 s budget; its JSON line must
-   come from rung 0 with a value above 0.
+   come from rung 0 with a value above 0, and it appends its record (with
+   the card's name and power limit) to the trend index under
+   ``build/chip_smoke/``.
+22. Tools: the port's kernel and storage tools as users run them, each
+   ``python -m mysticeti_tpu_torch.tools.<name>`` in a child, artifacts under
+   ``build/chip_smoke/``.  ``kernel_parity --n 12288 --seed 2026``: the RFC
+   8032 vectors (0-2 byte messages, hashed on the host, through the generic
+   kernel) accepted and their corrupted copies rejected, and 12,288 seeded
+   cases in the 7 classes through ``verify_batch`` (prologue + generic) and
+   ``verify_batch_table`` (prologue + keyed, the ``corrupt_pk`` lanes on the
+   generic straggler patch), every bit equal to the ``cryptography``
+   oracle's, zero mismatches in every class on both paths.  ``bench_probe``:
+   null round trip, host-to-device MB/s, the keyed chain's time on a resident
+   16,384-lane blob and the end-to-end time of a bench batch, every reading
+   above 0 and the kernels' below the end-to-end time.  ``mesh_scaling
+   --sizes 1 --real``: the one card's point, every lane valid and the summed
+   count equal to the batch.  ``storage_probe --quick --verifier cuda-only
+   --scenario bounded-disk`` (the snapshot catch-up scenario is left to
+   tier-1, see ``STORAGE_PROBE_SCENARIOS``): it passes with every node's
+   collector over one ``TorchSignatureVerifier`` on the card, its seeded
+   fields equal ``STORAGE_PROBE_SEEDED``'s and it launches the prologue and
+   the keyed kernel as often and the generic kernel never.  ``bench_trend
+   --repo build/chip_smoke``: exit 0 and a non-empty trajectory, every
+   record carrying the card.  Riding earlier phases: ``wal_inspect --json``
+   over storage-10's node 0 WAL and its rejoiner's, before the run's
+   directory goes (exit 0, segmented, no problem, a valid checkpoint, blocks
+   in the census; the rejoiner's checkpoints all at or above the height of
+   the snapshot it adopted); ``commit_explain --url`` on node 0 of
+   orchestrator-10's
+   10,000 tx/s run while it runs, ``--last 10`` then ``--skips`` (exit 0,
+   every explanation naming its commit rule).
 Each path of steps 3-20 (the block path and the committee dispatch of step 3
 apart) runs with every launch count set to 0 just before it and read just
 after (node-proc-10's in its processes, from each verifier's ``ready``;
 byzantine-10's for each twin; orchestrator-10's on its verifier service, from
-its warm state); every kernel must have launched on some path.
+its warm state; step 22's in each tool's own process, which reports them);
+every kernel must have launched on some path.
 The whole script skips the ``cpu`` control run of steps 11, 13, 14, 15,
 netsync-50 of step 12 and health-sim-10 of step 16: their seeded constants
 (``CONSENSUS_SEEDED``, ``NETSYNC_SEEDED``, ``STORAGE_SEEDED``,
@@ -393,7 +424,7 @@ netsync-50 of step 12 and health-sim-10 of step 16: their seeded constants
 there (each ``<phase>_only`` keeps the control and its comparison; the
 consensus and netsync-50 counts carry a digest of every node's committed
 sequence and own blocks, which the control compared).
-22. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+23. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Every phase runs under ``PYTHONHASHSEED=0`` (``main`` runs the command
@@ -407,7 +438,8 @@ phase fails.
 One phase alone: ``python3 -c 'import chip_smoke as c; raise
 SystemExit(c.main(c.receive_only))'`` (likewise ``consensus_only``,
 ``net_sync_only``, ``storage_only``, ``epoch_only``, ``ingress_only``,
-``health_only``, ``node_only``, ``orchestrator_only``, ``byzantine_only``, and
+``health_only``, ``node_only``, ``orchestrator_only``, ``byzantine_only``,
+``tools_only`` (step 22's standalone tools, after the bench), and
 ``sharded_only`` for a
 host with several cards).  Not
 in the default run: ``receive_split`` (where the receive burst's host time
@@ -814,8 +846,55 @@ BYZANTINE_SEEDED = {
     "node9_blocks": [1] * 10,
     "document": "8872bd90488fa125b89d18d1c677193cec0a9ff3ab429e29d2539033d28c5fcf",
 }
+# The tools step (step 22): the port's kernel and storage tools as a user
+# runs them, each ``python -m mysticeti_tpu_torch.tools.<name>`` in a child,
+# their artifacts and the bench's trend record under ``TOOLS_DIR``.
+# ``KERNEL_PARITY_N`` is the JAX tool's default (12,288 randomized cases, 7
+# classes, every bit against the oracle on both dispatch paths);
+# ``mesh_scaling`` runs its one-card point at its default batch.
+KERNEL_PARITY_N = 12288
+# ``storage_probe``'s scenarios on the card (each a ``--scenario``): the
+# bounded-disk one alone.  With both the step took 134.3 s on an H100 80GB
+# HBM3 at 700 W, the snapshot catch-up 73.75 s of it (9,628 flushes), over
+# the step's 90 s; storage-10 drives a snapshot catch-up on the card
+# already.
+STORAGE_PROBE_SCENARIOS = ("bounded-disk",)
+# What ``tools.storage_probe --quick`` reproduces of those scenarios at
+# their seeds under HASH_SEED (``storage_probe.deterministic`` of a
+# ``--verifier cpu`` run, whose collectors give the oracle's verdicts with
+# the same 2 ms window as the card's ``cuda-only``; the JAX tool's own run,
+# ``--verifier sim-oracle``, verifies nothing and so commits at another
+# pace).  ``tests/test_torch_storage_probe_seeded.py`` recomputes it.
+# Recompute it when anything on the path changes.
+STORAGE_PROBE_SEEDED = {
+    "bounded_disk": {
+        "nodes": {
+            "0": {"commit_height": 220, "first_live_offset": 336710,
+                  "last_checkpoint_height": 220.0, "lifetime_wal_bytes": 1003529,
+                  "live_segments": 42, "live_wal_bytes": 666819, "reclaimed_bytes": 336710.0,
+                  "retired_round": 80},
+            "1": {"commit_height": 220, "first_live_offset": 336778,
+                  "last_checkpoint_height": 220.0, "lifetime_wal_bytes": 1001209,
+                  "live_segments": 42, "live_wal_bytes": 664431, "reclaimed_bytes": 336778.0,
+                  "retired_round": 80},
+            "2": {"commit_height": 220, "first_live_offset": 335712,
+                  "last_checkpoint_height": 218.0, "lifetime_wal_bytes": 951032,
+                  "live_segments": 39, "live_wal_bytes": 615320, "reclaimed_bytes": 335712.0,
+                  "retired_round": 80},
+            "3": {"commit_height": 220, "first_live_offset": 335179,
+                  "last_checkpoint_height": 220.0, "lifetime_wal_bytes": 1002804,
+                  "live_segments": 42, "live_wal_bytes": 667625, "reclaimed_bytes": 335179.0,
+                  "retired_round": 80},
+        },
+        "pass": True,
+        "restart": {"lifetime_wal_bytes": 951032, "node": 2, "recovered_checkpoint_height": 130,
+                    "replay_fraction": 0.0246, "replay_start": 579593, "replayed_bytes": 23360},
+        "virtual_duration_s": 20.0,
+    },
+}
 HASH_SEED = "0"
 HERE = os.path.dirname(os.path.abspath(__file__))
+TOOLS_DIR = os.path.join(HERE, "build", "chip_smoke")
 
 
 class SmokeFailure(Exception):
@@ -825,6 +904,15 @@ class SmokeFailure(Exception):
 def check(cond, what: str) -> None:
     if not cond:
         raise SmokeFailure(what)
+
+
+def run_tool(module, *args, timeout=600, env=None):
+    """``python -m mysticeti_tpu_torch.<module> ARGS`` in a child from the
+    checkout, as a user runs it: ((exit code, stdout, stderr), seconds)."""
+    t0 = time.monotonic()
+    proc = subprocess.run([sys.executable, "-m", f"mysticeti_tpu_torch.{module}", *args],
+                          cwd=HERE, capture_output=True, text=True, timeout=timeout, env=env)
+    return (proc.returncode, proc.stdout, proc.stderr), time.monotonic() - t0
 
 
 def control_text(cpu) -> str:
@@ -3143,11 +3231,13 @@ def storage_result(fleet) -> dict:
     return result
 
 
-def storage_run(kind, config, backend=None) -> dict:
+def storage_run(kind, config, backend=None, inspect=None) -> dict:
     """One seeded simulation of ``storage_sim`` in a temporary directory:
     ``kind`` "cuda-only" gives every node's every incarnation a collector
     over the one shared ``backend``; "cpu" the ``cpu`` kind's collector.
-    Returns the result with its wall seconds."""
+    Returns the result with its wall seconds and, with ``inspect``, what
+    ``inspect(directory, config)`` returned over the closed WALs before the
+    directory goes (``result["wal_inspect"]``)."""
     import tempfile
 
     from mysticeti_tpu_torch.block_validator import BatchedSignatureVerifier
@@ -3164,7 +3254,45 @@ def storage_run(kind, config, backend=None) -> dict:
         t0 = time.monotonic()
         result = run_simulation(storage_sim(config, d, make_collector), seed=config["seed"])
         result["wall_s"] = time.monotonic() - t0
+        if inspect is not None:
+            result["wal_inspect"] = inspect(d, config)
     return result
+
+
+def wal_inspect_run(tmp_dir, config) -> dict:
+    """Step 22 on storage-10: ``tools.wal_inspect --json`` as a child over
+    node 0's WAL and the rejoiner's: name -> ((exit code, stdout, stderr),
+    seconds)."""
+    return {name: run_tool("tools.wal_inspect", os.path.join(tmp_dir, f"wal-{a}"), "--json")
+            for name, a in (("node0", 0), ("rejoiner", config["rejoiner"]))}
+
+
+def wal_inspect_checks(inspected, adopted_height) -> dict:
+    """Each WAL inspected healthy (exit 0): segmented, a valid checkpoint at
+    or above its first live segment, blocks in its census; the rejoiner's
+    checkpoints all lie at or above the height of the snapshot it adopted
+    (``adopted_height``): what its WAL replays starts from that baseline.
+    (The adoption's own snapshot entry is garbage-collected with its segment
+    before the run ends.)  Returns each WAL's readings."""
+    readings = {}
+    for name, ((rc, out, err), seconds) in inspected.items():
+        check(rc == 0, f"wal_inspect over {name}'s WAL exited {rc}: {out[-1500:]}{err[-1500:]}")
+        doc = json.loads(out)
+        valid = [c for c in doc["checkpoints"] if c.get("valid") and "stale" not in c]
+        check(doc["layout"] == "segmented" and valid and not doc["problems"],
+              f"wal_inspect over {name}'s WAL: layout {doc['layout']}, checkpoints "
+              f"{doc['checkpoints']}, problems {doc['problems']}")
+        check(doc["census"].get("block", {}).get("entries", 0) > 0,
+              f"wal_inspect over {name}'s WAL counts no block: {doc['census']}")
+        readings[name] = {"segments": len(doc["segments"]), "checkpoints": len(valid),
+                          "checkpoint_heights": [c["commit_height"] for c in valid],
+                          "census": {tag: row["entries"] for tag, row in doc["census"].items()},
+                          "torn_tail_bytes": doc.get("torn_tail_bytes", 0), "seconds": seconds}
+    heights = readings["rejoiner"]["checkpoint_heights"]
+    check(min(heights) >= adopted_height,
+          f"the rejoiner's checkpoints {heights} lie below its adopted snapshot's height "
+          f"{adopted_height}")
+    return readings
 
 
 def storage_counts(result) -> dict:
@@ -3267,10 +3395,12 @@ def storage_phase(kernels, control=True):
     backend.warmup()  # the kernels' first launches and the combs' upload
     for k in kernels:
         k.reset_counts()
-    card = storage_run("cuda-only", config, backend=backend)
+    card = storage_run("cuda-only", config, backend=backend, inspect=wal_inspect_run)
     launches = {k.name: k.launches for k in kernels}
     cpu = storage_run("cpu", config) if control else None
     reading = storage_checks(card, cpu, config)
+    reading["wal_inspect"] = wal_inspect_checks(card["wal_inspect"],
+                                                reading["rejoiner"]["adopted_height"])
     check(reading["counts"] == STORAGE_SEEDED,
           f"the counts differ from the seeded ones: {reading['counts']}")
     check(launches["prologue"] == launches["verify_keyed"] == card["flushes"]
@@ -3308,6 +3438,11 @@ def storage_phase(kernels, control=True):
           f"virtual s); WAL bytes written {wal['written']} against {wal['live']} live; "
           f"{card['wall_s']:.1f} s on the card, {control_seconds(cpu)} "
           f"[{reading['card']}]", flush=True)
+    for name, r in reading["wal_inspect"].items():
+        print(f"wal_inspect (step 22) over storage-10's {name} WAL: exit 0, {r['segments']} "
+              f"segments, {r['checkpoints']} valid checkpoints at heights "
+              f"{r['checkpoint_heights']}, census {r['census']}, torn tail "
+              f"{r['torn_tail_bytes']} B, {r['seconds']:.2f} s", flush=True)
     return launches, reading
 
 
@@ -5279,8 +5414,28 @@ def runner_tap(runner_cls):
                 self.runs[-1]["ticks"].append(await compute_apps())
             return await super().host_sample()
 
+        async def explain_commits(self):
+            """Step 22 on the traced run, while its nodes run: the port's
+            ``commit_explain`` as a child over node 0's ``/debug/consensus``,
+            its last 10 decisions, then its skips."""
+            run = self.runs[-1] if self.runs else {}
+            if not run.get("traced") or 0 not in self.processes:
+                return
+            url = f"http://127.0.0.1:{self.parameters.metrics_address(0)[1]}"
+            run["explain"] = {}
+            for name, args in (("last", ("--last", "10")), ("skips", ("--skips",))):
+                t0 = time.monotonic()
+                proc = await asyncio.create_subprocess_exec(
+                    sys.executable, "-m", "mysticeti_tpu_torch.tools.commit_explain",
+                    "--url", url, *args, cwd=HERE, stdout=asyncio.subprocess.PIPE,
+                    stderr=asyncio.subprocess.PIPE)
+                out, err = await asyncio.wait_for(proc.communicate(), 60)
+                run["explain"][name] = ((proc.returncode, out.decode(), err.decode()[-2000:]),
+                                        time.monotonic() - t0)
+
         async def cleanup(self):
             await self.await_fleetmon()
+            await self.explain_commits()
             if self._verifier_service is not None and self.processes:
                 for authority in list(self.processes):
                     await self.kill_node(authority)
@@ -5454,6 +5609,37 @@ def watch_checks(run, collection, config, traces, report, critical, merged, lint
     }
 
 
+def explain_checks(run) -> dict:
+    """Step 22's ``commit_explain`` on the traced run: both calls exit 0, the
+    header names node 0, ``--last 10`` explains 1-10 decisions and every
+    explanation names its commit rule (direct or indirect).  Returns the
+    explanations counted and the seconds."""
+    import re
+
+    explain = run.get("explain")
+    check(explain and set(explain) == {"last", "skips"},
+          f"commit_explain did not run on the traced run: {explain}")
+    readings = {}
+    for name, ((rc, out, err), seconds) in explain.items():
+        check(rc == 0, f"commit_explain {name} exited {rc}: {out[-1000:]}{err[-1000:]}")
+        check(out.startswith("# authority=0 "),
+              f"commit_explain {name}: the header does not name node 0: {out[:200]}")
+        slots = [line for line in out.splitlines() if line.startswith("slot ")]
+        unnamed = [line for line in slots
+                   if not re.search(r" via the (direct|indirect) rule$", line)]
+        check(not unnamed, f"commit_explain {name}: explanations without a commit rule: "
+                           f"{unnamed[:3]}")
+        readings[name] = {"explained": len(slots), "seconds": seconds,
+                          "rules": sorted({line.rsplit(" ", 2)[1] for line in slots})}
+        if name == "skips":
+            check(all(" SKIP via " in line for line in slots),
+                  f"commit_explain --skips explained a commit: {slots[:3]}")
+    check(1 <= readings["last"]["explained"] <= 10,
+          f"commit_explain --last 10 explained {readings['last']['explained']} decisions")
+    readings["sample"] = explain["last"][0][1].splitlines()[:4]
+    return readings
+
+
 def watch_phase(run, collection, config, wd, smoke_trace=None) -> dict:
     """Step 19 after orchestrator-10: the port's tools as children on what
     the traced run left in ``wd`` (its traces and fleetmon's timeline), the
@@ -5461,12 +5647,7 @@ def watch_phase(run, collection, config, wd, smoke_trace=None) -> dict:
     then ``watch_checks``."""
     import glob
 
-    def tool(module, *args):
-        t0 = time.monotonic()
-        proc = subprocess.run([sys.executable, "-m", f"mysticeti_tpu_torch.{module}", *args],
-                              cwd=HERE, capture_output=True, text=True, timeout=600)
-        return (proc.returncode, proc.stdout, proc.stderr), time.monotonic() - t0
-
+    tool = run_tool
     t0 = time.monotonic()
     path = os.path.join(wd, "fleetmon.json")
     if os.path.exists(path):
@@ -5582,7 +5763,8 @@ def orchestrator_phase(kernels, config=None, smoke_trace=None):
     check(len(traced) == 1, f"orchestrator-10 traced runs {traced}, want the "
                             f"{WATCH_10['load']} tx/s run's")
     watch = watch_phase(runner.runs[traced[0]], collections[traced[0]], config, wd, smoke_trace)
-    readings.update(phase_s=phase_s, plot=[os.path.basename(p) for p in written],
+    explained = explain_checks(runner.runs[traced[0]])
+    readings.update(commit_explain=explained, phase_s=phase_s, plot=[os.path.basename(p) for p in written],
                     plot_text=plot_text, logs=analysis.display(), card=card_line(), watch=watch)
     print(analysis.display(), flush=True)
     for r in readings["runs"]:
@@ -5618,6 +5800,13 @@ def orchestrator_phase(kernels, config=None, smoke_trace=None):
           f"in {watch['lint_s']:.2f} s; trace_report {watch['report_s']:.2f} s, fleet_trace "
           f"{watch['merge_s']:.2f} s, the step's tools {watch['step_s']:.1f} s "
           f"[{readings['card']}]", flush=True)
+    print(f"commit_explain (step 22) over node 0 of the {traced_run['load']} tx/s run, while it "
+          f"ran: --last 10 explained {explained['last']['explained']} decisions (rules "
+          f"{explained['last']['rules']}) in {explained['last']['seconds']:.2f} s, --skips "
+          f"{explained['skips']['explained']} (rules {explained['skips']['rules']}) in "
+          f"{explained['skips']['seconds']:.2f} s; every explanation names its rule "
+          f"[{readings['card']}]", flush=True)
+    print("\n".join(explained["sample"]), flush=True)
     print(watch["fleetmon_frame"], flush=True)
     print(watch["report"], flush=True)
     print("\n".join(watch["critical_path"]), flush=True)
@@ -5899,7 +6088,8 @@ def byzantine_phase(kernels, oracle_twin=False):
 
 def bench_phase() -> dict:
     """``python -m mysticeti_tpu_torch.bench`` as a child, on BENCH_ENV."""
-    env = dict(os.environ, **BENCH_ENV)
+    env = dict(os.environ, **BENCH_ENV,
+               BENCH_TREND_PATH=os.path.join(TOOLS_DIR, "BENCH_TREND.json"))
     env.pop("BENCH_WORKER", None)
     t0 = time.monotonic()
     proc = subprocess.run([sys.executable, "-m", "mysticeti_tpu_torch.bench"], cwd=HERE, env=env,
@@ -5914,6 +6104,138 @@ def bench_phase() -> dict:
     record["env"] = BENCH_ENV
     print(json.dumps({"bench": record}), flush=True)
     return record
+
+
+def tool_doc(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def tools_phase(kernels) -> tuple:
+    """Step 22's standalone tools, each ``python -m
+    mysticeti_tpu_torch.tools.<name>`` in a child on the card, with the
+    checks of the module docstring: ``kernel_parity``, ``bench_probe``,
+    ``mesh_scaling`` on the one card, ``storage_probe --quick --verifier
+    cuda-only`` on ``STORAGE_PROBE_SCENARIOS`` and ``bench_trend`` over
+    ``TOOLS_DIR``.  Returns the
+    launches their processes counted (each from 0, the tool's own path) and
+    the readings."""
+    from mysticeti_tpu_torch.tools.storage_probe import SCENARIOS, deterministic
+
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+    t0 = time.monotonic()
+    launches = {k.name: 0 for k in kernels}
+    by_tool = {}
+
+    def counted(tool, counts):
+        by_tool[tool] = counts
+        for name, n in counts.items():
+            launches[name] += n
+
+    def ran(tool, result):
+        (rc, out, err), seconds = result
+        check(rc == 0, f"{tool} exited {rc}: {out[-2000:]}{err[-2000:]}")
+        return out, seconds
+
+    # kernel_parity: every bit of both dispatch paths against the oracle.
+    path = os.path.join(TOOLS_DIR, "KERNEL_PARITY.json")
+    _, parity_s = ran("kernel_parity", run_tool(
+        "tools.kernel_parity", "--n", str(KERNEL_PARITY_N), "--seed", str(SEED), "--out", path))
+    parity = tool_doc(path)
+    check(parity["pass"] and parity["backend"] == "cuda"
+          and parity["rfc8032"] == {"accept_all_valid": True, "reject_all_corrupt": True},
+          f"kernel_parity: pass {parity['pass']}, backend {parity['backend']}, "
+          f"RFC 8032 {parity['rfc8032']}")
+    for name, r in parity["randomized"].items():
+        check(r["cases"] == KERNEL_PARITY_N and r["mismatches"] == 0
+              and set(r["per_class"]) == set(CLASSES)
+              and all(c["mismatches"] == 0 for c in r["per_class"].values()),
+              f"kernel_parity {name}: {r}")
+    counted("kernel_parity", parity["launches"])
+    check(all(parity["launches"][k] > 0 for k in ("prologue", "verify_generic", "verify_keyed")),
+          f"kernel_parity did not take the prologue, generic and keyed kernels: "
+          f"{parity['launches']}")
+
+    # bench_probe: the split of a batch's time.
+    out, probe_s = ran("bench_probe", run_tool("tools.bench_probe"))
+    probe = json.loads(out.strip().splitlines()[-1])
+    keys = ("null_rtt_ms", "h2d_MBps", "kernel_ms_per_batch", "kernel_only_sig_s",
+            "e2e_sig_s_16iters", "e2e_ms_per_batch")
+    check(probe["backend"] == "cuda" and all(probe[k] > 0 for k in keys)
+          and probe["kernel_ms_per_batch"] < probe["e2e_ms_per_batch"],
+          f"bench_probe readings {probe}")
+    counted("bench_probe", probe["launches"])
+
+    # mesh_scaling: its one-card point, the summed count equal to the batch.
+    path = os.path.join(TOOLS_DIR, "MULTICHIP_SCALING.json")
+    _, mesh_s = ran("mesh_scaling", run_tool(
+        "tools.mesh_scaling", "--sizes", "1", "--real", "--out", path))
+    point, = tool_doc(path)["points"]
+    check(point["devices"] == 1 and point["psum_total_ok"]
+          and point["per_shard_batch"] == point["global_batch"] > 0,
+          f"mesh_scaling's one-card point {point}")
+    counted("mesh_scaling", point["launches"])
+
+    # storage_probe: both scenarios on the card, their seeded fields.
+    path = os.path.join(TOOLS_DIR, "STORAGE_r08.json")
+    chosen = [a for name in STORAGE_PROBE_SCENARIOS for a in ("--scenario", name)]
+    _, storage_s = ran("storage_probe", run_tool(
+        "tools.storage_probe", "--quick", "--verifier", "cuda-only", *chosen, "--out", path,
+        timeout=900))
+    storage = tool_doc(path)
+    scenarios = tuple(SCENARIOS[name] for name in STORAGE_PROBE_SCENARIOS)
+    check(all(storage[name]["pass"] for name in scenarios), "storage_probe: a scenario failed")
+    seeded = deterministic(storage)
+    check(seeded == json.loads(json.dumps(STORAGE_PROBE_SEEDED)),
+          f"storage_probe's seeded fields differ from STORAGE_PROBE_SEEDED: {seeded}")
+    for name in scenarios:
+        counts = storage[name]["launches"]
+        check(counts["prologue"] == counts["verify_keyed"] > 0 and counts["verify_generic"] == 0,
+              f"storage_probe {name}'s launches {counts} are not one prologue and one keyed "
+              f"launch a flush")
+    counted("storage_probe", {k.name: sum(storage[n]["launches"][k.name] for n in scenarios)
+                              for k in kernels})
+
+    # bench_trend over the records this run wrote (the bench's live append).
+    out, trend_s = ran("bench_trend", run_tool("tools.bench_trend", "--repo", TOOLS_DIR))
+    scored = int(out.split(" scored record(s)", 1)[0].rsplit(" ", 1)[-1])
+    index = tool_doc(os.path.join(TOOLS_DIR, "BENCH_TREND.json"))["records"]
+    check(scored >= 1 and index and all(r.get("card") for r in index),
+          f"bench_trend: {scored} scored records, index {index}")
+
+    reading = {
+        "kernel_parity": {"seconds": parity_s, "cases": {
+            c: parity["randomized"]["verify_batch_raw"]["per_class"][c]["cases"]
+            for c in CLASSES}, "oracle_accepts": parity["oracle_accepts"],
+            "mismatches": {name: r["mismatches"] for name, r in parity["randomized"].items()},
+            "rfc8032": parity["rfc8032"], "tool_seconds": parity["seconds"],
+            "device": parity["device"], "card": parity["card"]},
+        "bench_probe": dict({k: probe[k] for k in keys}, seconds=probe_s, batch=probe["batch"],
+                            blob_bytes_per_batch=probe["blob_bytes_per_batch"]),
+        "mesh_scaling": dict({k: point[k] for k in ("devices", "mesh", "global_batch", "step_s",
+                                                     "sig_per_s")}, seconds=mesh_s),
+        "storage_probe": {"seconds": storage_s, "scenarios": list(STORAGE_PROBE_SCENARIOS),
+                          "wall_s": {n: storage[n]["wall_s"] for n in scenarios},
+                          "launches": {n: storage[n]["launches"] for n in scenarios}},
+        "bench_trend": {"seconds": trend_s, "scored": scored, "records": len(index)},
+        "launches_by_tool": by_tool, "step_s": time.monotonic() - t0, "card": card_line(),
+    }
+    kp = reading["kernel_parity"]
+    print(f"kernel_parity (step 22): {KERNEL_PARITY_N} cases a path, classes {kp['cases']}, "
+          f"{kp['oracle_accepts']} accepted by the oracle; mismatches {kp['mismatches']}; RFC "
+          f"8032 {kp['rfc8032']}; {parity_s:.1f} s ({kp['tool_seconds']:.1f} s in the tool); "
+          f"launches {parity['launches']} [{reading['card']}]", flush=True)
+    print(f"bench_probe (step 22): {json.dumps(reading['bench_probe'])} [{reading['card']}]",
+          flush=True)
+    print(f"mesh_scaling (step 22): {json.dumps(reading['mesh_scaling'])} [{reading['card']}]",
+          flush=True)
+    print(f"storage_probe (step 22): {', '.join(STORAGE_PROBE_SCENARIOS)} pass, seeded fields "
+          f"equal STORAGE_PROBE_SEEDED; {json.dumps(reading['storage_probe'])} "
+          f"[{reading['card']}]", flush=True)
+    print(f"bench_trend (step 22): exit 0, {scored} scored record(s) in {len(index)}, "
+          f"{trend_s:.1f} s; the step {reading['step_s']:.1f} s (storage-10's wal_inspect and "
+          f"orchestrator-10's commit_explain ride their phases) [{reading['card']}]", flush=True)
+    return launches, reading
 
 
 def build_and_report(K, cuda_build) -> None:
@@ -5952,6 +6274,7 @@ def run() -> int:
     from mysticeti_tpu_torch.metrics import Metrics
 
     print(card_line(), flush=True)
+    fresh_tools_dir()
     # The run's registry: attributed from the kernels' build on.
     metrics = Metrics()
     E.install_device_attribution(metrics)
@@ -5989,6 +6312,7 @@ def run() -> int:
         K.KERNELS, smoke_trace=metrics_reading["trace"]["path"])
     by_path["byzantine"], byzantine = byzantine_phase(K.KERNELS)
     bench = bench_phase()
+    by_path["tools"], tools = tools_phase(K.KERNELS)
     # The block path's flushes take the keyed kernel, one key per lane, and
     # never the generic one; the committee dispatch's 8 stragglers take the
     # generic kernel once.
@@ -6027,8 +6351,38 @@ def run() -> int:
                       "ingress": ingress, "health": health, "node": node,
                       "orchestrator": orchestrator, "byzantine": byzantine,
                       "metrics": metrics_reading,
-                      "bench": bench}), flush=True)
+                      "bench": bench, "tools": tools}), flush=True)
     print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def fresh_tools_dir() -> None:
+    """An empty ``TOOLS_DIR`` for this run's tool artifacts and trend index."""
+    import shutil
+
+    shutil.rmtree(TOOLS_DIR, ignore_errors=True)
+    os.makedirs(TOOLS_DIR)
+
+
+def tools_only() -> int:
+    """Step 22's standalone tools alone, after the bench (whose live record
+    ``bench_trend`` reads): ``python3 -c 'import chip_smoke as c; raise
+    SystemExit(c.main(c.tools_only))'``.  storage-10's ``wal_inspect`` and
+    orchestrator-10's ``commit_explain`` ride ``storage_only`` and
+    ``orchestrator_only``."""
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    fresh_tools_dir()
+    bench = bench_phase()
+    launches, reading = tools_phase(K.KERNELS)
+    print(json.dumps({"tools": reading, "launches": launches, "bench": bench}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

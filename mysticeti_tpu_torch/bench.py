@@ -29,11 +29,20 @@ line on stdout:
   {"metric": "ed25519_verifies_per_sec", "value": N, "unit": "sig/s", "vs_baseline": R}
 with the rung that produced it.  ``vs_baseline`` is against 500k sig/s.
 
+Under the target (and unless BENCH_ACCOUNTING=0) the record carries
+``accounting``: ``python -m mysticeti_tpu_torch.tools.bench_probe``'s split
+of a batch's time on the card (null round trip, host-to-device bandwidth,
+kernel-only and end-to-end time) with the wire ceiling at ~100 B a
+signature, or the probe's failure.  Every record, the zero record included,
+is appended to the port's trend index (``tools.bench_trend.append_record``:
+``build/BENCH_TREND.json`` or BENCH_TREND_PATH, with the card's name and
+power limit; BENCH_TREND=0 skips it).
+
 Differences from the JAX package's benchmark: the recovery ladder has card
 rungs only (fewer processes, then a smaller batch) and no CPU rung, since a
 number from the host would hide the card; a total failure prints value 0
-and exits non-zero.  There is no under-target accounting probe and no trend
-file.
+and exits non-zero.  The accounting rides in the record rather than on
+stderr, and the trend index lies under ``build/``.
 """
 from __future__ import annotations
 
@@ -370,7 +379,33 @@ def main() -> None:
         raise last_error or RuntimeError("bench produced no measurement")
     if used["rung"] > 0:
         used["rungs"] = rung_reports
+    if value < BASELINE_TARGET and os.environ.get("BENCH_ACCOUNTING") != "0":
+        used["accounting"] = accounting(value)
     _emit(value, used)
+
+
+def accounting(value: float) -> dict:
+    """Why a run fell under the target: the probe's split of a batch's time
+    on the card, run as a child, with the wire ceiling at ~100 B a
+    signature.  Never raises: a failed probe is recorded, not the end of
+    the measurement."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    try:
+        probe = subprocess.run(
+            [sys.executable, "-m", "mysticeti_tpu_torch.tools.bench_probe"],
+            capture_output=True, text=True, timeout=420, cwd=root,
+        )
+    except (OSError, subprocess.SubprocessError) as exc:
+        return {"error": repr(exc)}
+    lines = probe.stdout.strip().splitlines()
+    if probe.returncode != 0 or not lines:
+        return {"error": f"probe exited {probe.returncode}: {probe.stderr[-400:]}"}
+    acct = json.loads(lines[-1])
+    bw = acct.get("h2d_MBps")
+    if bw:
+        acct["wire_ceiling_sig_s_at_100B"] = bw * 1e6 / 100.0
+        acct["measured_fraction_of_wire_ceiling"] = value / acct["wire_ceiling_sig_s_at_100B"]
+    return acct
 
 
 def _emit(value: float, used: dict = None) -> None:
@@ -384,6 +419,10 @@ def _emit(value: float, used: dict = None) -> None:
         # Which ladder rung produced the number.
         record.update(used)
     print(json.dumps(record), flush=True)
+    if os.environ.get("BENCH_TREND") != "0":
+        from .tools.bench_trend import append_record
+
+        append_record(record)
 
 
 if __name__ == "__main__":

@@ -1,10 +1,10 @@
 """Determinism sanitizer driver: run-twice chaos sim + leak bisection.
 
-The port's copy of the JAX package's ``tools/detsan.py``, less its
-``BENCH_TREND`` append.  The dynamic half of the determinism plane (the
-static half is the port's lint, ``python -m mysticeti_tpu_torch.analysis``,
-and its ``sim-taint`` rule).  One invocation exercises every layer and can
-write the ``DETSAN_rNN.json`` artifact:
+The port's copy of the JAX package's ``tools/detsan.py``.  The dynamic
+half of the determinism plane (the static half is the port's lint,
+``python -m mysticeti_tpu_torch.analysis``, and its ``sim-taint`` rule).
+One invocation exercises every layer and can write the ``DETSAN_rNN.json``
+artifact:
 
 1. **clean** — the seeded N-node chaos sim runs twice under a
    :class:`~mysticeti_tpu_torch.detsan.DetsanRecorder`; the per-event
@@ -26,6 +26,11 @@ Usage:
     python -m mysticeti_tpu_torch.tools.detsan
     python -m mysticeti_tpu_torch.tools.detsan --out DETSAN.json
     python -m mysticeti_tpu_torch.tools.detsan --nodes 10 --duration 3 --seed 42
+    python -m mysticeti_tpu_torch.tools.detsan --append-trend   # fold into build/BENCH_TREND.json
+
+``--append-trend`` folds the artifact (``--out``, else
+``build/DETSAN.json``) into the port's trend index, each record with the
+card's name and power limit (skipped where there is no card).
 
 Exit code 0 when every section passes, 1 otherwise.
 """
@@ -34,7 +39,6 @@ from __future__ import annotations
 import argparse
 import ast
 import asyncio
-import json
 import os
 import sys
 import tempfile
@@ -46,6 +50,10 @@ from mysticeti_tpu_torch.analysis import checker, detflow
 from mysticeti_tpu_torch.chaos import FaultPlan, run_chaos_sim
 from mysticeti_tpu_torch.metrics import Metrics
 from mysticeti_tpu_torch.runtime.simulated import run_simulation
+from mysticeti_tpu_torch.tools import build_path, write_json
+
+# The artifact ``--append-trend`` folds in when no ``--out`` is given.
+DEFAULT_TREND_ARTIFACT = build_path("DETSAN.json")
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +200,9 @@ def main(argv=None) -> int:
                         help="max stored trace events per run")
     parser.add_argument("--out", default=None,
                         help="write the DETSAN artifact JSON here")
+    parser.add_argument("--append-trend", action="store_true",
+                        help="fold the artifact into the trend index "
+                        "(build/BENCH_TREND.json)")
     args = parser.parse_args(argv)
 
     print(f"detsan: clean run-twice ({args.nodes} nodes, "
@@ -239,12 +250,15 @@ def main(argv=None) -> int:
         "passed": passed,
     }
 
-    if args.out:
-        path = os.path.abspath(args.out)
-        with open(path, "w") as f:
-            json.dump(artifact, f, indent=2)
-            f.write("\n")
-        print(f"detsan: artifact -> {args.out}")
+    out = args.out or (DEFAULT_TREND_ARTIFACT if args.append_trend else None)
+    if out:
+        write_json(os.path.abspath(out), artifact, indent=2)
+        print(f"detsan: artifact -> {out}")
+
+    if args.append_trend:
+        from mysticeti_tpu_torch.tools.bench_trend import append_artifact
+
+        print(f"detsan: trend index: {append_artifact(os.path.abspath(out))} new record(s)")
 
     print(f"detsan: {'PASS' if passed else 'FAIL'}")
     return 0 if passed else 1

@@ -22,12 +22,15 @@ run before any node starts.
 Usage:
     python -m mysticeti_tpu_torch.tools.perf_attr --round 14   # 4 nodes, 45 s, cuda-only
     python -m mysticeti_tpu_torch.tools.perf_attr --committee-size 4 \\
-        --duration 60 --verifier cpu --out PERF_ATTR_r14.json
+        --duration 60 --verifier cpu --out build/PERF_ATTR_r14.json
 
-The artifact lands in the repository root, with the host-weather block
-(``orchestrator.hostmon``) where psutil is installed.  Left out against the
-JAX tool: the BENCH_TREND.json append, which comes with the port's trend
-tool.
+The artifact lands under the checkout's ``build/`` (``build/PERF_ATTR.json``,
+or ``build/PERF_ATTR_rNN.json`` with ``--round``; a relative ``--out`` is
+taken from the repository root), with the host-weather block
+(``orchestrator.hostmon``) where psutil is installed, and is folded into the
+port's trend index (``tools.bench_trend.append_artifact``,
+``build/BENCH_TREND.json``, each record with the card's name and power limit;
+skipped where there is no card, and with ``--no-trend``).
 """
 from __future__ import annotations
 
@@ -47,8 +50,9 @@ from mysticeti_tpu_torch.config import (
     Parameters,
 )
 from mysticeti_tpu_torch.orchestrator.measurement import iter_series
+from mysticeti_tpu_torch.tools import REPO as _REPO
+from mysticeti_tpu_torch.tools import build_path, write_json
 
-_REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 NODE_COMMAND = (sys.executable, "-m", "mysticeti_tpu_torch")
 
 
@@ -432,7 +436,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--tps", type=int, default=100,
                         help="offered load per node (generator tx/s)")
     parser.add_argument("--verifier", default=DEFAULT_VERIFIER)
-    parser.add_argument("--working-dir", default="perf-attr-testbed")
+    parser.add_argument("--working-dir", default=build_path("perf-attr-testbed"))
     parser.add_argument("--scrape-interval", type=float, default=5.0)
     parser.add_argument("--port-base", type=int, default=DEFAULT_PORT_BASE,
                         help="node i listens on BASE+i and serves /metrics "
@@ -440,7 +444,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--round", type=int, default=None,
                         help="bench round number (names the artifact "
                         "PERF_ATTR_rNN.json)")
-    parser.add_argument("--out", default=None)
+    parser.add_argument("--out", default=None,
+                        help="artifact path (default build/PERF_ATTR.json, "
+                        "build/PERF_ATTR_rNN.json with --round)")
+    parser.add_argument("--no-trend", action="store_true",
+                        help="skip the trend index append")
     return parser
 
 
@@ -448,20 +456,21 @@ def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     out = args.out
     if out is None:
-        out = (
+        out = os.path.join("build", (
             f"PERF_ATTR_r{args.round:02d}.json"
             if args.round is not None
             else "PERF_ATTR.json"
-        )
+        ))
     out = os.path.join(_REPO, out) if not os.path.isabs(out) else out
 
     doc = run_fleet(args)
-    tmp = f"{out}.tmp"
-    with open(tmp, "w") as f:
-        json.dump(doc, f, indent=1, sort_keys=True)
-        f.write("\n")
-    os.replace(tmp, out)
+    write_json(out, doc, indent=1, sort_keys=True)
     print(f"wrote {out}", file=sys.stderr)
+    if not args.no_trend:
+        from mysticeti_tpu_torch.tools.bench_trend import append_artifact
+
+        added = append_artifact(out)
+        print(f"trend index: {added} new record(s)", file=sys.stderr)
 
     print(json.dumps(
         {

@@ -24,14 +24,15 @@ one; ``sim-oracle`` is the JAX tool's default, the sim re-sign oracle.
 
 Usage::
 
-    python -m mysticeti_tpu_torch.tools.scenario_matrix [--out SCENARIO_r12.json] [--quick]
+    python -m mysticeti_tpu_torch.tools.scenario_matrix [--out build/SCENARIO_r12.json] [--quick]
         [--verifier sim-oracle]
+
+The default ``--out`` lies under the checkout's ``build/``.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import sys
 import time
 
@@ -43,6 +44,9 @@ from mysticeti_tpu_torch.scenarios import (
     run_scenario,
     scenario_by_name,
 )
+from mysticeti_tpu_torch.tools import build_path, write_json
+
+DEFAULT_OUT = build_path("SCENARIO_r12.json")
 
 
 def determinism_leg(name: str, quick: bool, verifier: str, device=None) -> dict:
@@ -67,7 +71,7 @@ def determinism_leg(name: str, quick: bool, verifier: str, device=None) -> dict:
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--out", default="SCENARIO_r12.json")
+    parser.add_argument("--out", default=DEFAULT_OUT)
     parser.add_argument("--quick", action="store_true",
                         help="shortened scenarios (smoke, not acceptance)")
     parser.add_argument("--scenario", default=None,
@@ -118,9 +122,7 @@ def main(argv=None) -> int:
             scenarios[0].name, args.quick, args.verifier, args.device
         )
         print(f"byte_identical: {doc['determinism']['byte_identical']}")
-    with open(args.out, "w", encoding="utf-8") as f:
-        json.dump(doc, f, indent=1, sort_keys=True)
-        f.write("\n")
+    write_json(args.out, doc, indent=1, sort_keys=True)
     print(f"wrote {args.out} ({doc['passed']} passed, {doc['failed']} failed)")
     # The determinism leg gates the exit code too: a byte_identical=false
     # run is a regression even when every scenario verdict passes.

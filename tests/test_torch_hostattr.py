@@ -78,8 +78,8 @@ def test_registry_extends_the_jax_packages():
     """The port's registry is the JAX package's plus the port's own modules
     (the CUDA wrappers and their build as ``verifier-pack``, the
     entries, the benchmark, the flamegraph CLI, the attribution probe, the
-    scenario-matrix probe, the lint's alias and the trace and fleet-health
-    tools as ``tooling``); the overrides, waiting leaves and subsystem names
+    scenario-matrix probe, the lint's alias, the trace and fleet-health
+    tools and the kernel and storage tools as ``tooling``); the overrides, waiting leaves and subsystem names
     are the JAX package's."""
     jax = _mod("mysticeti_tpu", "profiling")
     assert {k: v for k, v in SUBSYSTEMS.items() if k in jax.SUBSYSTEMS} == jax.SUBSYSTEMS
@@ -87,7 +87,10 @@ def test_registry_extends_the_jax_packages():
         "ed25519_cuda": "verifier-pack", "cuda_build": "verifier-pack",
         "entry": "tooling", "bench": "tooling", "mkflamegraph": "tooling",
         "perf_attr": "tooling", "scenario_matrix": "tooling", "lint": "tooling",
-        "trace_report": "tooling", "fleet_trace": "tooling", "fleetmon": "tooling"}
+        "trace_report": "tooling", "fleet_trace": "tooling", "fleetmon": "tooling",
+        "kernel_parity": "tooling", "bench_probe": "tooling", "mesh_scaling": "tooling",
+        "bench_trend": "tooling", "wal_inspect": "tooling", "storage_probe": "tooling",
+        "commit_explain": "tooling"}
     assert FRAME_SUBSYSTEMS == jax.FRAME_SUBSYSTEMS
     assert profiling.WAITING_LEAVES == jax.WAITING_LEAVES
     assert SUBSYSTEM_NAMES == jax.SUBSYSTEM_NAMES
