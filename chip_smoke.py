@@ -302,7 +302,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    orchestrator runs it: the port's ``Orchestrator`` over its
    ``LocalProcessRunner(verifier="cuda-only", transaction_size=512)`` and a
    ``ParametersGenerator`` of two fixed loads, 10,000 and 30,000
-   transactions a second over the 10 nodes, 12 s a run, every node scraped
+   transactions a second over the 10 nodes (the whole script runs the
+   10,000 one alone, ``ORCHESTRATOR_SCRIPT_LOADS``), 12 s a run, every node scraped
    every 4 s (``Measurement.from_prometheus``, the host sample, the health
    snapshot); each run's genesis on config 3's ports or a free base, ten
    ``python -m mysticeti_tpu_torch run`` processes behind one verifier
@@ -311,10 +312,10 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    unchanged; around its steps the phase reads the card's compute processes
    (``nvidia-smi --query-compute-apps``) before each run and at every
    scrape, each node's last ``/metrics``, and the service's launch counts
-   (through a ``sitecustomize`` the phase puts on the children's
-   ``PYTHONPATH``: SIGUSR1 makes the service write them) once it is warm,
-   before the first node boots, and once every node is killed, before the
-   runner kills the service.  Checks, each run: every node scraped at least
+   (through ``FLEET_HOOK``, a ``sitecustomize`` the phase puts on the
+   children's ``PYTHONPATH``: the service snapshots them once it is warm,
+   before the first node boots, and writes them when the runner's
+   ``cleanup`` stops it with SIGTERM, once every node is killed).  Checks, each run: every node scraped at least
    twice; a benchmark duration and tps above 0 and a finite average
    latency; ``measurements-<i>.json`` written and loading back equal; the
    last health sample reaching every node; no invalid block and no batch
@@ -411,12 +412,54 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    orchestrator-10's
    10,000 tx/s run while it runs, ``--last 10`` then ``--skips`` (exit 0,
    every explanation naming its commit rule).
+23. Fleet benches: the port's load and catch-up fleet benches as users run
+   them, each ``python -m mysticeti_tpu_torch.tools.<name>`` in a child on a
+   free port base, its document under ``build/chip_smoke/``
+   (``FLEET_BENCH_RUNS``): maxload-4 (``maxload_bench --verifiers cuda-only
+   --nodes 4 --start-load 400 --iterations 1 --duration 8``, with its same-
+   window cpu reference probe), chipwindow-4 (``chip_window_ab --card-flavor
+   cuda-only``, one 8 s iteration a kind), node-bench-4 (``node_bench
+   --verifiers cuda-only``, 200 tx/s for 8 s, then the saturation of 5 x
+   4,096 signatures), catchup-7 (``catchup_bench --verifiers cuda-only``, 7
+   nodes at 3,200 tx/s, node 6 down 10 s) and overload-4 (``overload_bench
+   --verifier cuda-only --base-load OVERLOAD_BASE_LOAD --multipliers 1 3``,
+   15 s rungs, then the seeded determinism leg); then ``bench_trend --repo
+   build/chip_smoke``.  A ``sitecustomize`` on the tools' ``PYTHONPATH``
+   (``FLEET_HOOK``) makes each verifier service the runner starts snapshot
+   its launch counts once warm and write them when the runner's ``cleanup``
+   stops it (SIGTERM), and makes a node report if it ever initializes CUDA;
+   the script samples ``nvidia-smi --query-compute-apps`` every second while
+   a tool runs.  Checks, each tool: it exits 0 (``overload_bench`` 3 only
+   when its own acceptance reads a collapse) and its document loads; every
+   probe, run and rung has tps above 0 and a finite latency (catch-up: a
+   steady tps above 0); every fleet's last scrape reached every node and
+   counted no batch degraded to the CPU oracle and no invalid block; no node
+   initialized CUDA; one verifier service a card fleet, each warm on the
+   card, launching the prologue and the keyed kernel once a dispatch and the
+   generic kernel never (a cuda-only tool's services at least once a node
+   flush); the card never held more contexts than this script's, the tool's
+   own (its prewarm) and one a live service.  node-bench-4: the saturation's
+   every verdict true, prologue = keyed = its 6 calls, generic 0, in the
+   tool's process.  catchup-7: the rebooted node caught up within the tool's
+   timeout, verified directly (skipped 0) and the fleet's health snapshot
+   after recovery reached every node.  overload-4: the determinism leg byte
+   identical and equal to ``OVERLOAD_SEEDED``; every rung's admitted and
+   intake-shed transactions equal to what its nodes' load generators
+   submitted (``mysticeti_client_submitted_total``), and above 0.
+   bench_trend: exit 0 and the MAXLOAD, MAXLOAD_TAX and OVERLOAD records
+   scored, each tagged with the card its document names.  Prints the peaks,
+   where each search ran out of capacity, the same-window ratios, the
+   catch-up's three times and the rebooted node's live lanes a flush, the
+   rungs' committed over offered and submitted over nominal offered,
+   node_bench's committed tx/s and sig/s, and the step's seconds.
 Each path of steps 3-20 (the block path and the committee dispatch of step 3
 apart) runs with every launch count set to 0 just before it and read just
 after (node-proc-10's in its processes, from each verifier's ``ready``;
 byzantine-10's for each twin; orchestrator-10's on its verifier service, from
-its warm state; step 22's in each tool's own process, which reports them);
-every kernel must have launched on some path.
+its warm state; step 22's in each tool's own process, which reports them;
+step 23's on each tool's verifier services, from their warm state, and the
+saturation's in node_bench's process); every kernel must have launched on
+some path.
 The whole script skips the ``cpu`` control run of steps 11, 13, 14, 15,
 netsync-50 of step 12 and health-sim-10 of step 16: their seeded constants
 (``CONSENSUS_SEEDED``, ``NETSYNC_SEEDED``, ``STORAGE_SEEDED``,
@@ -424,7 +467,7 @@ netsync-50 of step 12 and health-sim-10 of step 16: their seeded constants
 there (each ``<phase>_only`` keeps the control and its comparison; the
 consensus and netsync-50 counts carry a digest of every node's committed
 sequence and own blocks, which the control compared).
-23. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+24. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Every phase runs under ``PYTHONHASHSEED=0`` (``main`` runs the command
@@ -439,7 +482,9 @@ One phase alone: ``python3 -c 'import chip_smoke as c; raise
 SystemExit(c.main(c.receive_only))'`` (likewise ``consensus_only``,
 ``net_sync_only``, ``storage_only``, ``epoch_only``, ``ingress_only``,
 ``health_only``, ``node_only``, ``orchestrator_only``, ``byzantine_only``,
-``tools_only`` (step 22's standalone tools, after the bench), and
+``tools_only`` (step 22's standalone tools, after the bench),
+``fleet_benches_only`` (step 23's runs, then each fleet bench at its own
+defaults, ``FLEET_BENCH_DEFAULTS``), and
 ``sharded_only`` for a
 host with several cards).  Not
 in the default run: ``receive_split`` (where the receive burst's host time
@@ -806,6 +851,10 @@ NODE_10 = {"n": 10, "tps": 1000, "transaction_size": 512, "exit_after_s": 12.0,
 ORCHESTRATOR_10 = {"n": 10, "loads": (10000, 30000), "duration_s": 12.0, "scrape_s": 4.0,
                    "transaction_size": 512, "verifier": "cuda-only", "port_base": 1500,
                    "min_scrapes": 2}
+# The whole script runs orchestrator-10's 10,000 tx/s run alone (traced, step
+# 19), to make room for step 23, whose overload-4 3x rung offers 103,635 tx/s
+# to a card fleet; ``orchestrator_only`` keeps both loads.
+ORCHESTRATOR_SCRIPT_LOADS = (10000,)
 # Step 19 (watch and trace the fleet) rides on orchestrator-10's 10,000 tx/s
 # run: its nodes trace to ``<working dir>/trace-%p.json``, and the port's
 # ``fleetmon`` watches the run as its docstring tells users to watch an
@@ -891,6 +940,72 @@ STORAGE_PROBE_SEEDED = {
                     "replay_fraction": 0.0246, "replay_start": 579593, "replayed_bytes": 23360},
         "virtual_duration_s": 20.0,
     },
+}
+# The fleet benches step (step 23): the port's load and catch-up fleet
+# benches as users run them, each ``python -m mysticeti_tpu_torch.tools.<name>``
+# in a child on ``FLEET_NODES`` validators (catch-up: 7, the JAX tool's
+# default), their documents under ``TOOLS_DIR`` as ``bench_trend`` reads
+# them.  Every cut is a depth cut of the tool's own shape: maxload-4 one
+# search iteration of 8 s (the tool's 7 of 30 s), its cpu reference probe
+# kept; chipwindow-4 one iteration a kind of 8 s (5 of 20 s); node-bench-4 the
+# card fleet alone for 8 s (40 s; the cpu fleet is left to
+# ``fleet_benches_only`` and tier-1), then the saturation at its 4,096-lane
+# batch; catchup-7 one kind, node 6 down 10 s (45 s); overload-4 no
+# calibration rung, the 1x and 3x rungs of 15 s (four of 30 s) at
+# ``OVERLOAD_BASE_LOAD``, then the seeded determinism leg.  A fleet's first
+# commit comes ~4.5 s after its nodes boot (they dial each other with
+# backoff), and its tps counts whole seconds from there: 6 s windows read 0.
+# At overload-4's loads the first transactions commit ~5.5-6.5 s after they
+# are submitted, so its 8 s rungs read 0 on the card: they take 15 s.
+FLEET_NODES = 4
+# The 1x load of overload-4: what the tool's calibration rung (120,000 tx/s
+# offered, 30 s) committed on the ``cuda-only`` kind in ``fleet_benches_only``
+# on an H100 80GB HBM3 at 700 W, 34,545.5 tx/s (PERF.md section 5).
+OVERLOAD_BASE_LOAD = 34545
+FLEET_BENCH_RUNS = (
+    ("maxload-4", "maxload_bench", "MAXLOAD_r19.json",
+     ("--verifiers", "cuda-only", "--nodes", "4", "--start-load", "400", "--iterations", "1",
+      "--duration", "8")),
+    ("chipwindow-4", "chip_window_ab", "MAXLOAD_TAX_r19.json",
+     ("--card-flavor", "cuda-only", "--nodes", "4", "--iterations", "1", "--duration", "8")),
+    ("node-bench-4", "node_bench", "NODE_BENCH_r19.json",
+     ("--verifiers", "cuda-only", "--nodes", "4", "--load", "200", "--duration", "8")),
+    ("catchup-7", "catchup_bench", "CATCHUP_r19.json",
+     ("--verifiers", "cuda-only", "--nodes", "7", "--load", "3200", "--down", "10")),
+    ("overload-4", "overload_bench", "OVERLOAD_r19.json",
+     ("--verifier", "cuda-only", "--nodes", "4", "--base-load", str(OVERLOAD_BASE_LOAD),
+      "--multipliers", "1", "3", "--duration", "15")),
+)
+# ``fleet_benches_only`` also runs each tool once at its own defaults (the
+# card kinds where the tool defaults to another; catch-up over four kinds):
+# the recorded readings of the port's fleet benches, not part of the whole
+# script.  The two max-load searches start higher than the tools' 400 tx/s:
+# from 400, 7 doublings reach 25,600 and 5 reach 6,400, and every probe of
+# both kinds kept up there on the card's host, so neither search bisected.
+# From 12,800 (3,200) the third probe doubles past the overload ladder's
+# saturation, 34,545 tx/s, and the rest bisect.  ``catchup-repeat`` runs the
+# ``cuda-only`` kind twice around a ``cpu`` run in one call, to tell a steady
+# state of its own from the weather.
+FLEET_BENCH_DEFAULTS = (
+    ("maxload", "maxload_bench", "MAXLOAD_r19.json",
+     ("--verifiers", "cpu", "cuda-only", "--start-load", "12800")),
+    ("chipwindow", "chip_window_ab", "MAXLOAD_TAX_r19.json", ("--start-load", "3200")),
+    ("node-bench", "node_bench", "NODE_BENCH_r19.json", ()),
+    ("catchup", "catchup_bench", "CATCHUP_r19.json",
+     ("--verifiers", "cpu", "cpu-agg", "cuda-only", "cuda-agg", "--down", "45")),
+    ("catchup-repeat", "catchup_bench", "CATCHUP_REPEAT_r19.json",
+     ("--verifiers", "cuda-only", "cpu", "cuda-only", "--down", "45")),
+    ("overload", "overload_bench", "OVERLOAD_r19.json", ()),
+)
+# ``overload_bench.run_determinism_leg()``'s seeded readings (the same on any
+# host: a virtual-time sim), which every run must reproduce;
+# ``tests/test_torch_overload_bench.py`` recomputes them and holds them equal
+# to the JAX tool's leg.
+OVERLOAD_SEEDED = {
+    "shed_schedule_digest": "ff0aa3a625b5976c17e81e66fb2b017cd0bd1a70d61a6cb630181a5a162b4e1a",
+    "sim_committed_1x": 13680, "sim_committed_3x": 13680, "sim_offered_3x": 44760,
+    "sim_admitted_3x": 15683,
+    "sim_shed_by_reason_3x": {"admission": 22776, "duplicate": 420, "mempool_transactions": 5881},
 }
 HASH_SEED = "0"
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -5252,32 +5367,98 @@ def node_phase(kernels, config=None):
 # -- the orchestrator phase: config 3's fleet through the port's Orchestrator -
 
 
-# Written by ``orchestrator_phase`` as ``sitecustomize.py`` into a directory
-# it puts first on the children's ``PYTHONPATH``: in the verifier service the
-# runner starts (and in no other process) SIGUSR1 writes the kernels' launch
-# counts and whether CUDA is initialized to ``$SMOKE_LAUNCH_DIR/<pid>.json``;
-# every child then runs the site's own ``sitecustomize`` if there is one.
-LAUNCH_HOOK = '''"""Launch reporter of chip_smoke.py's orchestrator phase."""
+# Written by ``orchestrator_phase`` and ``fleet_benches_phase`` as
+# ``sitecustomize.py`` into a directory they put first on their children's
+# ``PYTHONPATH`` (so on the verifier services' and nodes' a runner starts), with ``SMOKE_FLEET_DIR`` naming where the reports go: a
+# verifier service writes ``service-<pid>.start.json`` at start, snapshots its
+# launch counts once its warm-up and calibration are done, and on SIGTERM
+# (the runner's ``cleanup``) waits half a second for its in-flight dispatches,
+# writes ``service-<pid>.json`` (the counts then, the warm snapshot, whether
+# CUDA is initialized) and exits; a node (``python -m mysticeti_tpu_torch
+# run``) writes ``node-<pid>.start.json`` and, should it ever initialize
+# CUDA, ``node-<pid>.cuda.json``.  Every child then runs the site's own
+# ``sitecustomize``.
+FLEET_HOOK = '''"""Launch and context reporter of chip_smoke.py's fleet phases."""
 import os
 import sys
 
-_dir = os.environ.get("SMOKE_LAUNCH_DIR")
-if _dir and "verifier-service" in sys.orig_argv:
+_dir = os.environ.get("SMOKE_FLEET_DIR")
+
+
+def _write(name, doc):
     import json
+
+    path = os.path.join(_dir, name)
+    with open(path + ".tmp", "w") as f:
+        json.dump(doc, f)
+    os.replace(path + ".tmp", path)
+
+
+def _counts():
+    kernels = sys.modules.get("mysticeti_tpu_torch.ops.ed25519_cuda")
+    return {k.name: k.launches for k in kernels.KERNELS} if kernels else {}
+
+
+def _cuda_initialized():
+    torch = sys.modules.get("torch")
+    return bool(torch is not None and torch.cuda.is_initialized())
+
+
+if _dir and "verifier-service" in sys.orig_argv:
     import signal
+    import time
 
-    def _report(signum, frame):
-        kernels = sys.modules.get("mysticeti_tpu_torch.ops.ed25519_cuda")
-        torch = sys.modules.get("torch")
-        doc = {"pid": os.getpid(),
-               "launches": {k.name: k.launches for k in kernels.KERNELS} if kernels else {},
-               "cuda_initialized": bool(torch is not None and torch.cuda.is_initialized())}
-        path = os.path.join(_dir, f"{os.getpid()}.json")
-        with open(path + ".tmp", "w") as f:
-            json.dump(doc, f)
-        os.replace(path + ".tmp", path)
+    _state = {"pid": os.getpid(), "start": time.time(), "warm": None}
+    _write(f"service-{os.getpid()}.start.json", _state)
 
-    signal.signal(signal.SIGUSR1, _report)
+    class _WarmTap:
+        """Wraps ``VerifierServer._calibrate`` (the end of the service's
+        warm-up) when the module loads: every later launch serves a node."""
+
+        def find_spec(self, name, path=None, target=None):
+            if name != "mysticeti_tpu_torch.verifier_service":
+                return None
+            import importlib.machinery
+
+            sys.meta_path.remove(self)
+            spec = importlib.machinery.PathFinder.find_spec(name, path)
+            load = spec.loader.exec_module
+
+            def exec_module(module):
+                load(module)
+                calibrate = module.VerifierServer._calibrate
+
+                def tapped(server):
+                    calibrate(server)
+                    _state["warm"] = _counts()
+
+                module.VerifierServer._calibrate = tapped
+
+            spec.loader.exec_module = exec_module
+            return spec
+
+    sys.meta_path.insert(0, _WarmTap())
+
+    def _stop(signum, frame):
+        time.sleep(0.5)
+        _write(f"service-{os.getpid()}.json",
+               dict(_state, end=time.time(), final=_counts(),
+                    cuda_initialized=_cuda_initialized()))
+        os._exit(0)
+
+    signal.signal(signal.SIGTERM, _stop)
+elif _dir and sys.orig_argv[1:4] == ["-m", "mysticeti_tpu_torch", "run"]:
+    import threading
+    import time
+
+    _write(f"node-{os.getpid()}.start.json", {"pid": os.getpid(), "start": time.time()})
+
+    def _watch():
+        while not _cuda_initialized():
+            time.sleep(0.5)
+        _write(f"node-{os.getpid()}.cuda.json", {"pid": os.getpid(), "t": time.time()})
+
+    threading.Thread(target=_watch, daemon=True).start()
 
 
 def _chain():
@@ -5293,31 +5474,27 @@ def _chain():
 
 _chain()
 '''
-
-
-async def compute_apps() -> list:
+def compute_apps() -> list:
     """``nvidia-smi --query-compute-apps=pid,used_memory`` as a list of lines:
     one a process holding a context on the card.  (On the card's machine
-    every pid reads 1, from another pid namespace, so the phase counts
+    every pid reads 1, from another pid namespace, so the phases count
     lines.)"""
-    proc = await asyncio.create_subprocess_exec(
-        "nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader",
-        stdout=asyncio.subprocess.PIPE, stderr=asyncio.subprocess.PIPE)
-    out, err = await asyncio.wait_for(proc.communicate(), 30)
-    check(proc.returncode == 0, f"nvidia-smi --query-compute-apps exited {proc.returncode}: "
-                                f"{err.decode(errors='replace')[-500:]}")
-    return [line.strip() for line in out.decode().splitlines() if line.strip()]
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=30)
+    check(out.returncode == 0, f"nvidia-smi --query-compute-apps exited {out.returncode}: "
+                               f"{out.stderr[-500:]}")
+    return [line.strip() for line in out.stdout.splitlines() if line.strip()]
 
 
 def runner_tap(runner_cls):
     """``runner_cls`` (the port's ``LocalProcessRunner``) with readings taken
-    around its own steps, which it runs unchanged: after ``configure`` (the
-    verifier service warm, no node yet) the service's launch counts; with
-    each tick's host sample the card's compute processes; each node's pid,
-    its last ``/metrics`` text and the wall time of the run's last scrape;
-    and in ``cleanup``, after the nodes are killed and the service has had a
-    moment to answer their last requests, the service's launch counts again,
-    before the runner kills it.  ``watch`` is ``WATCH_10`` with the run's
+    around its own steps, which it runs unchanged: with each tick's host
+    sample the card's compute processes; each node's pid, its last
+    ``/metrics`` text and the wall time of the run's last scrape; and in
+    ``cleanup``, after the nodes are killed and the service has had a moment
+    to answer their last requests, the report ``FLEET_HOOK`` made the
+    service write in ``report_dir`` when the runner stopped it (its launch
+    counts once warm, before any node booted, and at the stop).  ``watch`` is ``WATCH_10`` with the run's
     length: the run of its load is step 19's: its nodes boot with
     ``MYSTICETI_TRACE`` set (after the service has started, which so traces
     nothing) and ``timestamp_frames`` on in the parameters file, the port's
@@ -5325,36 +5502,21 @@ def runner_tap(runner_cls):
     ``cleanup`` waits for it to end before the nodes are killed."""
 
     class RunnerTap(runner_cls):
-        def __init__(self, *args, launch_dir, watch, **kwargs):
+        def __init__(self, *args, report_dir, watch, **kwargs):
             super().__init__(*args, **kwargs)
-            self.launch_dir = launch_dir
+            self.report_dir = report_dir
             self.watch = watch
             self.runs = []
-
-        async def service_launches(self) -> dict:
-            import signal
-
-            pid = self._verifier_service.pid
-            path = os.path.join(self.launch_dir, f"{pid}.json")
-            if os.path.exists(path):
-                os.unlink(path)
-            os.kill(pid, signal.SIGUSR1)
-            for _ in range(200):
-                if os.path.exists(path):
-                    with open(path) as f:
-                        return json.load(f)
-                await asyncio.sleep(0.05)
-            raise SmokeFailure(f"the verifier service (pid {pid}) wrote no launch counts")
 
         async def configure(self, committee_size, load_tx_s=0):
             # The card's processes before the fleet; after a first run, once
             # its killed service has left the card.
-            apps = await compute_apps()
+            apps = await asyncio.to_thread(compute_apps)
             for _ in range(60):
                 if not self.runs or len(apps) <= len(self.runs[0]["apps_before"]):
                     break
                 await asyncio.sleep(0.5)
-                apps = await compute_apps()
+                apps = await asyncio.to_thread(compute_apps)
             t0 = time.monotonic()
             await super().configure(committee_size, load_tx_s)
             check(self._verifier_service is not None,
@@ -5369,7 +5531,7 @@ def runner_tap(runner_cls):
                 os.environ["MYSTICETI_TRACE"] = os.path.join(self.working_dir, "trace-%p.json")
             self.runs.append({"load": load_tx_s, "apps_before": apps,
                               "service_boot_s": time.monotonic() - t0,
-                              "warm": await self.service_launches(), "ticks": [],
+                              "service_pid": self._verifier_service.pid, "ticks": [],
                               "texts": {}, "t0": time.monotonic(), "traced": traced,
                               "pids": {}})
 
@@ -5411,7 +5573,7 @@ def runner_tap(runner_cls):
 
         async def host_sample(self):
             if self.runs:
-                self.runs[-1]["ticks"].append(await compute_apps())
+                self.runs[-1]["ticks"].append(await asyncio.to_thread(compute_apps))
             return await super().host_sample()
 
         async def explain_commits(self):
@@ -5436,14 +5598,18 @@ def runner_tap(runner_cls):
         async def cleanup(self):
             await self.await_fleetmon()
             await self.explain_commits()
-            if self._verifier_service is not None and self.processes:
+            run = self.runs[-1] if self.runs and self._verifier_service is not None else None
+            if run is not None:
                 for authority in list(self.processes):
                     await self.kill_node(authority)
                 await asyncio.sleep(1.0)
-                run = self.runs[-1]
-                run["final"] = await self.service_launches()
                 run["wall_s"] = time.monotonic() - run["t0"]
             await super().cleanup()
+            if run is not None:
+                path = os.path.join(self.report_dir, f"service-{run['service_pid']}.json")
+                check(os.path.exists(path), f"the verifier service (pid {run['service_pid']}) "
+                                            f"wrote no launch counts when it was stopped")
+                run["service"] = tool_doc(path)
 
     return RunnerTap
 
@@ -5490,9 +5656,11 @@ def orchestrator_run_checks(collection, run, path, config) -> dict:
     check(run["ticks"] and all(len(apps) == base + 1 for apps in run["ticks"]),
           f"{what}: compute processes on the card by tick {run['ticks']} (before the fleet "
           f"{run['apps_before']}): the verifier service must be the only one added")
-    warm, final = run["warm"]["launches"], run["final"]["launches"]
+    service = run["service"]
+    check(service["warm"] is not None and service["cuda_initialized"],
+          f"{what}: the verifier service never warmed on the card: {service}")
+    warm, final = service["warm"], service["final"]
     launches = {name: final.get(name, 0) - warm.get(name, 0) for name in final}
-    check(run["final"]["cuda_initialized"], f"{what}: the verifier service never initialized CUDA")
     check(launches.get("verify_generic", 0) == 0,
           f"{what}: the verifier service launched the generic kernel: {launches}")
     check(launches.get("prologue", 0) == launches.get("verify_keyed", 0) >= flushes > 0,
@@ -5701,29 +5869,29 @@ def orchestrator_phase(kernels, config=None, smoke_trace=None):
     n = config["n"]
     root = os.path.join(HERE, "build", "orchestrator-10")
     shutil.rmtree(root, ignore_errors=True)
-    wd, results, hook, launch_dir = (os.path.join(root, d) for d in (
-        "fleet", "results", "hook", "launches"))
-    for d in (wd, hook, launch_dir):
+    wd, results, hook, report_dir = (os.path.join(root, d) for d in (
+        "fleet", "results", "hook", "reports"))
+    for d in (wd, hook, report_dir):
         os.makedirs(d)
     with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
-        f.write(LAUNCH_HOOK)
+        f.write(FLEET_HOOK)
     port_base = free_port_base(n, config["port_base"])
     print(f"orchestrator-10: ports {port_base}+i" + (
         "" if port_base == config["port_base"] else
         f" (config 3's {config['port_base']}+i are in use)"), flush=True)
-    saved_env = {k: os.environ.get(k) for k in ("PYTHONPATH", "SMOKE_LAUNCH_DIR",
+    saved_env = {k: os.environ.get(k) for k in ("PYTHONPATH", "SMOKE_FLEET_DIR",
                                                 "MYSTICETI_NO_VERIFIER_SERVICE",
                                                 "MYSTICETI_TRACE")}
     saved_base = port_config.DEFAULT_PORT_BASE
     os.environ.update(PYTHONPATH=os.pathsep.join(
         [hook] + ([saved_env["PYTHONPATH"]] if saved_env["PYTHONPATH"] else [])),
-        SMOKE_LAUNCH_DIR=launch_dir)
+        SMOKE_FLEET_DIR=report_dir)
     for k in ("MYSTICETI_NO_VERIFIER_SERVICE", "MYSTICETI_TRACE"):
         os.environ.pop(k, None)
     port_config.DEFAULT_PORT_BASE = port_base
     runner = runner_tap(LocalProcessRunner)(
         wd, verifier=config["verifier"], transaction_size=config["transaction_size"],
-        launch_dir=launch_dir, watch=dict(WATCH_10, duration_s=config["duration_s"]))
+        report_dir=report_dir, watch=dict(WATCH_10, duration_s=config["duration_s"]))
     orchestrator = Orchestrator(
         runner, ParametersGenerator(n, LoadType.fixed(list(config["loads"])),
                                     duration_s=config["duration_s"]),
@@ -6238,6 +6406,311 @@ def tools_phase(kernels) -> tuple:
     return launches, reading
 
 
+# -- step 23: the load and catch-up fleet benches -----------------------------
+
+
+# A killed service's context may stay on nvidia-smi's list this long.
+SERVICE_GRACE_S = 3.0
+# Node and metrics ports a fleet bench's genesis takes (base+i, base+1000+i).
+FLEET_PORTS = 10
+
+
+def fleet_reports(report_dir: str) -> dict:
+    """What the hook's processes wrote under ``report_dir``."""
+    out = {"services": [], "service_starts": [], "nodes": 0, "node_cuda": []}
+    for name in sorted(os.listdir(report_dir)):
+        if not name.endswith(".json"):
+            continue
+        doc = tool_doc(os.path.join(report_dir, name))
+        if name.startswith("service-"):
+            out["service_starts" if name.endswith(".start.json") else "services"].append(doc)
+        elif name.endswith(".cuda.json"):
+            out["node_cuda"].append(doc)
+        elif name.startswith("node-"):
+            out["nodes"] += 1
+    return out
+
+
+def run_fleet_tool(name, module, out_name, args, hook, timeout, extra=()) -> dict:
+    """One fleet bench in a child, as a user runs it, with the hook on its
+    ``PYTHONPATH`` and its document at ``TOOLS_DIR/out_name``; samples the
+    card's compute processes every second while it runs.  Returns the run:
+    exit code, output tails, seconds, document, samples and the hook's
+    reports."""
+    import shutil
+    import threading
+
+    report_dir = os.path.join(TOOLS_DIR, "fleet-reports", name)
+    shutil.rmtree(report_dir, ignore_errors=True)
+    os.makedirs(report_dir)
+    out_path = os.path.join(TOOLS_DIR, out_name)
+    if os.path.exists(out_path):
+        os.unlink(out_path)
+    env = dict(os.environ, SMOKE_FLEET_DIR=report_dir,
+               BENCH_TREND_PATH=os.path.join(TOOLS_DIR, "BENCH_TREND.json"),
+               PYTHONPATH=os.pathsep.join([hook] + ([os.environ["PYTHONPATH"]]
+                                                   if os.environ.get("PYTHONPATH") else [])))
+    for k in ("MYSTICETI_NO_VERIFIER_SERVICE", "MYSTICETI_TRACE"):
+        env.pop(k, None)
+    port_base = free_port_base(FLEET_PORTS, 1500)
+    argv = [sys.executable, "-m", f"mysticeti_tpu_torch.tools.{module}", *args,
+            "--workdir", os.path.join(TOOLS_DIR, "fleets", name), "--out", out_path,
+            "--port-base", str(port_base), *extra]
+    before = len(compute_apps())
+    t0, wall0 = time.monotonic(), time.time()
+    proc = subprocess.Popen(argv, cwd=HERE, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+    result = {}
+    reader = threading.Thread(target=lambda: result.update(
+        zip(("out", "err"), proc.communicate())), daemon=True)
+    reader.start()
+    samples = []
+    while proc.poll() is None:
+        if time.monotonic() - t0 > timeout:
+            proc.kill()
+            break
+        samples.append((time.time(), len(compute_apps())))
+        time.sleep(1.0)
+    reader.join(60)
+    run = {"name": name, "module": module, "args": list(args), "port_base": port_base,
+           "rc": proc.wait(), "out": result.get("out", ""), "err": result.get("err", ""),
+           "seconds": time.monotonic() - t0, "window": [wall0, time.time()],
+           "apps_before": before, "samples": samples,
+           "doc": tool_doc(out_path) if os.path.exists(out_path) else None}
+    run.update(fleet_reports(report_dir))
+    return run
+
+
+def fleet_records(module, doc) -> list:
+    """(label, kind, nodes, record) of every fleet a tool's document records,
+    the record holding its ``fleet`` counters."""
+    out = []
+    if module in ("maxload_bench", "chip_window_ab"):
+        for run in doc["runs"]:
+            for probe in run["probes"]:
+                out.append((f"{run['verifier']} at {probe['offered_load_tx_s']}",
+                            run["verifier"], run["nodes"], probe))
+            ref = run.get("cpu_reference_probe")
+            if ref is not None:
+                out.append((f"cpu reference at {ref.get('offered_load_tx_s')}", "cpu",
+                            run["nodes"], ref))
+    elif module in ("node_bench", "catchup_bench"):
+        out = [(run["verifier"], run["verifier"], run["nodes"], run) for run in doc["runs"]]
+    elif module == "overload_bench":
+        out = [(f"{rung['multiplier']}x", doc["verifier"], doc["nodes"], rung)
+               for rung in doc["rungs"]]
+        if doc.get("calibration"):
+            out.insert(0, ("calibration", doc["verifier"], doc["nodes"], doc["calibration"]))
+    return out
+
+
+def fleet_bench_checks(run) -> dict:
+    """The checks of the module docstring, step 23, on one tool's run;
+    returns its readings (printed, not gated) and the launches its verifier
+    services and its own process counted."""
+    import math
+
+    name, module, doc = run["name"], run["module"], run["doc"]
+    rc_ok = run["rc"] == 0 or (
+        module == "overload_bench" and run["rc"] == 3 and doc is not None
+        and doc["acceptance"].get("no_collapse") is False
+        and doc["acceptance"]["sim_no_collapse"]
+        and doc["acceptance"]["shed_schedule_byte_identical"])
+    check(rc_ok and doc is not None,
+          f"{name}: the tool exited {run['rc']}: {run['out'][-1500:]}{run['err'][-1500:]}")
+    fleets = fleet_records(module, doc)
+    check(fleets, f"{name}: the document records no fleet")
+    card_fleets = [f for f in fleets if f[1].startswith("cuda")]
+    reading = {"seconds": run["seconds"], "fleets": len(fleets), "card_fleets": len(card_fleets)}
+    for label, kind, n, rec in fleets:
+        what = f"{name} {label}"
+        if module == "catchup_bench":
+            check(not rec.get("error") and rec.get("steady_tps", 0) > 0,
+                  f"{what}: {rec.get('error')}, steady tps {rec.get('steady_tps')}")
+        else:
+            tps = rec.get("tps", rec.get("committed_tx_s"))
+            latency = rec.get("avg_latency_s")
+            check(tps is not None and tps > 0 and latency is not None
+                  and math.isfinite(latency), f"{what}: tps {tps}, average latency {latency}")
+        fleet = rec["fleet"]
+        check(fleet["verifier_fallback"] == 0,
+              f"{what}: {fleet['verifier_fallback']} batches degraded to the CPU oracle")
+        check(fleet["invalid_blocks"] == 0, f"{what}: {fleet['invalid_blocks']} invalid blocks")
+        check(fleet["scraped_nodes"] == n,
+              f"{what}: {fleet['scraped_nodes']} of {n} nodes answered the last scrape")
+    # The card's processes: the tool's own (its prewarm) and, while a fleet
+    # runs, its one verifier service; no node opens a context.
+    check(not run["node_cuda"], f"{name}: nodes initialized CUDA: {run['node_cuda']}")
+    services = run["services"]
+    check(len(services) == len(run["service_starts"]) == len(card_fleets),
+          f"{name}: {len(run['service_starts'])} verifier services started and "
+          f"{len(services)} reported their launches at SIGTERM, for {len(card_fleets)} "
+          f"card fleets")
+    launches = {}
+    for svc in services:
+        check(svc["warm"] is not None and svc["cuda_initialized"],
+              f"{name}: verifier service {svc['pid']} never warmed on the card: {svc}")
+        counts = {k: v - svc["warm"].get(k, 0) for k, v in svc["final"].items()}
+        check(counts.get("verify_generic", 0) == 0,
+              f"{name}: verifier service {svc['pid']} launched the generic kernel: {counts}")
+        check(counts.get("prologue", 0) == counts.get("verify_keyed", 0),
+              f"{name}: verifier service {svc['pid']}'s launches {counts} are not one prologue "
+              f"and one keyed launch a dispatch")
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+    # Every flush of a cuda-only node is one request to the service; the
+    # hybrid (``cuda``) may route a fleet's small flushes all to the oracle.
+    flushes = sum(f[3]["fleet"]["flushes"] for f in card_fleets)
+    routed = [f for f in card_fleets if f[1] != "cuda"]
+    only = all(f[1] == "cuda-only" for f in card_fleets)
+    check(not routed or (launches.get("verify_keyed", 0) > 0 and (
+        not only or launches["verify_keyed"] >= flushes)),
+        f"{name}: the verifier services launched {launches} for the card fleets' "
+        f"{flushes} flushes")
+    top = max((count for _, count in run["samples"]), default=0)
+    for t, count in run["samples"]:
+        alive = sum(1 for svc in services
+                    if svc["start"] <= t <= svc.get("end", math.inf) + SERVICE_GRACE_S)
+        check(count <= run["apps_before"] + 1 + alive,
+              f"{name}: {count} compute processes on the card at {t:.1f} with "
+              f"{run['apps_before']} before the tool, {alive} verifier services alive: a node or "
+              f"a second service opened a context")
+    check(not card_fleets or top >= run["apps_before"] + 2,
+          f"{name}: the card never showed the tool's and a verifier service's contexts "
+          f"(at most {top} with {run['apps_before']} before)")
+    reading.update(service_launches=dict(launches), launches=launches,
+                   services=len(services), nodes=run["nodes"],
+                   compute_apps={"before": run["apps_before"], "max": top,
+                                 "samples": len(run["samples"])})
+    if module in ("maxload_bench", "chip_window_ab"):
+        reading["runs"] = [{k: r.get(k) for k in ("verifier", "max_sustainable_load_tx_s",
+                                                  "out_of_capacity_load_tx_s",
+                                                  "peak_committed_tx_s",
+                                                  "peak_vs_same_window_cpu")}
+                           for r in doc["runs"]]
+        for r in doc["runs"]:
+            if r["verifier"] != "cpu" and module == "maxload_bench":
+                check(r.get("peak_vs_same_window_cpu") is not None,
+                      f"{name}: {r['verifier']}'s same-window cpu probe read nothing")
+        if module == "chip_window_ab":
+            check(doc["backend"] == "cuda" and doc["tpu_over_cpu"] is not None and doc["card"],
+                  f"{name}: backend {doc['backend']}, ratio {doc['tpu_over_cpu']}, "
+                  f"card {doc['card']}")
+            reading["tpu_over_cpu"] = doc["tpu_over_cpu"]
+    elif module == "node_bench":
+        reading["runs"] = [{k: r[k] for k in ("verifier", "committed_tx_s", "avg_latency_s")}
+                           for r in doc["runs"]]
+        reading["saturation"] = []
+        for row in doc["verifier_saturation"]:
+            check(row["all_valid"], f"{name}: saturation {row['verifier']} rejected a valid "
+                                    f"signature")
+            if row["verifier"].startswith("cuda"):
+                counts = row["launches"]
+                calls = row["iterations"] + 1
+                check(counts["prologue"] == counts["verify_keyed"] == calls
+                      and counts["verify_generic"] == 0,
+                      f"{name}: saturation {row['verifier']} launched {counts} for {calls} calls "
+                      f"of {row['batch']} signatures")
+                for k, v in counts.items():
+                    launches[k] = launches.get(k, 0) + v
+            reading["saturation"].append({k: row[k] for k in ("verifier", "batch",
+                                                                "sig_per_sec", "launches")})
+    elif module == "catchup_bench":
+        reading["runs"] = []
+        for r in doc["runs"]:
+            what = f"{name} {r['verifier']}"
+            check(r.get("reboot_to_caught_up_s") is not None,
+                  f"{what}: the rebooted node did not catch up within the tool's timeout")
+            sigs = r.get("catchup_verification") or {}
+            check(sigs.get("direct", 0) + sigs.get("skipped", 0) > 0,
+                  f"{what}: the rebooted node verified nothing: {sigs}")
+            if r["verifier"] in ("cuda-only", "cpu", "cuda"):
+                check(sigs["direct"] > 0 and sigs["skipped"] == 0,
+                      f"{what}: direct {sigs['direct']}, skipped {sigs['skipped']}")
+            health = r.get("health_after_recovery") or {}
+            check(sorted(health.get("reachable", [])) == [str(a) for a in range(r["nodes"])],
+                  f"{what}: the health snapshot after recovery reached "
+                  f"{health.get('reachable')}")
+            victim = r["victim_at_finish"]
+            reading["runs"].append({
+                "verifier": r["verifier"], "backlog_rounds": r.get("backlog_rounds"),
+                **{k: r.get(k) for k in ("reboot_to_metrics_s", "reboot_to_first_verify_s",
+                                         "reboot_to_caught_up_s", "first_verify_measures")},
+                "catchup_verification": sigs,
+                "victim_live_lanes": (victim["dispatched_lanes"] / victim["flushes"]
+                                      if victim["flushes"] else 0.0),
+                "victim_flushes": victim["flushes"], "health": health.get("status")})
+    elif module == "overload_bench":
+        det = doc["determinism"]
+        seeded = {"shed_schedule_digest": det["shed_schedule_digest_run1"],
+                  **{k: det[k] for k in OVERLOAD_SEEDED if k in det}}
+        check(det["byte_identical"]
+              and det["shed_schedule_digest_run1"] == det["shed_schedule_digest_run2"]
+              and seeded == OVERLOAD_SEEDED,
+              f"{name}: the determinism leg {seeded} (byte identical {det['byte_identical']}) "
+              f"differs from OVERLOAD_SEEDED")
+        from mysticeti_tpu_torch.tools.overload_bench import intake_sheds
+
+        reading["rungs"] = []
+        for rung in doc["rungs"]:
+            # The nodes' generators and ingress planes count on one event
+            # loop, which also serves the scrape: equal at every scrape.
+            taken = rung["admitted_total"] + intake_sheds(rung["shed_total"])
+            submitted = rung["fleet"]["submitted"]
+            check(submitted > 0 and taken == submitted,
+                  f"{name} {rung['multiplier']}x: admitted {rung['admitted_total']} + shed "
+                  f"{rung['shed_total']} against {submitted} submitted "
+                  f"({rung['offered_tx_s']} tx/s offered)")
+            reading["rungs"].append({k: rung[k] for k in (
+                "multiplier", "offered_tx_s", "committed_tx_s", "committed_over_offered",
+                "avg_latency_s", "admitted_total", "shed_total")})
+            reading["rungs"][-1].update(submitted=submitted, submitted_over_nominal=(
+                submitted / (rung["offered_tx_s"] * rung["seconds"])))
+        reading["acceptance"] = doc["acceptance"]
+        reading["exit_code"] = run["rc"]
+    return reading
+
+
+def fleet_benches_phase(kernels, runs=FLEET_BENCH_RUNS, timeout=300) -> tuple:
+    """Step 23: ``runs`` (name, tool, document name, arguments) each through
+    ``run_fleet_tool`` with the checks of the module docstring, then
+    ``bench_trend --repo TOOLS_DIR``.  Returns the launches of the tools'
+    verifier services (each from its warm state) and their own saturation
+    calls, and the readings."""
+    t0 = time.monotonic()
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+    hook = os.path.join(TOOLS_DIR, "fleet-hook")
+    os.makedirs(hook, exist_ok=True)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(FLEET_HOOK)
+    launches = {k.name: 0 for k in kernels}
+    readings = {"card": card_line()}
+    for name, module, out_name, args in runs:
+        run = run_fleet_tool(name, module, out_name, args, hook, timeout)
+        reading = fleet_bench_checks(run)
+        readings[name] = reading
+        for k, v in reading["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        print(f"fleet bench {name} (step 23): {json.dumps(reading)} [{readings['card']}]",
+              flush=True)
+    (rc, out, err), trend_s = run_tool("tools.bench_trend", "--repo", TOOLS_DIR)
+    check(rc == 0, f"bench_trend exited {rc}: {out[-2000:]}{err[-2000:]}")
+    index = tool_doc(os.path.join(TOOLS_DIR, "BENCH_TREND.json"))["records"]
+    sources = {out_name for _, _, out_name, _ in runs} & {
+        "MAXLOAD_r19.json", "MAXLOAD_TAX_r19.json", "OVERLOAD_r19.json"}
+    for source in sorted(sources):
+        records = [r for r in index if r.get("source") == source]
+        check(records and all(r.get("card") and r.get("value") is not None for r in records),
+              f"bench_trend: {source}'s records {records}")
+    readings["bench_trend"] = {"seconds": trend_s, "records": {
+        source: len([r for r in index if r.get("source") == source]) for source in sources}}
+    readings["step_s"] = time.monotonic() - t0
+    print(f"fleet benches (step 23): {len(runs)} tools, bench_trend scored "
+          f"{readings['bench_trend']['records']}; the step {readings['step_s']:.1f} s "
+          f"[{readings['card']}]", flush=True)
+    return launches, readings
+
+
 def build_and_report(K, cuda_build) -> None:
     """Build every kernel source (one nvcc each, in parallel); print the
     build time and ptxas's register, stack and spill lines."""
@@ -6309,10 +6782,12 @@ def run() -> int:
                                                                        control=False)
     by_path["node_proc"], by_path["node_svc"], node = node_phase(K.KERNELS)
     by_path["orchestrator"], orchestrator = orchestrator_phase(
-        K.KERNELS, smoke_trace=metrics_reading["trace"]["path"])
+        K.KERNELS, dict(ORCHESTRATOR_10, loads=ORCHESTRATOR_SCRIPT_LOADS),
+        smoke_trace=metrics_reading["trace"]["path"])
     by_path["byzantine"], byzantine = byzantine_phase(K.KERNELS)
     bench = bench_phase()
     by_path["tools"], tools = tools_phase(K.KERNELS)
+    by_path["fleet_benches"], fleet_benches = fleet_benches_phase(K.KERNELS)
     # The block path's flushes take the keyed kernel, one key per lane, and
     # never the generic one; the committee dispatch's 8 stragglers take the
     # generic kernel once.
@@ -6351,7 +6826,8 @@ def run() -> int:
                       "ingress": ingress, "health": health, "node": node,
                       "orchestrator": orchestrator, "byzantine": byzantine,
                       "metrics": metrics_reading,
-                      "bench": bench, "tools": tools}), flush=True)
+                      "bench": bench, "tools": tools, "fleet_benches": fleet_benches}),
+          flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6383,6 +6859,45 @@ def tools_only() -> int:
     bench = bench_phase()
     launches, reading = tools_phase(K.KERNELS)
     print(json.dumps({"tools": reading, "launches": launches, "bench": bench}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def fleet_benches_only(only=None) -> int:
+    """Step 23's runs, then each fleet bench once at its own defaults
+    (``FLEET_BENCH_DEFAULTS``, the recorded readings), every run checked as
+    step 23 checks it: ``python3 -c 'import chip_smoke as c; raise
+    SystemExit(c.main(c.fleet_benches_only))'``; ``only`` names the runs of
+    either table to take (``c.main(c.fleet_benches_only, ("maxload",
+    "overload-4"))``).  A run that fails is printed and the others still
+    run; exits 1 when any failed."""
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    fresh_tools_dir()
+    results, failures = {}, []
+    for label, runs, timeout in (("step 23", FLEET_BENCH_RUNS, 300),
+                                 ("defaults", FLEET_BENCH_DEFAULTS, 2400)):
+        for run in runs:
+            if only is not None and run[0] not in only:
+                continue
+            try:
+                launches, reading = fleet_benches_phase(K.KERNELS, (run,), timeout)
+                results[f"{label} {run[0]}"] = dict(reading, launches=launches)
+            except SmokeFailure as exc:
+                failures.append(f"{label} {run[0]}: {exc}")
+                print(f"chip_smoke: FAILED ({label} {run[0]}): {exc}", file=sys.stderr,
+                      flush=True)
+    step = sum(r["step_s"] for key, r in results.items() if key.startswith("step 23"))
+    print(json.dumps({"fleet_benches": results, "step_23_s": step, "failures": failures}),
+          flush=True)
+    if failures:
+        return 1
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

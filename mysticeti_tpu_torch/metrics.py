@@ -776,6 +776,13 @@ class Metrics:
             "rolling p99 of CLIENT-observed submit -> commit-notification "
             "latency from closed-loop generators",
         )
+        # The client side of offered = admitted + shed: what the node's load
+        # generator handed its ingress plane.
+        self.mysticeti_client_submitted_total = counter(
+            "mysticeti_client_submitted_total",
+            "transactions the node's load generator submitted to its ingress "
+            "(retries included): admitted + shed at intake",
+        )
 
         # Exact-percentile channels (stat.rs), reported as gauges.
         self._precise: Dict[str, PreciseHistogram] = {}

@@ -154,3 +154,9 @@ class ParametersGenerator:
 
     def max_sustainable_load(self) -> int:
         return self._search_lower
+
+    def out_of_capacity_load(self) -> Optional[int]:
+        """The lowest load a search probe ran out of capacity at; None while
+        every probe kept up (a search that ends so stopped on its iteration
+        cap, and ``max_sustainable_load`` is only a floor)."""
+        return self._search_upper

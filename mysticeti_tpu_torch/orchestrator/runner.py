@@ -37,6 +37,8 @@ from ..config import Parameters
 # The node kinds that verify on the card (``cuda``, ``cuda-only``,
 # ``cuda-agg``): a local fleet of one of them shares one verifier service.
 CARD_KIND_PREFIX = "cuda"
+# How long ``cleanup`` waits for the verifier service to end on SIGTERM.
+SERVICE_STOP_S = 10.0
 
 
 class Runner:
@@ -142,7 +144,7 @@ class LocalProcessRunner(Runner):
         self._service_socket = os.path.join(
             os.path.abspath(self.working_dir), "verifier.sock"
         )
-        # A previous run's cleanup SIGKILLs the service, skipping its own
+        # A previous run's cleanup kills the service, skipping its own
         # unlink — a stale socket file would satisfy the exists() wait below
         # before the fresh process has bound it.
         if os.path.exists(self._service_socket):
@@ -309,8 +311,15 @@ class LocalProcessRunner(Runner):
             await self.kill_node(authority)
         service, self._verifier_service = self._verifier_service, None
         if service is not None and service.returncode is None:
-            service.send_signal(signal.SIGKILL)
-            await service.wait()
+            # SIGTERM first: it ends a service that does not handle it at
+            # once, as SIGKILL would, and gives one that does (a launch
+            # reporter, say) a moment to finish before the SIGKILL.
+            service.send_signal(signal.SIGTERM)
+            try:
+                await asyncio.wait_for(service.wait(), SERVICE_STOP_S)
+            except asyncio.TimeoutError:
+                service.send_signal(signal.SIGKILL)
+                await service.wait()
 
 
 class SshRunner(Runner):

@@ -27,7 +27,8 @@ the card's numbers.  So the default scan directory is the checkout's
 ``--out`` point anywhere, e.g. at the root's rounds with ``--no-write``),
 and every record the port appends carries ``card``, ``nvidia-smi``'s name
 and power limit of the card it was measured on; an append made where there
-is no card is skipped.
+is no card is skipped.  A scanned artifact that names its card (the port's
+fleet benches write ``card``) passes it to each of its records.
 
 Usage:
     python -m mysticeti_tpu_torch.tools.bench_trend            # scan build/, update its index, report
@@ -589,6 +590,16 @@ def regression_report(records: List[dict], tolerance: float):
     return lines, regressions
 
 
+def _artifact_card(path: str) -> Optional[str]:
+    """The ``card`` an artifact names at its top level, if any."""
+    try:
+        with open(path) as f:
+            doc = json.load(f)
+    except (OSError, ValueError):
+        return None
+    return doc.get("card") if isinstance(doc, dict) else None
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="bench_trend", description=__doc__,
@@ -612,7 +623,8 @@ def main(argv=None) -> int:
         for path in sorted(glob.glob(os.path.join(args.repo, pattern))):
             if os.path.abspath(path) == os.path.abspath(out):
                 continue
-            fresh.extend(normalize(path))
+            card = _artifact_card(path)
+            fresh.extend(dict(rec, card=card) if card else rec for rec in normalize(path))
     index = load_index(out)
     added = merge_index(index, fresh)
     if not args.no_write:

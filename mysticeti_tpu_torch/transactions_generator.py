@@ -176,6 +176,8 @@ class TransactionGenerator:
                 self.finality.note_submitted(ingress_key(tx))
         result = self.submit(batch)
         self.submitted += len(batch)
+        if self.metrics is not None:
+            self.metrics.mysticeti_client_submitted_total.inc(len(batch))
         if result is None or not self.closed_loop:
             # Open loop (or a legacy handler with no verdict): fire and
             # forget, exactly the pre-ingress behavior.

@@ -79,7 +79,8 @@ def test_registry_extends_the_jax_packages():
     (the CUDA wrappers and their build as ``verifier-pack``, the
     entries, the benchmark, the flamegraph CLI, the attribution probe, the
     scenario-matrix probe, the lint's alias, the trace and fleet-health
-    tools and the kernel and storage tools as ``tooling``); the overrides, waiting leaves and subsystem names
+    tools, the kernel and storage tools and the load and catch-up fleet benches as
+    ``tooling``); the overrides, waiting leaves and subsystem names
     are the JAX package's."""
     jax = _mod("mysticeti_tpu", "profiling")
     assert {k: v for k, v in SUBSYSTEMS.items() if k in jax.SUBSYSTEMS} == jax.SUBSYSTEMS
@@ -90,7 +91,8 @@ def test_registry_extends_the_jax_packages():
         "trace_report": "tooling", "fleet_trace": "tooling", "fleetmon": "tooling",
         "kernel_parity": "tooling", "bench_probe": "tooling", "mesh_scaling": "tooling",
         "bench_trend": "tooling", "wal_inspect": "tooling", "storage_probe": "tooling",
-        "commit_explain": "tooling"}
+        "commit_explain": "tooling", "maxload_bench": "tooling", "chip_window_ab": "tooling",
+        "node_bench": "tooling", "catchup_bench": "tooling", "overload_bench": "tooling"}
     assert FRAME_SUBSYSTEMS == jax.FRAME_SUBSYSTEMS
     assert profiling.WAITING_LEAVES == jax.WAITING_LEAVES
     assert SUBSYSTEM_NAMES == jax.SUBSYSTEM_NAMES

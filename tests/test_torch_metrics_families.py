@@ -18,10 +18,13 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PACKAGES = ("mysticeti_tpu", "mysticeti_tpu_torch")
 # The port's kernel-build families stand where the JAX package counts its
-# compiles and compile-cache hits (ops.ed25519.install_device_attribution).
+# compiles and compile-cache hits (ops.ed25519.install_device_attribution);
+# the generator's submitted count is the client side of overload_bench's
+# offered = admitted + shed.
 PORT_ONLY = {
     "mysticeti_cuda_builds_total", "mysticeti_cuda_build_seconds_total",
     "mysticeti_cuda_build_cache_hits_total", "mysticeti_cuda_build_cache_misses_total",
+    "mysticeti_client_submitted_total",
 }
 
 

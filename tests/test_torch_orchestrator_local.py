@@ -75,6 +75,15 @@ def test_local_benchmark_end_to_end(tmp_path, monkeypatch):
     assert written[0].endswith(".txt") and "3 nodes" in open(written[0]).read()
 
 
+def _service(final, warm=None):
+    """The report ``FLEET_HOOK`` makes a verifier service write when it is
+    stopped: its launch counts once warm and at the stop."""
+    warm = warm if warm is not None else {"prologue": 3, "verify_generic": 1, "verify_keyed": 2,
+                                          "prologue_flat": 0}
+    return {"pid": 100, "start": 1.0, "end": 20.0, "warm": warm, "final": final,
+            "cuda_initialized": True}
+
+
 def _phase_run(n=4, **over):
     """A collection and a run record as ``chip_smoke.runner_tap`` leaves
     them for a healthy run of ``n`` nodes."""
@@ -97,10 +106,8 @@ def _phase_run(n=4, **over):
     c.add_health_sample({"reachable": [str(a) for a in range(n)], "status": "ok"})
     run = {"load": 400, "apps_before": ["1, 600 MiB"], "ticks": [["1, 600 MiB"] * 2] * 2,
            "texts": texts, "service_boot_s": 5.0, "wall_s": 14.0,
-           "warm": {"launches": {"prologue": 3, "verify_generic": 1, "verify_keyed": 2,
-                                 "prologue_flat": 0}, "cuda_initialized": True},
-           "final": {"launches": {"prologue": 3 + n, "verify_generic": 1, "verify_keyed": 2 + n,
-                                  "prologue_flat": 0}, "cuda_initialized": True}}
+           "service": _service({"prologue": 3 + n, "verify_generic": 1, "verify_keyed": 2 + n,
+                                "prologue_flat": 0})}
     for key, value in over.items():
         run[key] = value
     return c, run
@@ -120,11 +127,12 @@ def test_orchestrator_phase_checks(tmp_path):
                                            "verify_keyed": 4, "prologue_flat": 0}
     assert reading["tps"] == 3 / 5.0 and reading["live_lanes"] == 3.0
     faults = {
-        "launched the generic kernel": {"final": {"launches": {
-            "prologue": 8, "verify_generic": 2, "verify_keyed": 6}, "cuda_initialized": True}},
+        "launched the generic kernel": {"service": _service({
+            "prologue": 8, "verify_generic": 2, "verify_keyed": 6})},
         "compute processes on the card": {"ticks": [["1, 600 MiB"] * 3] * 2},
-        "not one prologue and one keyed launch": {"final": {"launches": {
-            "prologue": 5, "verify_generic": 1, "verify_keyed": 4}, "cuda_initialized": True}},
+        "not one prologue and one keyed launch": {"service": _service({
+            "prologue": 5, "verify_generic": 1, "verify_keyed": 4})},
+        "never warmed on the card": {"service": dict(_service({}), warm=None)},
     }
     for message, over in faults.items():
         c, run = _phase_run(**over)
@@ -144,41 +152,45 @@ def test_orchestrator_phase_checks(tmp_path):
 
 
 def test_orchestrator_phase_launch_hook(tmp_path):
-    """The phase's ``sitecustomize``: in a process whose command line names
-    ``verifier-service``, SIGUSR1 writes the launch counts; the site's own
+    """The phase's ``sitecustomize`` (``chip_smoke.FLEET_HOOK``) and
+    ``runner_tap``'s reading of it: the runner's ``cleanup`` stops a child
+    whose command line names ``verifier-service`` with SIGTERM, the hook
+    writes the child's launch report and the child exits 0, and the tap
+    keeps the report as its run's ``service``; the site's own
     ``sitecustomize`` further down the path still runs."""
-    import json
-    import signal
-    import subprocess
     import sys
     import time
 
     import chip_smoke
+    from mysticeti_tpu_torch.orchestrator.runner import LocalProcessRunner
 
-    hook, site, out = (tmp_path / d for d in ("hook", "site", "out"))
-    for d in (hook, site, out):
+    hook, site, out, wd = (tmp_path / d for d in ("hook", "site", "out", "wd"))
+    for d in (hook, site, out, wd):
         d.mkdir()
-    (hook / "sitecustomize.py").write_text(chip_smoke.LAUNCH_HOOK)
+    (hook / "sitecustomize.py").write_text(chip_smoke.FLEET_HOOK)
     (site / "sitecustomize.py").write_text(
         f"open({str(out / 'chained')!r}, 'w').close()\n")
-    env = dict(os.environ, PYTHONPATH=f"{hook}{os.pathsep}{site}", SMOKE_LAUNCH_DIR=str(out))
-    child = subprocess.Popen([sys.executable, "-c", "import time; time.sleep(30)",
-                              "verifier-service"], env=env)
-    try:
-        for _ in range(100):
+    env = dict(os.environ, PYTHONPATH=f"{hook}{os.pathsep}{site}", SMOKE_FLEET_DIR=str(out))
+    runner = chip_smoke.runner_tap(LocalProcessRunner)(
+        str(wd), verifier="cpu", report_dir=str(out), watch={})
+
+    async def drive():
+        child = await asyncio.create_subprocess_exec(
+            sys.executable, "-c", "import time; time.sleep(30)", "verifier-service", env=env)
+        for _ in range(200):
             if (out / "chained").exists():
                 break
-            time.sleep(0.05)
-        assert (out / "chained").exists()
-        child.send_signal(signal.SIGUSR1)
-        report = out / f"{child.pid}.json"
-        for _ in range(100):
-            if report.exists():
-                break
-            time.sleep(0.05)
-        assert json.loads(report.read_text()) == {"pid": child.pid, "launches": {},
-                                                  "cuda_initialized": False}
-        assert child.poll() is None
-    finally:
-        child.kill()
-        child.wait()
+            await asyncio.sleep(0.05)
+        runner._verifier_service = child
+        runner.runs.append({"service_pid": child.pid, "t0": time.monotonic()})
+        await runner.cleanup()
+        return child
+
+    child = asyncio.run(drive())
+    assert (out / "chained").exists()
+    assert child.returncode == 0
+    service = runner.runs[0]["service"]
+    assert service["pid"] == child.pid and service["start"] <= service["end"]
+    assert service["warm"] is None and service["final"] == {}
+    assert service["cuda_initialized"] is False
+    assert runner._verifier_service is None and runner.runs[0]["wall_s"] >= 1.0

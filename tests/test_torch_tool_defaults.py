@@ -89,7 +89,9 @@ def test_no_default_names_a_tracked_file(name):
 
 def test_every_new_tool_has_its_parser_captured():
     for name in ("kernel_parity", "bench_probe", "mesh_scaling", "bench_trend", "wal_inspect",
-                 "storage_probe", "commit_explain", "perf_attr", "scenario_matrix", "detsan"):
+                 "storage_probe", "commit_explain", "perf_attr", "scenario_matrix", "detsan",
+                 "maxload_bench", "chip_window_ab", "node_bench", "catchup_bench",
+                 "overload_bench"):
         assert name in TOOLS
         assert _parser(importlib.import_module(f"mysticeti_tpu_torch.tools.{name}")) is not None
 
