@@ -216,7 +216,8 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    digest, every generator's stats and the fleet's server- and client-side
    finality percentiles equal the ``cpu`` run's and ``INGRESS_SEEDED``; on
    every node offered = admitted + shed, no transaction is committed twice,
-   and shed mode is entered (on some node) only in the 3x step; every
+   and shed mode is entered (on some node) only in the 3x step, where
+   admission sheds and the clients retry; every
    node's sampled finality keys are closed on both sides, as many on each;
    every forged copy is rejected and counted; the verdicts are accounted
    for as in step 12; the prologue and the keyed kernel launch once a flush
@@ -252,7 +253,7 @@ Run from the repository root with no arguments: ``python3 chip_smoke.py``.
    subsystem and thread class, the convoy ratio, the "other" share by leaf
    frame, loop lag p50 / p99, blocking calls by site, the critical path's
    top 5 and the collectors' stage seconds.  health-sim-10: step 13's node
-   shape (no GC) under the deterministic loop for 12 virtual s, node 3
+   shape (no GC) under the deterministic loop for 10 virtual s, node 3
    crashed at 3 s and rebooted from its WAL at 8 s, every incarnation its
    own verifier; each authority one ``HealthProbe`` (authority-lag SLO of 5
    rounds, its recorder dumping on alerts) that outlives restarts, attached
@@ -458,8 +459,8 @@ after (node-proc-10's in its processes, from each verifier's ``ready``;
 byzantine-10's for each twin; orchestrator-10's on its verifier service, from
 its warm state; step 22's in each tool's own process, which reports them;
 step 23's on each tool's verifier services, from their warm state, and the
-saturation's in node_bench's process); every kernel must have launched on
-some path.
+saturation's in node_bench's process; step 24's in each tool's process and
+on its verifier services); every kernel must have launched on some path.
 The whole script skips the ``cpu`` control run of steps 11, 13, 14, 15,
 netsync-50 of step 12 and health-sim-10 of step 16: their seeded constants
 (``CONSENSUS_SEEDED``, ``NETSYNC_SEEDED``, ``STORAGE_SEEDED``,
@@ -467,7 +468,60 @@ netsync-50 of step 12 and health-sim-10 of step 16: their seeded constants
 there (each ``<phase>_only`` keeps the control and its comparison; the
 consensus and netsync-50 counts carry a digest of every node's committed
 sequence and own blocks, which the control compared).
-24. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
+24. Last tools: the port's ``mesh_ab``, ``dataplane_ab``,
+   ``reconfig_matrix``, ``finality_bench`` and ``execution_bench`` as users
+   run them, each ``python -m mysticeti_tpu_torch.tools.<name> --verifier
+   cuda-only`` in a child on a port base of its own with ``FLEET_HOOK`` on
+   its ``PYTHONPATH``, its document under ``build/chip_smoke/``
+   (``LAST_TOOL_RUNS``), one at a time: mesh-4 (the in-process 4-validator
+   testbed at 300 tx/s a node, 8 s under ``MYSTICETI_MESH_LEGACY=1``, then 8
+   s on the broadcast-once plane), dataplane-4 (two 4-validator
+   ``perf_attr`` fleets of 12 s at 800 tx/s of 4,096 B,
+   ``MYSTICETI_NO_NATIVE=1`` in the first, the nodes behind a verifier
+   service the step starts, named by ``MYSTICETI_VERIFIER_SOCKET``, and the
+   native microbench best of three)
+   and reconfig-live-4 (the live leg: 4 validators at 20 tx/s, validator 3
+   registered at stake 0 and activated by a committed ADD, then booting and
+   catching up, validator 2 removed and stopped); then finality-4 (4
+   validators at 2,000 tx/s for 10 s behind the runner's verifier service,
+   then the seeded ``byzantine-at-f`` twice at 2 virtual s over one warm
+   ``TorchSignatureVerifier``) and exec-4 (4 validators with the execution
+   plane at 1,000 tx/s and a gateway client a node for 10 s, then the seeded
+   ``execution-byzantine-at-f`` twice at 2 virtual s).  Checks
+   (``last_tool_checks``), each tool: it exits 0 (3 where only its speed
+   acceptances fail: mesh's leaders and encode time, dataplane's 25% hot-path
+   cut and 2x microbench, finality's 20% server/client tolerance, all
+   recorded) and its document names the card and ``cuda-only``; no node
+   initialized CUDA; the launches of its process (mesh's validators from
+   their warm verifiers, the live leg's but the joiner's warm-up, the sims'
+   from their warm backend) and of its verifier services (from warm) are one
+   prologue and one keyed launch a dispatch, some, and the generic kernel
+   never; the card never held more contexts than before the tool, the
+   tool's own and one a live verifier service.  mesh-4: every node commits
+   in both modes; under the legacy knob no encode reuse and no zero-copy
+   receiver, on the new plane reuse on every node and receivers attached.
+   dataplane-4: every node commits in both arms and exits 0 with no batch
+   degraded; ``native_active`` non-empty in the native arm and empty in the
+   fallback arm.  reconfig-live-4: the leg passes (every survivor at epoch
+   2, the removed node at 1 or more, the joiner committing, prefixes
+   agreeing).  finality-4: decisions recorded on every node; every fleet's
+   last scrape reached every node with no batch degraded and no invalid
+   block; the service launched a keyed kernel at least once a node flush;
+   the sim leg explains every slot, is byte-identical and equals
+   ``FINALITY_SEEDED``.  exec-4: the same fleet checks; roots agree across
+   the nodes' windows and with the client's stream, every node executed,
+   the subscriber got its resume reply and notifications; the sim passes,
+   executes, is byte-identical and equals ``EXEC_SEEDED``.  Prints each
+   tool's readings and its seconds.
+   Steps 23 and 24 run as a queue of jobs (each of their tools, longest
+   first, ``BESIDE_ORDER``), one at a time in a thread beside steps 11-15
+   (consensus to ingress) and 20 (byzantine, which runs right after step
+   15), whose results no host load can move: simulated cells held to seeded
+   counts, and netsync-tcp-10 far above its minimum commits.  The script
+   waits for the queue (and prints how long) before steps 16-19 (the
+   real-time fleets, the card's context checks, the fixed ports) and 21-22.
+   Their speed readings are recorded, not compared.
+25. Prints a ``{"kernels": [...]}`` line, the end-to-end readings, and as its
    last line ``{"ok": true, "device": {...}}``.
 
 Every phase runs under ``PYTHONHASHSEED=0`` (``main`` runs the command
@@ -484,7 +538,9 @@ SystemExit(c.main(c.receive_only))'`` (likewise ``consensus_only``,
 ``health_only``, ``node_only``, ``orchestrator_only``, ``byzantine_only``,
 ``tools_only`` (step 22's standalone tools, after the bench),
 ``fleet_benches_only`` (step 23's runs, then each fleet bench at its own
-defaults, ``FLEET_BENCH_DEFAULTS``), and
+defaults, ``FLEET_BENCH_DEFAULTS``), ``last_tools_only`` (step 24's runs,
+then each of the last tools at its own defaults, ``LAST_TOOL_DEFAULTS``),
+and
 ``sharded_only`` for a
 host with several cards).  Not
 in the default run: ``receive_split`` (where the receive burst's host time
@@ -505,6 +561,7 @@ import random
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 SEED = 2026
@@ -708,7 +765,8 @@ EPOCH_SEEDED = {
 # ~10 rounds a virtual second, 1x offers ~100 transactions a block, below
 # the ~2,000 tx/s a node that ``max_per_proposal`` lets through; 3x is
 # above it, so the mempool fills and admission must shed.  Cut: blocks carry
-# at most 200 transactions (config 3: 2,000), 12 virtual s.
+# at most 200 transactions (config 3: 2,000), 12 virtual s (at 10 the 3x
+# step still enters shed mode but sheds nothing, and the retry path idles).
 INGRESS_10 = {
     "n": 10, "virtual_s": 12.0, "seed": SEED, "fault_one_in": NETSYNC_FAULT_ONE_IN,
     "crashes": (),
@@ -796,14 +854,15 @@ HEALTH_TCP_10 = {
 }
 # health-sim-10: storage-10's node shape (no GC) over the SimulatedNetwork
 # with netsync-50's injector, node 3 crashed at 3 virtual s and rebooted from
-# its WAL 5 s later, 12 virtual s, a fleet monitor tick a virtual second.
+# its WAL 5 s later, 10 virtual s (12 until the last tools' step came, ~8 s
+# of the card run), a fleet monitor tick a virtual second.
 # The authority-lag SLO (``lag_rounds``) was chosen from a ``cpu``-kind run:
 # the fleet reaches round 81 in 11 virtual s (23 at the crash), no live peer
 # is ever seen more than 2 rounds behind, and the crashed node is 6 behind
 # at the first tick after its crash, so 5 names it there and no live one.
 # Crashes are (node, at_s, downtime_s, torn bytes).
 HEALTH_SIM_10 = {
-    "n": 10, "virtual_s": 12.0, "seed": SEED, "fault_one_in": NETSYNC_FAULT_ONE_IN,
+    "n": 10, "virtual_s": 10.0, "seed": SEED, "fault_one_in": NETSYNC_FAULT_ONE_IN,
     "storage": {"segment_bytes": 16 * 1024, "checkpoint_interval": 5},
     "crashes": ((3, 3.0, 5.0, 0),), "down": 3, "tick_s": 1.0, "lag_rounds": 5,
 }
@@ -814,12 +873,22 @@ HEALTH_STRIPPED = ("backend", "pipeline_depth")
 # What health-sim-10 counts at SEED under HASH_SEED (``health_sim_counts`` of
 # a ``cpu``-kind run; the card run must count the same).
 HEALTH_SEEDED = {
-    "timeline_sha256": "ff6b968b46757a4b7ad6a52b7e9591418af4807e32420e30a224131ffe51a4b9",
+    "timeline_sha256": "51c203ce611725c3b499ad873b83d63c15f9d54bd130fedc34077273efa98905",
     "alerts_sha256": "3a3b394781ec5115d7828111f16d1eaa0fc6139cdf1aafd37c5e1e01b91292ca",
-    "ticks": 11, "alerts": 9, "commits": [87] * 10,
-    "flushes": 6839, "dispatched": 8193, "received": 8434, "fresh": 8274, "to_verify": 8196,
-    "forged": 136, "forged_rejected": 136, "forged_injected": 137, "redelivered": 167,
-    "on_card": 8193, "dumps": [1, 1, 1, 0, 1, 1, 1, 1, 1, 1],
+    "ticks": 9,
+    "alerts": 9,
+    "commits": [63, 64, 63, 64, 64, 63, 63, 64, 63, 63],
+    "flushes": 5034,
+    "dispatched": 6054,
+    "received": 6250,
+    "fresh": 6109,
+    "to_verify": 6056,
+    "forged": 101,
+    "forged_rejected": 101,
+    "forged_injected": 102,
+    "redelivered": 121,
+    "on_card": 6054,
+    "dumps": [1, 1, 1, 0, 1, 1, 1, 1, 1, 1],
 }
 # The node phase: BASELINE.json config 3's committee (10 validators,
 # ``Parameters.new_for_benchmarks``) as ten OS processes, each started by the
@@ -1006,6 +1075,69 @@ OVERLOAD_SEEDED = {
     "sim_committed_1x": 13680, "sim_committed_3x": 13680, "sim_offered_3x": 44760,
     "sim_admitted_3x": 15683,
     "sim_shed_by_reason_3x": {"admission": 22776, "duplicate": 420, "mempool_transactions": 5881},
+}
+# The last tools step (step 24): the port's data-plane, mesh, reconfiguration,
+# finality and execution probes as users run them, each ``python -m
+# mysticeti_tpu_torch.tools.<name>`` in a child on the tools' 4 validators
+# and at their loads, their documents under ``TOOLS_DIR``.  Every cut is one of
+# windows and repeats: mesh-4 one legacy and one mesh testbed of 8 s at 300
+# tx/s a node (the tool's two of each, 60 s); dataplane-4 one fallback and
+# one native fleet of 12 s at 800 tx/s of 4,096 B (two of each, 45 s), behind
+# one verifier service this script starts; reconfig-live-4 the live leg alone
+# (its own 25 s schedule at 20 tx/s; the matrix and the determinism leg are
+# left to ``last_tools_only``); finality-4 a fleet of 10 s at 2,000 tx/s (30
+# s) and the sim leg at 2 virtual s (4); exec-4 a fleet of 10 s at 1,000 tx/s
+# with the gateway workload (30 s) and the sim leg at 2 virtual s (5).  Their
+# speed readings are recorded, not compared.
+LAST_TOOL_RUNS = (
+    ("mesh-4", "mesh_ab", "MESH_r20.json",
+     ("--verifier", "cuda-only", "--committee", "4", "--tps", "300", "--duration", "8",
+      "--repeats", "1")),
+    ("dataplane-4", "dataplane_ab", "DATAPLANE_r20.json",
+     ("--verifier", "cuda-only", "--committee", "4", "--tps", "800", "--tx-size", "4096",
+      "--duration", "12", "--repeats", "1", "--round", "20")),
+    ("reconfig-live-4", "reconfig_matrix", "RECONFIG_r20.json",
+     ("--no-matrix", "--no-determinism", "--verifier", "cuda-only", "--tps", "20")),
+    ("finality-4", "finality_bench", "FINALITY_r20.json",
+     ("--verifier", "cuda-only", "--nodes", "4", "--load", "2000", "--duration", "10",
+      "--sim-duration", "2")),
+    ("exec-4", "execution_bench", "EXEC_r20.json",
+     ("--verifier", "cuda-only", "--nodes", "4", "--load", "1000", "--duration", "10",
+      "--sim-duration", "2")),
+)
+# The whole script's queue of steps 23 and 24 (``Beside``), longest first
+# (by their seconds in a whole run on an H100 host).
+BESIDE_ORDER = ("overload-4", "finality-4", "catchup-7", "exec-4", "maxload-4",
+                "chipwindow-4", "dataplane-4", "reconfig-live-4", "node-bench-4", "mesh-4")
+# ``last_tools_only`` also runs each tool once at its own defaults on the card
+# (reconfig's whole matrix, its determinism leg and its live leg), one at a
+# time: the recorded readings of the port's last tools.
+LAST_TOOL_DEFAULTS = (
+    ("mesh", "mesh_ab", "MESH_r20.json", ()),
+    ("dataplane", "dataplane_ab", "DATAPLANE_r20.json", ("--round", "20")),
+    ("reconfig", "reconfig_matrix", "RECONFIG_r20.json", ()),
+    ("finality", "finality_bench", "FINALITY_r20.json", ()),
+    ("exec", "execution_bench", "EXEC_r20.json", ()),
+)
+# What the finality and execution sim legs read at ``SEEDED_SIM_S`` virtual s
+# (step 24's depth; the tools' defaults run 4 and 5) under
+# HASH_SEED (the seeded ``byzantine-at-f`` and ``execution-byzantine-at-f``
+# twice; the sim re-sign oracle's verdicts, which the card's must equal, so
+# the card run reads the same); ``tests/test_torch_finality_bench.py`` and
+# ``tests/test_torch_execution_bench.py`` recompute them and hold them equal
+# to the JAX tools' legs.  Recompute them when anything on the path changes.
+SEEDED_SIM_S = 2.0
+FINALITY_SEEDED = {
+    "digest": "e01bb48c5d41df17066ef14ebaf0460839a77d4eb413effaeeecc1ec7a94099a",
+    "skips_explained": 14,
+    "decision_census": {a: {"direct-commit": 13 if a == "1" else 12, "direct-skip": 2}
+                        for a in map(str, range(7))},
+}
+EXEC_SEEDED = {
+    "root_chain_digest": "af44d87032751575c86922c4af6f214c99f1ce64fe75c6fd83563290cd4a365f",
+    "chain_length": 13,
+    "final_root": "5067ad8d9874e29808f083b15516787c8393a73a5d1523ae4f3cbfd29b9ffadb",
+    "executed_heights": {a: 13 if a == "1" else 12 for a in map(str, range(7))},
 }
 HASH_SEED = "0"
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -4224,6 +4356,12 @@ def ingress_checks(card, cpu, config) -> dict:
               f"{node['shed_mode']}")
     entered = [a for a, node in enumerate(nodes) if any(on for _t, on in node["shed_mode"])]
     check(entered, "no node entered shed mode")
+    # ... and sheds, and the clients retry what was shed.
+    shed = sum(sum(node["shed"].values()) for node in nodes)
+    retries = sum(node["generator"]["retries"] for node in nodes)
+    check(shed > 0 and retries > 0,
+          f"the overload step shed {shed} transactions and the clients retried {retries}: "
+          f"admission shedding or the client retry path did not run")
     # 3: sampled finality keys closed on both sides.
     for a, node in enumerate(nodes):
         server, client = node["server_finality"], node["client_finality"]
@@ -6411,6 +6549,8 @@ def tools_phase(kernels) -> tuple:
 
 # A killed service's context may stay on nvidia-smi's list this long.
 SERVICE_GRACE_S = 3.0
+# Set when this process fails while fleet tools run beside it (``Beside``).
+ABORT = threading.Event()
 # Node and metrics ports a fleet bench's genesis takes (base+i, base+1000+i).
 FLEET_PORTS = 10
 
@@ -6431,14 +6571,41 @@ def fleet_reports(report_dir: str) -> dict:
     return out
 
 
-def run_fleet_tool(name, module, out_name, args, hook, timeout, extra=()) -> dict:
+def hook_env(hook, report_dir) -> dict:
+    """A child's environment: this process's, with ``FLEET_HOOK``'s directory
+    first on ``PYTHONPATH`` reporting into ``report_dir`` and the trend index
+    under ``TOOLS_DIR``."""
+    env = dict(os.environ, SMOKE_FLEET_DIR=report_dir,
+               BENCH_TREND_PATH=os.path.join(TOOLS_DIR, "BENCH_TREND.json"),
+               PYTHONPATH=os.pathsep.join([hook] + ([os.environ["PYTHONPATH"]]
+                                                   if os.environ.get("PYTHONPATH") else [])))
+    for k in ("MYSTICETI_NO_VERIFIER_SERVICE", "MYSTICETI_TRACE"):
+        env.pop(k, None)
+    return env
+
+
+def kill_tree(pid) -> None:
+    """SIGKILL the process group of ``pid``, a child started in a session of
+    its own: the child and what it started (a tool's fleet, its verifier
+    service)."""
+    import signal
+
+    try:
+        os.killpg(pid, signal.SIGKILL)
+    except ProcessLookupError:
+        pass
+
+
+def run_fleet_tool(name, module, out_name, args, hook, timeout, env=None) -> dict:
     """One fleet bench in a child, as a user runs it, with the hook on its
-    ``PYTHONPATH`` and its document at ``TOOLS_DIR/out_name``; samples the
-    card's compute processes every second while it runs.  Returns the run:
-    exit code, output tails, seconds, document, samples and the hook's
+    ``PYTHONPATH`` (its reports under ``TOOLS_DIR/fleet-reports/name``),
+    ``env`` over this process's environment and its document at
+    ``TOOLS_DIR/out_name``; samples the card's compute processes every
+    second while it runs, and kills it with what it started past
+    ``timeout`` seconds or once ``ABORT`` is set.  Returns the run: exit
+    code, output tails, seconds, document, samples and the hook's
     reports."""
     import shutil
-    import threading
 
     report_dir = os.path.join(TOOLS_DIR, "fleet-reports", name)
     shutil.rmtree(report_dir, ignore_errors=True)
@@ -6446,37 +6613,33 @@ def run_fleet_tool(name, module, out_name, args, hook, timeout, extra=()) -> dic
     out_path = os.path.join(TOOLS_DIR, out_name)
     if os.path.exists(out_path):
         os.unlink(out_path)
-    env = dict(os.environ, SMOKE_FLEET_DIR=report_dir,
-               BENCH_TREND_PATH=os.path.join(TOOLS_DIR, "BENCH_TREND.json"),
-               PYTHONPATH=os.pathsep.join([hook] + ([os.environ["PYTHONPATH"]]
-                                                   if os.environ.get("PYTHONPATH") else [])))
-    for k in ("MYSTICETI_NO_VERIFIER_SERVICE", "MYSTICETI_TRACE"):
-        env.pop(k, None)
+    child_env = hook_env(hook, report_dir)
+    child_env.update(env or {})
     port_base = free_port_base(FLEET_PORTS, 1500)
     argv = [sys.executable, "-m", f"mysticeti_tpu_torch.tools.{module}", *args,
             "--workdir", os.path.join(TOOLS_DIR, "fleets", name), "--out", out_path,
-            "--port-base", str(port_base), *extra]
+            "--port-base", str(port_base)]
     before = len(compute_apps())
     t0, wall0 = time.monotonic(), time.time()
-    proc = subprocess.Popen(argv, cwd=HERE, env=env, stdout=subprocess.PIPE,
-                            stderr=subprocess.PIPE, text=True)
+    proc = subprocess.Popen(argv, cwd=HERE, env=child_env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True, start_new_session=True)
     result = {}
     reader = threading.Thread(target=lambda: result.update(
         zip(("out", "err"), proc.communicate())), daemon=True)
     reader.start()
     samples = []
     while proc.poll() is None:
-        if time.monotonic() - t0 > timeout:
-            proc.kill()
+        if time.monotonic() - t0 > timeout or ABORT.is_set():
+            kill_tree(proc.pid)
             break
         samples.append((time.time(), len(compute_apps())))
         time.sleep(1.0)
-    reader.join(60)
     run = {"name": name, "module": module, "args": list(args), "port_base": port_base,
-           "rc": proc.wait(), "out": result.get("out", ""), "err": result.get("err", ""),
-           "seconds": time.monotonic() - t0, "window": [wall0, time.time()],
-           "apps_before": before, "samples": samples,
-           "doc": tool_doc(out_path) if os.path.exists(out_path) else None}
+           "rc": proc.wait(), "seconds": time.monotonic() - t0, "window": [wall0, time.time()],
+           "apps_before": before, "samples": samples}
+    reader.join(60)
+    run.update(out=result.get("out", ""), err=result.get("err", ""),
+               doc=tool_doc(out_path) if os.path.exists(out_path) else None)
     run.update(fleet_reports(report_dir))
     return run
 
@@ -6567,14 +6730,8 @@ def fleet_bench_checks(run) -> dict:
         not only or launches["verify_keyed"] >= flushes)),
         f"{name}: the verifier services launched {launches} for the card fleets' "
         f"{flushes} flushes")
+    apps_checks(run)
     top = max((count for _, count in run["samples"]), default=0)
-    for t, count in run["samples"]:
-        alive = sum(1 for svc in services
-                    if svc["start"] <= t <= svc.get("end", math.inf) + SERVICE_GRACE_S)
-        check(count <= run["apps_before"] + 1 + alive,
-              f"{name}: {count} compute processes on the card at {t:.1f} with "
-              f"{run['apps_before']} before the tool, {alive} verifier services alive: a node or "
-              f"a second service opened a context")
     check(not card_fleets or top >= run["apps_before"] + 2,
           f"{name}: the card never showed the tool's and a verifier service's contexts "
           f"(at most {top} with {run['apps_before']} before)")
@@ -6711,6 +6868,307 @@ def fleet_benches_phase(kernels, runs=FLEET_BENCH_RUNS, timeout=300) -> tuple:
     return launches, readings
 
 
+# -- step 24: the last tools ---------------------------------------------------
+
+
+def keyed_only(counts, what: str) -> None:
+    """``counts`` (launches) are one prologue and one keyed launch a
+    dispatch, some, and never the generic kernel."""
+    check(counts.get("verify_generic", 0) == 0,
+          f"{what}: the generic kernel was launched: {counts}")
+    check(counts.get("prologue", 0) == counts.get("verify_keyed", 0) > 0,
+          f"{what}: {counts} are not one prologue and one keyed launch a dispatch")
+
+
+def service_counts(run, what: str) -> dict:
+    """The launches of ``run``'s verifier services from their warm state
+    (``FLEET_HOOK``'s reports), each held to ``keyed_only``."""
+    check(len(run["services"]) == len(run["service_starts"]),
+          f"{what}: {len(run['service_starts'])} verifier services started and "
+          f"{len(run['services'])} reported their launches at SIGTERM")
+    total = {}
+    for svc in run["services"]:
+        check(svc["warm"] is not None and svc["cuda_initialized"],
+              f"{what}: verifier service {svc['pid']} never warmed on the card: {svc}")
+        counts = {k: v - svc["warm"].get(k, 0) for k, v in svc["final"].items()}
+        keyed_only(counts, f"{what}: verifier service {svc['pid']}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    for k, v in counts.items():
+        total[k] = total.get(k, 0) + v
+    return total
+
+
+def last_tool_checks(run, card) -> dict:
+    """The checks of the module docstring, step 24, on one tool's run.
+    Returns its readings (printed, not gated) and the launches of its own
+    process and its verifier services."""
+    name, module, doc = run["name"], run["module"], run["doc"]
+    check(run["rc"] in ((0,) if module == "reconfig_matrix" else (0, 3)) and doc is not None,
+          f"{name}: the tool exited {run['rc']}: {run['out'][-1500:]}{run['err'][-1500:]}")
+    check(doc["card"] == card and doc["verifier"] == "cuda-only",
+          f"{name}: the document names card {doc['card']!r} and kind {doc['verifier']!r}")
+    check(not run["node_cuda"], f"{name}: nodes initialized CUDA: {run['node_cuda']}")
+    reading = {"seconds": run["seconds"], "exit_code": run["rc"]}
+    launches = {}
+    if module == "mesh_ab":
+        for mode, r in ((m, r) for m in ("legacy", "mesh") for r in doc["runs"][m]):
+            what = f"{name} {mode}"
+            check(all(n["committed_leaders"] > 0 for n in r["nodes"]),
+                  f"{what}: a node committed nothing: {r['nodes']}")
+            reuse = [n["encode_reuse_total"] for n in r["nodes"]]
+            if mode == "legacy":
+                check(reuse == [0] * len(reuse) and r["receivers_attached"] == 0,
+                      f"{what}: encode reuse {reuse}, {r['receivers_attached']} zero-copy "
+                      f"receivers attached under MYSTICETI_MESH_LEGACY=1")
+            else:
+                check(all(x > 0 for x in reuse) and r["receivers_attached"] > 0,
+                      f"{what}: encode reuse {reuse}, {r['receivers_attached']} zero-copy "
+                      f"receivers attached")
+            keyed_only(r["launches"], f"{what}: the validators")
+            add_counts(launches, r["launches"])
+        reading.update({k: doc["comparison"][k] for k in (
+            "committed_leaders_mean", "mesh_encode_us_per_leader", "critical_path_p50_us")},
+            acceptance=doc["acceptance"],
+            microbench_speedup=doc["microbench"].get("speedup"))
+    elif module == "dataplane_ab":
+        for mode, r in ((m, r) for m in ("fallback", "native") for r in doc["runs"][m]):
+            what = f"{name} {mode}"
+            leaders = r["committed_leaders_by_node"]
+            check(len(leaders) == 4 and all(v > 0 for v in leaders.values()),
+                  f"{what}: committed leaders {leaders}")
+            check(set(r["exit_codes"].values()) == {0}, f"{what}: exit codes {r['exit_codes']}")
+            check(set(r["verifier_fallback_by_node"].values()) == {0},
+                  f"{what}: batches degraded to the CPU oracle {r['verifier_fallback_by_node']}")
+        active = doc["comparison"]["native_active"]
+        check(active["native"] and active["fallback"] == [],
+              f"{name}: native_active {active} (the native arm must run native, the "
+              f"fallback arm nothing native)")
+        check(len(run["service_starts"]) == 1, f"{name}: {len(run['service_starts'])} verifier "
+                                                f"services for its fleets")
+        add_counts(launches, service_counts(run, name))
+        reading.update({k: doc["comparison"][k] for k in (
+            "committed_leaders_mean", "hotpath_us_per_leader", "hotpath_cpu_reduction_pct")},
+            acceptance=doc["acceptance"],
+            microbench_passes=doc["microbench"]["combined_speedup_passes"])
+    elif module == "reconfig_matrix":
+        live = doc["live"]
+        check(live["passed"] and live["epochs_reached"] >= 2 and live["joiner_commits"] > 0
+              and live["prefix_consistent"] and live["verifier"] == "cuda-only",
+              f"{name}: the live leg {live}")
+        keyed_only(live["launches"], f"{name}: the validators across both boundaries")
+        add_counts(launches, live["launches"])
+        reading.update({k: live[k] for k in ("epochs", "joiner_commits", "commits")})
+    elif module in ("finality_bench", "execution_bench"):
+        fleet, sim = doc["fleet"], doc["sim"]
+        counters = fleet["fleet"]
+        check(counters["verifier_fallback"] == 0 and counters["invalid_blocks"] == 0
+              and counters["scraped_nodes"] == fleet["nodes"],
+              f"{name}: the fleet's last scrapes {counters}")
+        check(fleet["verifier"] == sim["verifier"] == "cuda-only",
+              f"{name}: legs on {fleet['verifier']} and {sim['verifier']}")
+        check(len(run["service_starts"]) == 1, f"{name}: {len(run['service_starts'])} verifier "
+                                                f"services for one card fleet")
+        services = service_counts(run, name)
+        check(services.get("verify_keyed", 0) >= counters["flushes"],
+              f"{name}: the verifier service launched {services} for the nodes' "
+              f"{counters['flushes']} flushes")
+        keyed_only(sim["launches"], f"{name}: the sim leg")
+        add_counts(add_counts(launches, services), sim["launches"])
+        if module == "finality_bench":
+            check(fleet["decisions_recorded_all_nodes"],
+                  f"{name}: a node recorded no decision: {fleet['per_node']}")
+            seeded = {k: sim[k] for k in FINALITY_SEEDED}
+            check(sim["every_slot_explained"] and sim["byte_identical"]
+                  and (seeded == FINALITY_SEEDED or sim["duration_s"] != SEEDED_SIM_S),
+                  f"{name}: the sim leg {seeded}, holes {sim['holes']}, byte identical "
+                  f"{sim['byte_identical']}, against FINALITY_SEEDED")
+            reading.update({k: fleet[k] for k in ("server", "client", "cross_check")},
+                           acceptance=doc["acceptance"])
+        else:
+            agreement = fleet["root_agreement"]
+            check(agreement["agree"] and fleet["all_nodes_executed"]
+                  and fleet["subscriber"]["resume_reply"] is not None
+                  and fleet["subscriber"]["executed_notifications"] > 0,
+                  f"{name}: roots {agreement}, heights {fleet['executed_height_min']}-"
+                  f"{fleet['executed_height_max']}, subscriber {fleet['subscriber']}")
+            seeded = {k: sim[k] for k in EXEC_SEEDED}
+            check(sim["passed"] and sim["execution_ok"] and sim["byte_identical"]
+                  and (seeded == EXEC_SEEDED or sim["duration_s"] != SEEDED_SIM_S),
+                  f"{name}: the sim leg {seeded} (passed {sim['passed']}, byte identical "
+                  f"{sim['byte_identical']}) against EXEC_SEEDED")
+            reading.update({k: fleet[k] for k in ("executed_tx_s", "executed_height_max",
+                                                  "client")},
+                           shared_heights=agreement["shared_heights"],
+                           acceptance=doc["acceptance"])
+    reading["launches"] = launches
+    return reading
+
+
+def apps_checks(run) -> None:
+    """While a tool ran, the card held no more contexts than before it, the
+    tool's own (its prewarm, in-process validators and sims) and one a live
+    verifier service."""
+    import math
+
+    for t, count in run["samples"]:
+        alive = sum(1 for svc in run["services"]
+                    if svc["start"] <= t <= svc.get("end", math.inf) + SERVICE_GRACE_S)
+        check(count <= run["apps_before"] + 1 + alive,
+              f"{run['name']}: {count} compute processes on the card at {t:.1f} with "
+              f"{run['apps_before']} before the tool, {alive} verifier services alive: a node "
+              f"or a second service opened a context")
+
+
+class ServiceChild:
+    """A verifier service for ``n`` benchmark validators in a child process,
+    started as the runner starts one (``python -m mysticeti_tpu_torch
+    verifier-service``) with ``FLEET_HOOK`` reporting its launches into
+    ``report_dir``; ``start`` returns once it is warm (a HELLO round trip),
+    ``stop`` ends it with SIGTERM (the hook's report) or SIGKILL."""
+
+    def __init__(self, workdir, n, hook, report_dir):
+        import shutil
+
+        from mysticeti_tpu_torch.cli import benchmark_genesis
+
+        shutil.rmtree(workdir, ignore_errors=True)
+        shutil.rmtree(report_dir, ignore_errors=True)
+        os.makedirs(report_dir)
+        benchmark_genesis(["127.0.0.1"] * n, workdir)
+        self.workdir, self.hook, self.report_dir = workdir, hook, report_dir
+        self.socket = os.path.join(workdir, "verifier.sock")
+        self.proc = None
+
+    def start(self):
+        from mysticeti_tpu_torch.committee import Committee
+        from mysticeti_tpu_torch.verifier_service import RemoteSignatureVerifier
+
+        committee_path = os.path.join(self.workdir, "committee.yaml")
+        with open(os.path.join(self.workdir, "verifier-service.log"), "ab") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "mysticeti_tpu_torch", "verifier-service", "--socket",
+                 self.socket, "--committee-path", committee_path],
+                cwd=HERE, env=hook_env(self.hook, self.report_dir), stdout=log, stderr=log)
+        probe = RemoteSignatureVerifier(
+            socket_path=self.socket, timeout_s=900.0,
+            committee_keys=Committee.load(committee_path).public_key_bytes())
+        deadline = time.monotonic() + 300
+        while True:
+            check(self.proc.poll() is None and time.monotonic() < deadline,
+                  f"the verifier service in {self.workdir} died or never warmed")
+            try:
+                if os.path.exists(self.socket):
+                    probe.warmup()
+                    return
+            except (ConnectionError, OSError):
+                pass
+            time.sleep(0.2)
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            import signal
+
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+
+
+def last_tools_phase(kernels, runs=LAST_TOOL_RUNS, timeout=300) -> tuple:
+    """Step 24: ``runs`` one after another through ``run_fleet_tools``, each
+    held to ``last_tool_checks``; dataplane-4's nodes verify through a
+    ``ServiceChild`` this step starts (``MYSTICETI_VERIFIER_SOCKET``).  Every
+    launch it counts is a child's, so it can run beside a phase of this
+    process.  Returns the launches of the tools' processes and verifier
+    services and the readings."""
+    from mysticeti_tpu_torch.verifier_service import ENV_SOCKET
+
+    t0 = time.monotonic()
+    os.makedirs(TOOLS_DIR, exist_ok=True)
+    hook = os.path.join(TOOLS_DIR, "fleet-hook")
+    os.makedirs(hook, exist_ok=True)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(FLEET_HOOK)
+    launches = {k.name: 0 for k in kernels}
+    readings = {"card": card_line()}
+    for name, module, out_name, args in runs:
+        service = env = None
+        if module == "dataplane_ab":
+            service = ServiceChild(os.path.join(TOOLS_DIR, "fleets", f"{name}-service"),
+                                   FLEET_NODES, hook,
+                                   os.path.join(TOOLS_DIR, "fleet-reports", f"{name}-service"))
+        try:
+            if service is not None:
+                service.start()
+                env = {ENV_SOCKET: service.socket}
+            run = run_fleet_tool(name, module, out_name, args, hook, timeout, env)
+        finally:
+            if service is not None:
+                service.stop()
+        if service is not None:
+            reports = fleet_reports(service.report_dir)
+            run["services"] += reports["services"]
+            run["service_starts"] += reports["service_starts"]
+        reading = last_tool_checks(run, readings["card"])
+        apps_checks(run)
+        readings[name] = reading
+        add_counts(launches, reading["launches"])
+        print(f"last tool {name} (step 24): {json.dumps(reading)} [{readings['card']}]",
+              flush=True)
+    readings["step_s"] = time.monotonic() - t0
+    print(f"last tools (step 24): {len(runs)} tools, {readings['step_s']:.1f} s "
+          f"[{readings['card']}]", flush=True)
+    return launches, readings
+
+
+class Beside:
+    """``jobs`` ((label, fn, args)) run one after another in a thread from the
+    ``with`` block's start, beside this process's phases; ``join`` waits for
+    them and returns {label: result}, raising the first job's error (the
+    jobs after it do not run).  Leaving the block on an exception sets
+    ``ABORT``, so that ``run_fleet_tool`` kills its child's process group,
+    and waits for the job under way to end."""
+
+    def __init__(self, jobs):
+        self.results = {}
+        self._jobs = list(jobs)
+        self._error = None
+        self._thread = threading.Thread(target=self._run, daemon=True, name="beside")
+
+    def _run(self):
+        for label, fn, args in self._jobs:
+            if ABORT.is_set():
+                return
+            try:
+                self.results[label] = fn(*args)
+            except BaseException as exc:  # noqa: BLE001 - raised again by join
+                self._error = exc
+                return
+
+    def join(self) -> dict:
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        return self.results
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if exc_type is not None:
+            ABORT.set()
+            self._thread.join()
+        return False
+
+
 def build_and_report(K, cuda_build) -> None:
     """Build every kernel source (one nvcc each, in parallel); print the
     build time and ptxas's register, stack and spill lines."""
@@ -6772,22 +7230,45 @@ def run() -> int:
     # The whole script holds consensus-50, netsync-50, storage, epoch,
     # ingress and health-sim to their seeded constants alone (each
     # ``<phase>_only`` keeps its cpu control).
-    by_path["consensus"], consensus = consensus_phase(K.KERNELS, control=False)
-    by_path["net_sync"], by_path["net_sync_tcp"], net_sync = net_sync_phase(K.KERNELS,
-                                                                          control=False)
-    by_path["storage"], storage = storage_phase(K.KERNELS, control=False)
-    by_path["epoch"], epoch = epoch_phase(K.KERNELS, control=False)
-    by_path["ingress"], ingress = ingress_phase(K.KERNELS, control=False)
+    # Steps 23 and 24, each fleet tool a child counting its own launches and
+    # its services', run one at a time beside this process's phases whose
+    # results no host load can move: the simulated cells, held to seeded
+    # counts (consensus-50 to ingress-10, then byzantine-10), and
+    # netsync-tcp-10, far above its minimum commits.  The queue is joined
+    # before the phases that time a fleet, watch the card's contexts or hold
+    # fixed ports (health, node, orchestrator) and before the bench and the
+    # tools.
+    jobs = {run[0]: (f"fleet_benches {run[0]}", fleet_benches_phase, (K.KERNELS, (run,)))
+            for run in FLEET_BENCH_RUNS}
+    jobs.update({run[0]: (f"last_tools {run[0]}", last_tools_phase, (K.KERNELS, (run,)))
+                 for run in LAST_TOOL_RUNS})
+    with Beside([jobs[name] for name in BESIDE_ORDER]) as beside:
+        by_path["consensus"], consensus = consensus_phase(K.KERNELS, control=False)
+        by_path["net_sync"], by_path["net_sync_tcp"], net_sync = net_sync_phase(K.KERNELS,
+                                                                              control=False)
+        by_path["storage"], storage = storage_phase(K.KERNELS, control=False)
+        by_path["epoch"], epoch = epoch_phase(K.KERNELS, control=False)
+        by_path["ingress"], ingress = ingress_phase(K.KERNELS, control=False)
+        by_path["byzantine"], byzantine = byzantine_phase(K.KERNELS)
+        t0 = time.monotonic()
+        done = beside.join()
+        print(f"beside: waited {time.monotonic() - t0:.1f} s for steps 23 and 24 after "
+              f"byzantine-10", flush=True)
     by_path["health_tcp"], by_path["health_sim"], health = health_phase(K.KERNELS,
                                                                        control=False)
     by_path["node_proc"], by_path["node_svc"], node = node_phase(K.KERNELS)
     by_path["orchestrator"], orchestrator = orchestrator_phase(
         K.KERNELS, dict(ORCHESTRATOR_10, loads=ORCHESTRATOR_SCRIPT_LOADS),
         smoke_trace=metrics_reading["trace"]["path"])
-    by_path["byzantine"], byzantine = byzantine_phase(K.KERNELS)
     bench = bench_phase()
     by_path["tools"], tools = tools_phase(K.KERNELS)
-    by_path["fleet_benches"], fleet_benches = fleet_benches_phase(K.KERNELS)
+    fleet_benches, last_tools = {}, {}
+    for key, out in (("fleet_benches", fleet_benches), ("last_tools", last_tools)):
+        by_path[key] = {k.name: 0 for k in K.KERNELS}
+        for label, (launches, reading) in done.items():
+            if label.startswith(key):
+                add_counts(by_path[key], launches)
+                out[label.split(" ", 1)[1]] = reading
     # The block path's flushes take the keyed kernel, one key per lane, and
     # never the generic one; the committee dispatch's 8 stragglers take the
     # generic kernel once.
@@ -6826,7 +7307,8 @@ def run() -> int:
                       "ingress": ingress, "health": health, "node": node,
                       "orchestrator": orchestrator, "byzantine": byzantine,
                       "metrics": metrics_reading,
-                      "bench": bench, "tools": tools, "fleet_benches": fleet_benches}),
+                      "bench": bench, "tools": tools, "fleet_benches": fleet_benches,
+                      "last_tools": last_tools}),
           flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -6895,6 +7377,45 @@ def fleet_benches_only(only=None) -> int:
                       flush=True)
     step = sum(r["step_s"] for key, r in results.items() if key.startswith("step 23"))
     print(json.dumps({"fleet_benches": results, "step_23_s": step, "failures": failures}),
+          flush=True)
+    if failures:
+        return 1
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def last_tools_only(only=None) -> int:
+    """Step 24's runs, then each of the last tools once at its own defaults
+    (``LAST_TOOL_DEFAULTS``, the recorded readings), one at a time, every
+    run checked as step 24 checks it: ``python3 -c 'import chip_smoke as c;
+    raise SystemExit(c.main(c.last_tools_only))'``; ``only`` names the runs
+    of either table to take (``c.main(c.last_tools_only, ("exec-4",
+    "reconfig"))``).  A run that fails is printed and the others still run;
+    exits 1 when any failed."""
+    import torch
+
+    from mysticeti_tpu_torch.ops import ed25519_cuda as K
+
+    print(card_line(), flush=True)
+    K.build_all()
+    fresh_tools_dir()
+    results, failures = {}, []
+    for label, runs, timeout in (("step 24", LAST_TOOL_RUNS, 300),
+                                 ("defaults", LAST_TOOL_DEFAULTS, 2400)):
+        for run in runs:
+            if only is not None and run[0] not in only:
+                continue
+            key = f"{label} {run[0]}"
+            try:
+                launches, reading = last_tools_phase(K.KERNELS, (run,), timeout)
+                results[key] = dict(reading, launches=launches)
+            except SmokeFailure as exc:
+                failures.append(f"{key}: {exc}")
+                print(f"chip_smoke: FAILED ({key}): {exc}", file=sys.stderr, flush=True)
+    step = sum(r["step_s"] for key, r in results.items() if key.startswith("step 24"))
+    print(json.dumps({"last_tools": results, "step_24_s": step, "failures": failures}),
           flush=True)
     if failures:
         return 1

@@ -185,14 +185,18 @@ class TorchSignatureVerifier(SignatureVerifier):
     def warmup(self) -> None:
         """Pay one-time costs (the kernels' build, the comb upload, the key
         combs) before the first real batch: a one-unknown-key batch and, with
-        a committee table, a one-signature-per-key batch."""
+        a committee table, a one-signature-per-key batch.  Its launches
+        count also as warm-up launches (``ed25519_cuda.warming``)."""
+        from .ops.ed25519_cuda import warming
+
         dummy = bytes(32)
-        self.verify_signatures([dummy], [dummy], [bytes(64)])
-        if self._table is not None:
-            self._table.neg_combs51()
-            if len(self._table) > 1:
-                pks = list(self._table._keys)
-                self.verify_signatures(pks, [dummy] * len(pks), [bytes(64)] * len(pks))
+        with warming():
+            self.verify_signatures([dummy], [dummy], [bytes(64)])
+            if self._table is not None:
+                self._table.neg_combs51()
+                if len(self._table) > 1:
+                    pks = list(self._table._keys)
+                    self.verify_signatures(pks, [dummy] * len(pks), [bytes(64)] * len(pks))
 
     def resolved_backend(self) -> str:
         """The torch device type the dispatches land on ("cuda" or "cpu")."""

@@ -1,10 +1,9 @@
 """Node-level orchestration: connections, verify-then-add pipeline, timeouts.
 
-The port's copy of ``mysticeti_tpu.net_sync``.  It differs in one place:
-the shared ``FrameCache`` is always on (the port has no
-``MYSTICETI_MESH_LEGACY`` knob).  Snapshot catch-up is served and adopted
-as in the JAX package: a node whose core has no storage lifecycle answers no
-``RequestSnapshot`` (``Core.snapshot_manifest_for`` gives ``None``).
+The port's copy of ``mysticeti_tpu.net_sync``.  Snapshot catch-up is
+served and adopted as in the JAX package: a node whose core has no storage
+lifecycle answers no ``RequestSnapshot`` (``Core.snapshot_manifest_for``
+gives ``None``).
 
 Capability parity with ``mysticeti-core/src/net_sync.rs``:
 
@@ -47,6 +46,7 @@ from .network import (
     SubscribeOthersFrom,
     SubscribeOwnFrom,
     TimestampedBlocks,
+    mesh_legacy,
     wall_jump_us,
 )
 from .synchronizer import (
@@ -168,8 +168,9 @@ class NetworkSyncer:
         self._disseminators: Dict[int, BlockDisseminator] = {}
         # Encode-once fan-out (synchronizer.FrameCache): one shared cache
         # across every peer's disseminator, so N-1 subscribers at the same
-        # cursor ship one serialization.
-        self.frame_cache = FrameCache(metrics)
+        # cursor ship one serialization.  MYSTICETI_MESH_LEGACY=1 restores
+        # the per-peer build path (the A/B baseline).
+        self.frame_cache = None if mesh_legacy() else FrameCache(metrics)
         # Helper-stream bookkeeping (requester side; armed by the
         # disseminate_others_blocks knob): which connected peers relay which
         # unreachable authority's blocks for us, within the config caps.

@@ -54,6 +54,7 @@ from __future__ import annotations
 import asyncio
 import collections
 import dataclasses
+import os
 import random
 import sys
 import time
@@ -74,6 +75,14 @@ PING_INTERVAL_S = 30.0
 # multi-MB frames still hits transport flow control per batch instead of
 # buffering the whole queue.
 MAX_COALESCE_BYTES = 1 << 20
+
+
+def mesh_legacy() -> bool:
+    """True when ``MYSTICETI_MESH_LEGACY=1``: run the pre-broadcast-once
+    data plane (per-peer encode, per-frame write, stream receive).  Read
+    per connection setup, not cached — tests and the A/B harness flip it
+    between runs in one process."""
+    return os.environ.get("MYSTICETI_MESH_LEGACY", "") == "1"
 
 
 def jittered_backoff(delay: float, rng: random.Random) -> float:
@@ -759,13 +768,18 @@ class _FrameReceiver(asyncio.BufferedProtocol):
         # send incoming bytes into the orphaned buffer.
         self._recv_pending = False
 
+    # Connections this process switched to zero-copy reads (``attach``).
+    attached = 0
+
     @classmethod
     def attach(cls, reader: asyncio.StreamReader, writer: asyncio.StreamWriter):
         """Switch a handshaken stream connection to zero-copy reads.
 
         Returns None when the transport cannot be switched (mock streams in
-        tests) — the caller falls back to the ``_read_frame(reader)`` stream
-        path, frame-for-frame compatible."""
+        tests, ``MYSTICETI_MESH_LEGACY=1``) — the caller falls back to the
+        ``_read_frame(reader)`` stream path, frame-for-frame compatible."""
+        if mesh_legacy():
+            return None
         transport = getattr(writer, "transport", None)
         buffered = getattr(reader, "_buffer", None)
         if (
@@ -803,6 +817,7 @@ class _FrameReceiver(asyncio.BufferedProtocol):
                 transport.resume_reading()
             except Exception:  # noqa: BLE001 - not paused / closing: fine
                 pass
+        cls.attached += 1
         return receiver
 
     # -- consumer side --
@@ -1029,7 +1044,16 @@ class TcpNetwork:
         except Exception:
             writer.close()
             return
-        await self._run_peer(peer, reader, writer)
+        # Tracked with the dial workers, so ``stop`` closes accepted
+        # connections too: on Python 3.12 ``Server.wait_closed`` waits for
+        # every one of them, and a node stopped while its dialers live on
+        # would wait forever.
+        task = asyncio.current_task()
+        self._tasks.append(task)
+        try:
+            await self._run_peer(peer, reader, writer)
+        finally:
+            self._tasks.remove(task)
 
     # -- outbound --
 
@@ -1074,10 +1098,11 @@ class TcpNetwork:
             metrics=self.metrics,
         )
         await self.connections.put(conn)
-        receiver = _FrameReceiver.attach(reader, writer)
+        legacy = mesh_legacy()
+        receiver = None if legacy else _FrameReceiver.attach(reader, writer)
         metrics = self.metrics
         recv_bytes = sent_bytes = coalesced = None
-        if metrics is not None:
+        if metrics is not None and not legacy:
             recv_bytes = metrics.mesh_wire_bytes_total.labels("received")
             sent_bytes = metrics.mesh_wire_bytes_total.labels("sent")
             coalesced = metrics.mesh_frames_coalesced_total
@@ -1154,6 +1179,16 @@ class TcpNetwork:
                 if metrics is not None
                 else (lambda _name: contextlib.nullcontext())
             )
+            if legacy:
+                # Pre-r10 path: one encode + one concat + one drain PER
+                # frame.  The encode timer runs here too so the A/B
+                # artifact can compare mesh encode CPU across modes.
+                while True:
+                    msg = await conn.sender.get()
+                    with encode_timer("net:mesh_encode"):
+                        payload = frame_payload(msg)
+                    _write_frame(writer, payload)
+                    await writer.drain()
             while True:
                 # Scatter-gather coalescing: drain the queue non-blocking
                 # and ship the batch as one writelines + ONE drain — the

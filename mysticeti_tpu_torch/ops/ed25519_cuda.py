@@ -26,10 +26,11 @@ one to the other.  A launch runs with the tensors' device made current, goes
 to that device's current stream, allocates nothing inside the kernel
 (outputs come from ``torch.empty`` here), is checked with
 ``cudaGetLastError`` (a non-zero code raises), and adds one to its kernel's
-``launches`` count.
+``launches`` count (and to ``warmup_launches`` as well inside ``warming``).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 from typing import Optional
@@ -45,10 +46,26 @@ KEYED_TILE = 32
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
+# The calling thread's depth of ``warming`` blocks.
+_WARMING = threading.local()
+
+
+@contextlib.contextmanager
+def warming():
+    """Launches made on this thread inside the block count also as warm-up
+    launches (``Kernel.warmup_launches``): a verifier warms up at boot beside
+    other threads' flushes, which a count read meanwhile must tell apart."""
+    depth = getattr(_WARMING, "depth", 0)
+    _WARMING.depth = depth + 1
+    try:
+        yield
+    finally:
+        _WARMING.depth = depth
+
 
 class Kernel:
-    """One CUDA kernel: its source, what it replaces, its launch count.
-    ``source`` names the ``csrc/<source>.cu`` file that defines
+    """One CUDA kernel: its source, what it replaces, its launch count and
+    how many of those launches were made inside ``warming``.  ``source`` names the ``csrc/<source>.cu`` file that defines
     ``<name>_launch`` (default: the kernel's own name)."""
 
     def __init__(self, name: str, replaces: str, argtypes, source: Optional[str] = None) -> None:
@@ -57,6 +74,7 @@ class Kernel:
         self.source = f"mysticeti_tpu_torch/csrc/{self.unit}.cu"
         self.replaces = replaces
         self.launches = 0
+        self.warmup_launches = 0
         self._argtypes = argtypes
         self._fn = None
         self._count_lock = threading.Lock()  # collector threads launch concurrently
@@ -83,10 +101,12 @@ class Kernel:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err}")
         with self._count_lock:
             self.launches += 1
+            if getattr(_WARMING, "depth", 0):
+                self.warmup_launches += 1
 
     def reset_counts(self) -> None:
         with self._count_lock:
-            self.launches = 0
+            self.launches = self.warmup_launches = 0
 
 
 PROLOGUE = Kernel(

@@ -104,9 +104,10 @@ SUBSYSTEMS: Dict[str, str] = {
     "ssh": "tooling", "testbed": "tooling", "validator": "tooling",
     # The entry points, the benchmark, the flamegraph renderer's CLI, the
     # node-a-process attribution probe, the scenario-matrix probe, the lint's
-    # alias, the trace and fleet-health tools, the kernel and storage tools
-    # and the load and catch-up fleet benches (``tools/detsan.py`` shares
-    # ``detsan``'s row).
+    # alias, the trace and fleet-health tools, the kernel and storage tools,
+    # the load and catch-up fleet benches and the data-plane, mesh,
+    # reconfiguration, finality and execution probes (``tools/detsan.py``
+    # shares ``detsan``'s row).
     "entry": "tooling", "bench": "tooling", "mkflamegraph": "tooling",
     "perf_attr": "tooling", "scenario_matrix": "tooling", "lint": "tooling",
     "trace_report": "tooling", "fleet_trace": "tooling", "fleetmon": "tooling",
@@ -114,6 +115,8 @@ SUBSYSTEMS: Dict[str, str] = {
     "bench_trend": "tooling", "wal_inspect": "tooling", "storage_probe": "tooling",
     "commit_explain": "tooling", "maxload_bench": "tooling", "chip_window_ab": "tooling",
     "node_bench": "tooling", "catchup_bench": "tooling", "overload_bench": "tooling",
+    "dataplane_ab": "tooling", "mesh_ab": "tooling", "reconfig_matrix": "tooling",
+    "finality_bench": "tooling", "execution_bench": "tooling",
     # Runtime facade + the deterministic loop.
     "__init__": "runtime", "simulated": "runtime",
 }

@@ -792,6 +792,30 @@ def _kind(verifier: Optional[str], real_crypto: bool) -> str:
     return ACCELERATOR_KIND if real_crypto else (verifier or ORACLE_KIND)
 
 
+def kind_backend(kind: str, committee, device=None):
+    """The one backend a signature ``kind``'s collectors share (see
+    :func:`verifier_factory`), made and warmed; None for ``sim-oracle`` and
+    ``accept``, which have none."""
+    from .block_validator import (
+        CpuSignatureVerifier,
+        HybridSignatureVerifier,
+        TorchSignatureVerifier,
+    )
+
+    if kind in (ORACLE_KIND, "accept"):
+        return None
+    base = kind[: -len("-agg")] if kind.endswith("-agg") else kind
+    if base not in ("cpu", HYBRID_KIND, ACCELERATOR_KIND):
+        raise ValueError(f"unknown verifier kind {kind!r}")
+    if base == "cpu":
+        return CpuSignatureVerifier()
+    backend = TorchSignatureVerifier(committee_keys=committee.public_key_bytes(), device=device)
+    if base == HYBRID_KIND:
+        backend = HybridSignatureVerifier(tpu=backend)
+    backend.warmup()
+    return backend
+
+
 def verifier_factory(kind: str, committee, device=None, backend=None):
     """A scenario-scoped verifier factory for a verifier ``kind``.
 
@@ -806,32 +830,15 @@ def verifier_factory(kind: str, committee, device=None, backend=None):
     collector's threshold aggregation.  The backend is made and warmed
     here, before the simulation (``backend`` supplies it instead), so a
     kernel kind without a card raises at once."""
-    from .block_validator import (
-        AcceptAllBlockVerifier,
-        BatchedSignatureVerifier,
-        CpuSignatureVerifier,
-        HybridSignatureVerifier,
-        TorchSignatureVerifier,
-    )
+    from .block_validator import AcceptAllBlockVerifier, BatchedSignatureVerifier
 
     if kind == ORACLE_KIND:
         return oracle_verifier_factory(len(committee))
     if kind == "accept":
         return lambda authority, committee, metrics: AcceptAllBlockVerifier()
     aggregate = kind.endswith("-agg")
-    base = kind[: -len("-agg")] if aggregate else kind
-    if base not in ("cpu", HYBRID_KIND, ACCELERATOR_KIND):
-        raise ValueError(f"unknown verifier kind {kind!r}")
     if backend is None:
-        if base == "cpu":
-            backend = CpuSignatureVerifier()
-        else:
-            backend = TorchSignatureVerifier(
-                committee_keys=committee.public_key_bytes(), device=device
-            )
-            if base == HYBRID_KIND:
-                backend = HybridSignatureVerifier(tpu=backend)
-            backend.warmup()
+        backend = kind_backend(kind, committee, device)
 
     def factory(authority, committee, metrics):
         return BatchedSignatureVerifier(

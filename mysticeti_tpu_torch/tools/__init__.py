@@ -39,8 +39,37 @@ def card() -> Optional[str]:
     return None if line.startswith("nvidia-smi unavailable") else line
 
 
-def launch_counts() -> dict:
-    """Every kernel wrapper's launch count in this process."""
+def node_kind(verifier: str) -> str:
+    """The kind a tool's validators run for its ``verifier``: the JAX tools'
+    fleets and live validators run the ``cpu`` kind where their sims run the
+    re-sign oracle (``sim-oracle``)."""
+    return "cpu" if verifier == "sim-oracle" else verifier
+
+
+def launch_counts(warmup: bool = False) -> dict:
+    """Every kernel wrapper's launch count in this process; with ``warmup``,
+    those of its launches made inside a verifier's warm-up
+    (``Kernel.warmup_launches``)."""
     from ..ops import ed25519_cuda as K
 
-    return {k.name: k.launches for k in K.KERNELS}
+    return {k.name: k.warmup_launches if warmup else k.launches for k in K.KERNELS}
+
+
+def warmups_since(before: dict) -> dict:
+    """The warm-up launches in this process since ``before`` (a
+    ``launch_counts(warmup=True)``)."""
+    return {k: v - before.get(k, 0) for k, v in launch_counts(warmup=True).items()}
+
+
+def launches_since(before: dict, warmups_before: Optional[dict] = None) -> dict:
+    """Every kernel wrapper's launches in this process since ``before`` (a
+    ``launch_counts()``); with ``warmups_before`` (a
+    ``launch_counts(warmup=True)`` taken with it), less the warm-up launches
+    since then.  In-process validators warm their verifiers as they boot,
+    beside the others' flushes, so a window's launches less these are its
+    flushes'."""
+    out = {k: v - before.get(k, 0) for k, v in launch_counts().items()}
+    if warmups_before is not None:
+        for k, v in warmups_since(warmups_before).items():
+            out[k] -= v
+    return out

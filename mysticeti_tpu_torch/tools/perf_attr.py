@@ -13,6 +13,8 @@ artifact:
 * verifier dispatch occupancy fractions (device-busy / host-pack /
   fetch-wait) and the kernels' build counters
   (``mysticeti_cuda_build*``),
+* the batches each node degraded to the CPU oracle
+  (``verifier_fallback_total``),
 * each node's exit code.
 
 Genesis is ``benchmark-genesis``'s, on its fixed ports (1500+i, metrics
@@ -82,6 +84,7 @@ def scrape_node(host: str, port: int) -> Optional[dict]:
         "transfer_bytes": {},
         "blocking_calls": 0.0,
         "slo_alerts": {},
+        "verifier_fallback": 0.0,
     }
     for name, labels, value in iter_series(text):
         if name == "committed_leaders_total":
@@ -109,6 +112,8 @@ def scrape_node(host: str, port: int) -> Optional[dict]:
             out["transfer_bytes"][labels.get("direction", "?")] = value
         elif name == "mysticeti_blocking_calls_total":
             out["blocking_calls"] += value
+        elif name == "verifier_fallback_total":
+            out["verifier_fallback"] += value
         elif name == "mysticeti_health_slo_alerts_total":
             kind = labels.get("kind", "?")
             out["slo_alerts"][kind] = out["slo_alerts"].get(kind, 0.0) + value
@@ -212,6 +217,11 @@ def aggregate(
         "slo_alert_totals": dict(sorted(alert_totals.items())),
         "committed_leaders_by_node": {
             k: int(v["leaders"]) for k, v in sorted(live.items())
+        },
+        # Batches a node's collector degraded to the CPU oracle (the port's
+        # addition: a card fleet must show none).
+        "verifier_fallback_by_node": {
+            k: int(v["verifier_fallback"]) for k, v in sorted(live.items())
         },
         # Which native data-plane functions each node resolved.  The
         # shutdown report is authoritative (it is written even when load

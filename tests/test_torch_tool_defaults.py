@@ -21,7 +21,7 @@ from mysticeti_tpu_torch.tools import BUILD_DIR, REPO
 TOOLS = sorted(m.name for m in pkgutil.iter_modules(tools_pkg.__path__))
 # The output and index options of the tools (their inputs are required
 # arguments or default to None).
-OUTPUTS = {"out", "repo", "working_dir"}
+OUTPUTS = {"out", "repo", "working_dir", "workdir"}
 
 
 class _Captured(Exception):
@@ -91,7 +91,8 @@ def test_every_new_tool_has_its_parser_captured():
     for name in ("kernel_parity", "bench_probe", "mesh_scaling", "bench_trend", "wal_inspect",
                  "storage_probe", "commit_explain", "perf_attr", "scenario_matrix", "detsan",
                  "maxload_bench", "chip_window_ab", "node_bench", "catchup_bench",
-                 "overload_bench"):
+                 "overload_bench", "dataplane_ab", "mesh_ab", "reconfig_matrix",
+                 "finality_bench", "execution_bench"):
         assert name in TOOLS
         assert _parser(importlib.import_module(f"mysticeti_tpu_torch.tools.{name}")) is not None
 
