@@ -3693,7 +3693,7 @@ def storage_phase(kernels, control=True):
     return launches, reading
 
 
-async def epoch_sim(config, tmp_dir, make_collector, metrics=None, oracle=True):
+async def epoch_sim(config, tmp_dir, make_collector, metrics=None):
     """``config``'s fleet (``EPOCH_10``'s shape) as a ``SimFleet`` with the
     reconfiguration and execution planes on, and the workload of
     ``tests/test_reconfig.py``'s churn test and ``scenarios``' execution workload:
@@ -3704,7 +3704,7 @@ async def epoch_sim(config, tmp_dir, make_collector, metrics=None, oracle=True):
     1,000, two TRANSFERs of 300 in nonce order, one TRANSFER of 500 that
     overdraws).  Every incarnation's collector counts its ``note_committee``
     calls, and the roots its core folds are recorded.  Returns
-    ``epoch_result`` (the finalization oracle's readings with ``oracle``)."""
+    ``epoch_result``."""
     from mysticeti_tpu_torch import reconfig
     from mysticeti_tpu_torch.config import Parameters, StorageParameters
     from mysticeti_tpu_torch.execution import OP_CREATE, OP_TRANSFER, ExecTx
@@ -3766,7 +3766,7 @@ async def epoch_sim(config, tmp_dir, make_collector, metrics=None, oracle=True):
 
     fleet = SimFleet(config, tmp_dir, make_collector, parameters, metrics, on_build)
     await fleet.run(workload)
-    return epoch_result(fleet, incarnations, roots, conflicts, planted, oracle)
+    return epoch_result(fleet, incarnations, roots, conflicts, planted)
 
 
 class RoundPrefix:
@@ -3826,14 +3826,14 @@ def oracle_nodes(config) -> list:
     return sorted({0, config["rebooter"], config["retiree"]})
 
 
-def epoch_result(fleet, incarnations, roots, conflicts, planted, oracle) -> dict:
+def epoch_result(fleet, incarnations, roots, conflicts, planted) -> dict:
     """What the epoch checks and readings read off the finished fleet: the
     committed sequences; each node's last incarnation's epoch, epoch chain,
     execution height, root, state bytes' digest, the planted accounts it
     holds and how many of those do not read (400, 3) (1,000 less two
     transfers of 300, three nonces: the overdraft rejected), its
-    ``mysticeti_execution_txs_total`` by verdict and, with ``oracle`` and
-    for the ``oracle_nodes``, the finalization oracle's reading over its
+    ``mysticeti_execution_txs_total`` by verdict and, for the
+    ``oracle_nodes``, the finalization oracle's reading over its
     first ``config["oracle_rounds"]`` rounds; every incarnation's boot
     readings, epoch at its end and ``note_committee`` calls; the roots folded by height; the settled
     receive counts, forged copies, registries' invalid blocks and verified
@@ -3863,7 +3863,7 @@ def epoch_result(fleet, incarnations, roots, conflicts, planted, oracle) -> dict
             "verdicts": verdicts(metrics[a]),
             "finalization": None,
         })
-        if oracle and a in oracle_nodes(config):
+        if a in oracle_nodes(config):
             t0 = time.monotonic()
             per_node[-1]["finalization"] = finalization_reading(
                 last[a], fleet.commits.anchors[a], config["oracle_rounds"])
@@ -3893,10 +3893,10 @@ def epoch_run(kind, config, on_ready=None, device=None) -> dict:
     every incarnation of every node with its own verifier of ``kind``
     (``_make_verifier``).  The accelerator kinds' verifiers, one for each
     incarnation the schedule boots, are made and warmed (the kernels' first
-    launches, the combs' upload) before ``on_ready()`` and the run; their
-    run also reads the finalization oracle (the ``cpu`` run, which must
-    commit the same sequences, does not).  Returns the result with its wall
-    seconds (the oracle's included) and the verifiers' warm-up seconds."""
+    launches, the combs' upload) before ``on_ready()`` and the run.  Every
+    run reads the finalization oracle over the finished stores.  Returns
+    the result with its wall seconds (the oracle's included) and the
+    verifiers' warm-up seconds."""
     import tempfile
 
     from mysticeti_tpu_torch.committee import Committee
@@ -3926,8 +3926,8 @@ def epoch_run(kind, config, on_ready=None, device=None) -> dict:
         on_ready()
     with tempfile.TemporaryDirectory(prefix="epoch-") as d:
         t0 = time.monotonic()
-        result = run_simulation(epoch_sim(config, d, make_collector, metrics,
-                                          oracle=kind != "cpu"), seed=config["seed"])
+        result = run_simulation(epoch_sim(config, d, make_collector, metrics),
+                                seed=config["seed"])
         result["wall_s"] = time.monotonic() - t0
     result["warmup_s"] = warmup_s
     return result
@@ -7024,70 +7024,17 @@ def apps_checks(run) -> None:
               f"or a second service opened a context")
 
 
-class ServiceChild:
-    """A verifier service for ``n`` benchmark validators in a child process,
-    started as the runner starts one (``python -m mysticeti_tpu_torch
-    verifier-service``) with ``FLEET_HOOK`` reporting its launches into
-    ``report_dir``; ``start`` returns once it is warm (a HELLO round trip),
-    ``stop`` ends it with SIGTERM (the hook's report) or SIGKILL."""
-
-    def __init__(self, workdir, n, hook, report_dir):
-        import shutil
-
-        from mysticeti_tpu_torch.cli import benchmark_genesis
-
-        shutil.rmtree(workdir, ignore_errors=True)
-        shutil.rmtree(report_dir, ignore_errors=True)
-        os.makedirs(report_dir)
-        benchmark_genesis(["127.0.0.1"] * n, workdir)
-        self.workdir, self.hook, self.report_dir = workdir, hook, report_dir
-        self.socket = os.path.join(workdir, "verifier.sock")
-        self.proc = None
-
-    def start(self):
-        from mysticeti_tpu_torch.committee import Committee
-        from mysticeti_tpu_torch.verifier_service import RemoteSignatureVerifier
-
-        committee_path = os.path.join(self.workdir, "committee.yaml")
-        with open(os.path.join(self.workdir, "verifier-service.log"), "ab") as log:
-            self.proc = subprocess.Popen(
-                [sys.executable, "-m", "mysticeti_tpu_torch", "verifier-service", "--socket",
-                 self.socket, "--committee-path", committee_path],
-                cwd=HERE, env=hook_env(self.hook, self.report_dir), stdout=log, stderr=log)
-        probe = RemoteSignatureVerifier(
-            socket_path=self.socket, timeout_s=900.0,
-            committee_keys=Committee.load(committee_path).public_key_bytes())
-        deadline = time.monotonic() + 300
-        while True:
-            check(self.proc.poll() is None and time.monotonic() < deadline,
-                  f"the verifier service in {self.workdir} died or never warmed")
-            try:
-                if os.path.exists(self.socket):
-                    probe.warmup()
-                    return
-            except (ConnectionError, OSError):
-                pass
-            time.sleep(0.2)
-
-    def stop(self):
-        if self.proc is not None and self.proc.poll() is None:
-            import signal
-
-            self.proc.send_signal(signal.SIGTERM)
-            try:
-                self.proc.wait(10)
-            except subprocess.TimeoutExpired:
-                self.proc.kill()
-                self.proc.wait()
-
-
 def last_tools_phase(kernels, runs=LAST_TOOL_RUNS, timeout=300) -> tuple:
     """Step 24: ``runs`` one after another through ``run_fleet_tools``, each
     held to ``last_tool_checks``; dataplane-4's nodes verify through a
-    ``ServiceChild`` this step starts (``MYSTICETI_VERIFIER_SOCKET``).  Every
-    launch it counts is a child's, so it can run beside a phase of this
-    process.  Returns the launches of the tools' processes and verifier
-    services and the readings."""
+    ``tools.ServiceChild`` this step starts (``MYSTICETI_VERIFIER_SOCKET``),
+    reporting its launches through ``FLEET_HOOK``.  Every launch it counts
+    is a child's, so it can run beside a phase of this process.  Returns the
+    launches of the tools' processes and verifier services and the
+    readings."""
+    import shutil
+
+    from mysticeti_tpu_torch.tools import ServiceChild
     from mysticeti_tpu_torch.verifier_service import ENV_SOCKET
 
     t0 = time.monotonic()
@@ -7101,19 +7048,24 @@ def last_tools_phase(kernels, runs=LAST_TOOL_RUNS, timeout=300) -> tuple:
     for name, module, out_name, args in runs:
         service = env = None
         if module == "dataplane_ab":
+            report_dir = os.path.join(TOOLS_DIR, "fleet-reports", f"{name}-service")
+            shutil.rmtree(report_dir, ignore_errors=True)
+            os.makedirs(report_dir)
             service = ServiceChild(os.path.join(TOOLS_DIR, "fleets", f"{name}-service"),
-                                   FLEET_NODES, hook,
-                                   os.path.join(TOOLS_DIR, "fleet-reports", f"{name}-service"))
+                                   FLEET_NODES, env=hook_env(hook, report_dir))
         try:
             if service is not None:
-                service.start()
+                try:
+                    service.start()
+                except RuntimeError as exc:
+                    raise SmokeFailure(str(exc)) from exc
                 env = {ENV_SOCKET: service.socket}
             run = run_fleet_tool(name, module, out_name, args, hook, timeout, env)
         finally:
             if service is not None:
                 service.stop()
         if service is not None:
-            reports = fleet_reports(service.report_dir)
+            reports = fleet_reports(report_dir)
             run["services"] += reports["services"]
             run["service_starts"] += reports["service_starts"]
         reading = last_tool_checks(run, readings["card"])

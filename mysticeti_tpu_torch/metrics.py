@@ -196,6 +196,24 @@ class Metrics:
         self.latency_squared_s = counter(
             LATENCY_SQUARED_S, "sum of squared latencies", labels=("workload",)
         )
+        # Scraped for the reference's inventory (metrics.rs:36-87; PARITY.md),
+        # as the JAX package keeps them: no writer in either package.
+        self.inter_block_latency_s = histogram(
+            "inter_block_latency_s", "inter-block latency", labels=("workload",),
+            buckets=LATENCY_SEC_BUCKETS,
+        )
+        self.ready_new_block = counter(
+            "ready_new_block", "proposal readiness reasons", labels=("reason",)
+        )
+        self.block_store_entries = counter("block_store_entries", "stored blocks")
+        self.wal_mappings = gauge("wal_mappings", "live mmap windows")
+        self.commit_handler_pending_certificates = gauge(
+            "commit_handler_pending_certificates", "pending commit certs"
+        )
+        self.block_sync_requests_sent = counter(
+            "block_sync_requests_sent", "sync requests", labels=("peer",)
+        )
+        self.connected_nodes = gauge("connected_nodes", "live peer connections")
 
         # Consensus progress (syncer, commit observer).
         self.committed_leaders_total = counter(

@@ -116,7 +116,7 @@ SUBSYSTEMS: Dict[str, str] = {
     "commit_explain": "tooling", "maxload_bench": "tooling", "chip_window_ab": "tooling",
     "node_bench": "tooling", "catchup_bench": "tooling", "overload_bench": "tooling",
     "dataplane_ab": "tooling", "mesh_ab": "tooling", "reconfig_matrix": "tooling",
-    "finality_bench": "tooling", "execution_bench": "tooling",
+    "finality_bench": "tooling", "execution_bench": "tooling", "dataplane_split": "tooling",
     # Runtime facade + the deterministic loop.
     "__init__": "runtime", "simulated": "runtime",
 }

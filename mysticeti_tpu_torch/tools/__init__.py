@@ -8,6 +8,11 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
+import signal
+import subprocess
+import sys
+import time
 from typing import Optional
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
@@ -73,3 +78,57 @@ def launches_since(before: dict, warmups_before: Optional[dict] = None) -> dict:
         for k, v in warmups_since(warmups_before).items():
             out[k] -= v
     return out
+
+
+class ServiceChild:
+    """A verifier service for ``n`` benchmark validators in a child process,
+    started as a user starts one (``python -m mysticeti_tpu_torch
+    verifier-service`` over the genesis committee it writes into
+    ``workdir``) with the environment ``env`` (this process's when None):
+    ``start`` returns once it is warm (a HELLO round trip) and raises
+    ``RuntimeError`` if it dies or does not warm within ``timeout_s``;
+    ``stop`` ends it with SIGTERM, or SIGKILL after 10 s."""
+
+    def __init__(self, workdir: str, n: int, env: Optional[dict] = None) -> None:
+        from ..cli import benchmark_genesis
+
+        shutil.rmtree(workdir, ignore_errors=True)
+        benchmark_genesis(["127.0.0.1"] * n, workdir)
+        self.workdir, self.env = workdir, env
+        self.socket = os.path.join(workdir, "verifier.sock")
+        self.proc = None
+
+    def start(self, timeout_s: float = 300.0) -> None:
+        from ..committee import Committee
+        from ..verifier_service import RemoteSignatureVerifier
+
+        committee_path = os.path.join(self.workdir, "committee.yaml")
+        with open(os.path.join(self.workdir, "verifier-service.log"), "ab") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-m", "mysticeti_tpu_torch", "verifier-service", "--socket",
+                 self.socket, "--committee-path", committee_path],
+                cwd=REPO, env=self.env, stdout=log, stderr=log)
+        probe = RemoteSignatureVerifier(
+            socket_path=self.socket, timeout_s=900.0,
+            committee_keys=Committee.load(committee_path).public_key_bytes())
+        deadline = time.monotonic() + timeout_s
+        while True:
+            late = time.monotonic() > deadline  # a tool's wall clock, never a sim's
+            if self.proc.poll() is not None or late:  # lint: ignore[sim-taint]
+                raise RuntimeError(f"the verifier service in {self.workdir} died or never warmed")
+            try:
+                if os.path.exists(self.socket):
+                    probe.warmup()
+                    return
+            except (ConnectionError, OSError):
+                pass
+            time.sleep(0.2)
+
+    def stop(self) -> None:
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+            try:
+                self.proc.wait(10)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()

@@ -57,8 +57,9 @@ DEFAULT_WORKDIR = build_path("dataplane-ab")
 HOT_SUBSYSTEMS = ("mesh-encode", "mesh-parse", "digest")
 
 
-def run_mode(mode: str, rep: int, args) -> dict:
-    """One fleet run in the given mode; returns the perf_attr doc."""
+def run_mode(mode: str, rep: int, args, env=None) -> dict:
+    """One fleet run in the given mode, with ``env`` over the nodes'
+    environment; returns the perf_attr doc."""
     from mysticeti_tpu_torch.tools import perf_attr
 
     # run_fleet starts every node with this process's environment and
@@ -66,7 +67,7 @@ def run_mode(mode: str, rep: int, args) -> dict:
     # generators back any longer lets empty rounds race ahead (~10/s idle vs
     # ~2/s loaded on a small host), which pads the committed-leader totals
     # of both arms with cheap leaders and buries the throughput signal.
-    env = {"TRANSACTION_SIZE": str(args.tx_size)}
+    env = {"TRANSACTION_SIZE": str(args.tx_size), **(env or {})}
     if mode == "fallback":
         env["MYSTICETI_NO_NATIVE"] = "1"
     fleet_args = argparse.Namespace(

@@ -59,10 +59,11 @@ class SimAwareFormatter(logging.Formatter):
     wall-clock otherwise."""
 
     def format(self, record: logging.LogRecord) -> str:
+        virtual = _virtual_loop_class()
         stamp = None
         try:
             loop = asyncio.get_running_loop()
-            if isinstance(loop, _virtual_loop_class()):
+            if isinstance(loop, virtual):
                 stamp = f"{loop.time():9.3f}s"
         except RuntimeError:
             pass

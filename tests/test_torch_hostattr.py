@@ -79,10 +79,10 @@ def test_registry_extends_the_jax_packages():
     (the CUDA wrappers and their build as ``verifier-pack``, the
     entries, the benchmark, the flamegraph CLI, the attribution probe, the
     scenario-matrix probe, the lint's alias, the trace and fleet-health
-    tools, the kernel and storage tools, the load and catch-up fleet benches and the
-    data-plane, mesh, reconfiguration, finality and execution probes as
-    ``tooling``); the overrides, waiting leaves and subsystem names
-    are the JAX package's."""
+    tools, the kernel and storage tools, the load and catch-up fleet benches, the
+    data-plane, mesh, reconfiguration, finality and execution probes and the
+    data-plane split as ``tooling``); the overrides, waiting leaves and
+    subsystem names are the JAX package's."""
     jax = _mod("mysticeti_tpu", "profiling")
     assert {k: v for k, v in SUBSYSTEMS.items() if k in jax.SUBSYSTEMS} == jax.SUBSYSTEMS
     assert {k: v for k, v in SUBSYSTEMS.items() if k not in jax.SUBSYSTEMS} == {
@@ -95,7 +95,7 @@ def test_registry_extends_the_jax_packages():
         "commit_explain": "tooling", "maxload_bench": "tooling", "chip_window_ab": "tooling",
         "node_bench": "tooling", "catchup_bench": "tooling", "overload_bench": "tooling",
         "dataplane_ab": "tooling", "mesh_ab": "tooling", "reconfig_matrix": "tooling",
-        "finality_bench": "tooling", "execution_bench": "tooling"}
+        "finality_bench": "tooling", "execution_bench": "tooling", "dataplane_split": "tooling"}
     assert FRAME_SUBSYSTEMS == jax.FRAME_SUBSYSTEMS
     assert profiling.WAITING_LEAVES == jax.WAITING_LEAVES
     assert SUBSYSTEM_NAMES == jax.SUBSYSTEM_NAMES
