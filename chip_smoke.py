@@ -1660,12 +1660,16 @@ def metrics_line(metrics, moved_before, tracer, n_blocks) -> dict:
     by_name = {}
     for e in events:
         by_name[e["name"]] = by_name.get(e["name"], 0) + 1
-    check(set(by_name) == set(spans.VERIFY_STAGES), f"trace spans {sorted(by_name)}")
+    check(set(by_name) == set(spans.VERIFY_STAGES) | set(spans.FLUSH_STAGES),
+          f"trace spans {sorted(by_name)}")
     check(by_name["verify_dispatch"] == n_blocks, "a block has no verify_dispatch span")
+    device_s = get("verify_device_seconds_total")
+    check(device_s > 0, "no kernel device seconds were counted")
     reading = {"blocks": n_blocks, "stage_seconds": stages, "transfer_bytes": moved,
                "occupancy": {p: get("mysticeti_verify_occupancy_fraction", {"phase": p})
                              for p in ("pack", "device", "fetch")},
                "builds": builds, "trace": {"path": os.path.relpath(path, HERE), "spans": by_name},
+               "device_s": device_s,
                "dispatches": get("verify_dispatch_batch_size_count")}
     print(json.dumps({"metrics": reading}), flush=True)
     return reading

@@ -34,8 +34,9 @@ stdlib-``ast`` rules, runnable as ``python -m mysticeti_tpu_torch.analysis``:
 * ``metrics-labels``   — every ``.labels(...)`` call site must match the
   arity/names declared for that series in ``metrics.py``.
 * ``span-names``       — every literal stage passed to the span-tracer call
-  surface (``span``/``begin_span``/``end_span``/``record_span``) must come
-  from the central registry ``spans.STAGES`` (a typo'd stage silently never
+  surface (``span``/``begin_span``/``end_span``/``record_span``/
+  ``record_interval``) must come from the central registry ``spans.STAGES``
+  or the port's own ``spans.PORT_STAGES`` (a typo'd stage silently never
   matches its begin/end and vanishes from traces).
 * ``metrics-doc``      — every series registered in ``metrics.py`` must appear
   in the package's ``docs/observability.md`` (the series inventory of

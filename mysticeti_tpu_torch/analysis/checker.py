@@ -197,8 +197,9 @@ JIT_IMPURE_PREFIXES = ("numpy.", "time.")
 
 # Rule 7: span-tracer call surface.  A stage-name typo at an instrumentation
 # site silently splits (begin under one name, end under another: the span
-# never closes) — every literal stage must come from spans.STAGES.
-SPAN_CALL_NAMES = {"span", "begin_span", "end_span", "record_span"}
+# never closes) — every literal stage must come from spans.STAGES, or from
+# the port's own spans.PORT_STAGES.
+SPAN_CALL_NAMES = {"span", "begin_span", "end_span", "record_span", "record_interval"}
 
 _IGNORE_RE = re.compile(r"#\s*lint:\s*ignore(?!-module)(?:\[([A-Za-z0-9_,\- ]+)\])?")
 # Whole-module opt-out for rules whose premise a module structurally
@@ -457,14 +458,15 @@ def check_metrics_doc(
     return findings
 
 
-def collect_span_stages(tree: ast.Module) -> Optional[Tuple[str, ...]]:
+def collect_span_stages(tree: ast.Module, name: str = "STAGES") -> Optional[Tuple[str, ...]]:
     """The central stage registry from spans.py's ``STAGES = ("...", ...)``
-    literal-tuple assignment (kept literal precisely so this parse works)."""
+    literal-tuple assignment (kept literal precisely so this parse works);
+    ``name="PORT_STAGES"`` reads the port's own names the same way."""
     for node in ast.walk(tree):
         if not isinstance(node, ast.Assign):
             continue
         for target in node.targets:
-            if isinstance(target, ast.Name) and target.id == "STAGES":
+            if isinstance(target, ast.Name) and target.id == name:
                 if isinstance(node.value, (ast.Tuple, ast.List)) and all(
                     isinstance(e, ast.Constant) and isinstance(e.value, str)
                     for e in node.value.elts
@@ -1449,7 +1451,10 @@ def analyze_paths(
                 metric_labels = collect_metric_labels(ast.parse(fh.read()))
         elif base == "spans.py" and span_stages is None:
             with open(path, "r", encoding="utf-8") as fh:
-                span_stages = collect_span_stages(ast.parse(fh.read()))
+                tree = ast.parse(fh.read())
+            span_stages = collect_span_stages(tree)
+            if span_stages is not None:
+                span_stages += collect_span_stages(tree, "PORT_STAGES") or ()
         if metric_labels is not None and span_stages is not None:
             break
 

@@ -21,11 +21,13 @@ Split of responsibilities on the receive path:
 from __future__ import annotations
 
 import asyncio
-import contextlib
+import contextvars
+import itertools
 import random
 import threading
 import time
 from itertools import islice
+from time import thread_time
 from typing import List, Optional, Sequence, Tuple
 
 from . import spans
@@ -39,6 +41,7 @@ from .verify_pipeline import (
     STAGE_DEVICE,
     STAGE_FETCH,
     STAGE_PACK,
+    STAGE_QUEUE,
     CompletedDispatch,
     DeferredDispatch,
     VerifyPipeline,
@@ -223,9 +226,12 @@ class TorchSignatureVerifier(SignatureVerifier):
             return M.dispatch_sharded_fused(mesh, public_keys, digests, signatures)
         from .ops import ed25519
 
+        # A traced collector dispatch records its host phases (_SUBMITTING).
+        phases = getattr(_SUBMITTING, "phases", None)
         if self._table is not None:
-            return ed25519.dispatch_batch_table(self._table, public_keys, digests, signatures)
-        return ed25519.dispatch_batch(public_keys, digests, signatures, self.device)
+            return ed25519.dispatch_batch_table(self._table, public_keys, digests, signatures,
+                                                phases)
+        return ed25519.dispatch_batch(public_keys, digests, signatures, self.device, phases)
 
     def verify_signatures(self, public_keys, digests, signatures):
         return list(self.verify_signatures_async(public_keys, digests, signatures).result())
@@ -1068,7 +1074,8 @@ def _observe_orphan(fut) -> None:
 
 
 def _abandon_dispatch(fut) -> None:
-    """Dispose a submitted-but-never-fetched dispatch handle.
+    """Dispose a submitted-but-never-fetched dispatch handle (``fut`` is the
+    submit's ``_timed_call`` future).
 
     Handles that hold releasable state expose ``abandon()``; plain handles
     (completed/deferred/device dispatches) need nothing.  A submit that
@@ -1076,13 +1083,58 @@ def _abandon_dispatch(fut) -> None:
     remote client discards its connection)."""
     if fut.cancelled() or fut.exception() is not None:
         return
-    abandon = getattr(fut.result(), "abandon", None)
+    abandon = getattr(fut.result()[0], "abandon", None)
     if abandon is None:
         return
     try:
         abandon()
     except Exception:  # noqa: BLE001 - best-effort cleanup on shutdown
         log.exception("abandoning an in-flight verify dispatch failed")
+
+
+def _timed_call(fn, *args):
+    """``fn(*args)`` in an executor thread, timed there: ``(result, start,
+    end, thread CPU seconds)``.  Start and end are ``time.monotonic()``, the
+    runtime clock off the simulator, so they sit on the loop's timeline."""
+    start = time.monotonic()
+    cpu = thread_time()
+    out = fn(*args)
+    return out, start, time.monotonic(), thread_time() - cpu
+
+
+class _FlushPhases:
+    """The host phases of one traced collector dispatch, as the backend
+    marks them: ``(span name, start, end, thread CPU seconds)``, each from
+    the previous mark (the first from ``start``, in the submitting thread)."""
+
+    __slots__ = ("items", "_t", "_cpu")
+
+    # The backend's phases (ops.ed25519.dispatch_batch) and their spans.
+    SPANS = {"wire": "flush_wire", "upload": "flush_upload", "launch": "flush_launch"}
+
+    def __init__(self) -> None:
+        self.items: list = []
+        self._t = self._cpu = 0.0
+
+    def start(self) -> None:
+        self._t, self._cpu = time.monotonic(), thread_time()
+
+    def mark(self, phase: str) -> None:
+        t, cpu = time.monotonic(), thread_time()
+        self.items.append((self.SPANS[phase], self._t, t, cpu - self._cpu))
+        self._t, self._cpu = t, cpu
+
+
+# The phase recorder of the traced dispatch that this thread is submitting:
+# the collector's seam into TorchSignatureVerifier, since every backend and
+# wrapper shares verify_signatures_async's three-argument form.
+_SUBMITTING = threading.local()
+
+
+# The summed verify() arrival times (loop clock) of the blocks of the flush
+# that the current task is dispatching, for verify_collector_wait_seconds_total.
+_FLUSH_ARRIVED: contextvars.ContextVar[Optional[float]] = contextvars.ContextVar(
+    "flush_arrived", default=None)
 
 
 class BatchedSignatureVerifier(BlockVerifier):
@@ -1112,6 +1164,9 @@ class BatchedSignatureVerifier(BlockVerifier):
     # stretch means "low rate", but it must not drag the EMA so far that a
     # resuming burst needs minutes of samples to recover the window.
     ARRIVAL_GAP_CAP_S = 1.0
+    # Ids of the dispatches whose flush_* spans a tracer records, unique in
+    # the process.
+    _flush_ids = itertools.count(1)
 
     def __init__(
         self,
@@ -1159,6 +1214,8 @@ class BatchedSignatureVerifier(BlockVerifier):
         # unresolved verdict force-dispatches instead of deferring again.
         self._deferred: set = set()
         self._pending: List[Tuple[StatementBlock, asyncio.Future]] = []
+        # Sum of the pending blocks' arrival times (loop clock).
+        self._pending_arrived = 0.0
         self._lock = threading.Lock()
         self._flush_task: Optional[asyncio.TimerHandle] = None
         # EMA of observed dispatch latency (wall clock); dispatches slower
@@ -1230,10 +1287,11 @@ class BatchedSignatureVerifier(BlockVerifier):
                     else 0.8 * self._arrival_gap_ema_s + 0.2 * gap
                 )
             self._pending.append((block, future))
+            self._pending_arrived += now
             if len(self._pending) >= self.max_batch:
                 # Take the full window NOW and open a fresh one.
-                window = self._pending
-                self._pending = []
+                window, arrived = self._pending, self._pending_arrived
+                self._pending, self._pending_arrived = [], 0.0
                 if self._flush_task is not None:
                     self._flush_task.cancel()
                     self._flush_task = None
@@ -1242,24 +1300,25 @@ class BatchedSignatureVerifier(BlockVerifier):
         if window is not None:
             # Flush as its own task: the prior window's dispatch may still be
             # in flight, and the bounded pipeline lets this pack overlap it.
-            spawn_logged(self._flush(window), log, name="verify-flush")
+            spawn_logged(self._flush(window, arrived), log, name="verify-flush")
         ok = await future
         if not ok:
             raise VerificationError(
                 f"signature verification failed for {block.reference!r}"
             )
 
-    def _busy(self):
-        """The ``verify:dispatch`` utilization timer, or nothing."""
-        if self.metrics is None:
-            return contextlib.nullcontext()
-        return self.metrics.utilization_timer("verify:dispatch")
-
-    def _submit_dispatch(self, pks, digests, sigs):
+    def _submit_dispatch(self, pks, digests, sigs, phases: Optional[_FlushPhases] = None):
         """Device stage (executor thread): pack-to-wire + non-blocking
-        submission through the backend's async seam."""
-        with self._busy():
+        submission through the backend's async seam; a traced dispatch's
+        ``phases`` record the backend's host phases."""
+        if phases is None:
             return self.verifier.verify_signatures_async(pks, digests, sigs)
+        phases.start()
+        _SUBMITTING.phases = phases
+        try:
+            return self.verifier.verify_signatures_async(pks, digests, sigs)
+        finally:
+            _SUBMITTING.phases = None
 
     def _dispatch_and_fetch(self, pks, digests, sigs):
         """Single-hop dispatch (simulation path): submit + fetch in one
@@ -1273,8 +1332,7 @@ class BatchedSignatureVerifier(BlockVerifier):
         ready.  The backend label and the padded lane count are read in THIS
         thread, right after ``result()``: the hybrid router records them
         thread-locally at fetch."""
-        with self._busy():
-            out = handle.result()
+        out = handle.result()
         label = getattr(self.verifier, "backend_label", type(self.verifier).__name__)
         padded = getattr(self.verifier, "dispatch_padded", None)
         if padded is None:
@@ -1283,28 +1341,44 @@ class BatchedSignatureVerifier(BlockVerifier):
         return out, label, padded
 
     async def _direct(self, blocks) -> List[bool]:
-        """One dispatch of ``blocks``' signatures through the pipeline."""
+        """One dispatch of ``blocks``' signatures through the pipeline.
+
+        Off the simulator the dispatch also counts its executor queue waits
+        (``stage="queue"``), the thread CPU of its stages, and, for a
+        collector flush, the blocks' wait since ``verify()``; with a tracer
+        it records its ``flush_*`` spans under one flush id.  Under the
+        simulator none of that is recorded: a seeded sim's trace and samples
+        stay the JAX package's."""
         if not blocks:
             return []
         loop = asyncio.get_running_loop()
         tracer = spans.active()
+        metrics = self.metrics
+        live = not is_simulated()
+        flush_id = next(self._flush_ids) if live and tracer is not None else None
+        phases = _FlushPhases() if flush_id is not None else None
         # -- pack stage (host, loop thread): key lookup + list building; the
         # numpy pack-to-wire happens inside the submit below.
         t_pack = tracer.now() if tracer is not None else 0.0
         pack_started = time.monotonic()
+        pack_cpu = thread_time()
         pks = [self.committee.get_public_key(b.author()).bytes for b in blocks]
         digests = [b.signed_digest() for b in blocks]
         sigs = [b.signature for b in blocks]
         self.pipeline.note_stage(STAGE_PACK, time.monotonic() - pack_started)
+        if live and metrics is not None:
+            metrics.verify_pipeline_stage_cpu_seconds_total.labels(STAGE_PACK).inc(
+                thread_time() - pack_cpu
+            )
+        flush = None
         if tracer is not None:
-            for block in blocks:
-                tracer.record_span("verify_pack", block.reference, t_pack)
+            flush = tracer.begin_flush([b.reference for b in blocks], t_pack)
         # -- bounded in-flight window, held from submission through fetch.
         async with self.pipeline.slot():
             t_dispatch = tracer.now() if tracer is not None else 0.0
             t_fetch = t_dispatch
             started = time.monotonic()
-            if is_simulated():
+            if not live:
                 # Inline (no executor hop) under the virtual-time simulator:
                 # while a real thread works, the virtual clock leaps timers,
                 # so any hop would make a seeded sim's commit schedule depend
@@ -1313,14 +1387,19 @@ class BatchedSignatureVerifier(BlockVerifier):
                 # submit, so the device stage is an explicit zero and the
                 # fetch stage carries the whole dispatch.
                 out, label, padded = self._dispatch_and_fetch(pks, digests, sigs)
-                device_done = started
                 self.pipeline.note_stage(STAGE_DEVICE, 0.0)
+                self.pipeline.note_stage(STAGE_FETCH, time.monotonic() - started)
             else:
+                arrived = _FLUSH_ARRIVED.get()
+                if arrived is not None and metrics is not None:
+                    metrics.verify_collector_wait_seconds_total.inc(
+                        len(blocks) * loop.time() - arrived
+                    )
                 submit_fut = loop.run_in_executor(
-                    None, self._submit_dispatch, pks, digests, sigs
+                    None, _timed_call, self._submit_dispatch, pks, digests, sigs, phases
                 )
                 try:
-                    handle = await asyncio.shield(submit_fut)
+                    handle, s0, s1, s_cpu = await asyncio.shield(submit_fut)
                 except asyncio.CancelledError:
                     # Cancelled mid-submit (node shutdown): the shielded job
                     # still runs, and its handle may hold per-dispatch
@@ -1329,62 +1408,73 @@ class BatchedSignatureVerifier(BlockVerifier):
                     # moment it lands.
                     submit_fut.add_done_callback(_abandon_dispatch)
                     raise
-                device_done = time.monotonic()
-                self.pipeline.note_stage(STAGE_DEVICE, device_done - started)
-                if tracer is not None:
+                self.pipeline.note_stage(STAGE_DEVICE, s1 - s0)
+                if flush is not None:
                     t_fetch = tracer.now()
-                    for block in blocks:
-                        tracer.record_span(
-                            "verify_device", block.reference, t_dispatch, t1=t_fetch
-                        )
+                    flush.device_done(t_dispatch, t_fetch)
                 # Shielded for the same reason: an unshielded cancel can
                 # cancel a QUEUED executor job, and then nothing consumes the
                 # handle.
+                fetch_queued = time.monotonic()
                 fetch_fut = loop.run_in_executor(
-                    None, self._fetch_dispatch, handle, len(sigs)
+                    None, _timed_call, self._fetch_dispatch, handle, len(sigs)
                 )
                 try:
-                    out, label, padded = await asyncio.shield(fetch_fut)
+                    (out, label, padded), f0, f1, f_cpu = await asyncio.shield(fetch_fut)
                 except asyncio.CancelledError:
                     fetch_fut.add_done_callback(_observe_orphan)
                     raise
-            self.pipeline.note_stage(STAGE_FETCH, time.monotonic() - device_done)
+                self.pipeline.note_stage(STAGE_FETCH, f1 - f0)
+                self.pipeline.note_stage(STAGE_QUEUE, (s0 - started) + (f0 - fetch_queued))
+                if metrics is not None:
+                    cpu = metrics.verify_pipeline_stage_cpu_seconds_total
+                    cpu.labels(STAGE_DEVICE).inc(s_cpu)
+                    cpu.labels(STAGE_FETCH).inc(f_cpu)
+                if flush_id is not None:
+                    args = {"flush": flush_id, "lanes": len(sigs)}
+                    tracer.record_interval("flush_queue", started, s0, args)
+                    for name, p0, p1, p_cpu in phases.items:
+                        tracer.record_interval(name, p0, p1, {**args, "cpu_s": p_cpu})
+                    tracer.record_interval("flush_fetch_queue", fetch_queued, f0, args)
+                    tracer.record_interval("flush_fetch", f0, f1, {**args, "cpu_s": f_cpu})
         # Under the simulator the EMA stays unseeded: it is a wall-clock
         # measurement, and _effective_delay_s arms a virtual-time flush timer
         # from it, so folding it in would make a seeded sim's flush schedule
         # depend on host load.  Sims run the fixed max_delay_s window (the
         # arrival-gap term is loop-clocked and stays live).
-        if not is_simulated():
+        if live:
             with self._lock:
                 self._dispatch_ema_s = _update_ema(
                     self._dispatch_ema_s, time.monotonic() - started, self.EMA_OUTLIER_S
                 )
-        if tracer is not None:
-            t1 = tracer.now()
-            for block in blocks:
-                tracer.record_span("verify_fetch", block.reference, t_fetch, t1=t1)
-                tracer.record_span("verify_dispatch", block.reference, t_dispatch, t1=t1)
-        if self.metrics is not None:
-            self.metrics.verify_dispatch_batch_size.observe(len(sigs))
+        if flush is not None:
+            flush.done(t_fetch, t_dispatch, tracer.now(),
+                       None if flush_id is None else {"flush": flush_id})
+        if metrics is not None:
+            metrics.verify_dispatch_batch_size.observe(len(sigs))
             # Padding waste: lanes the device computed beyond the real
             # signatures (bucket-shaped dispatches); host backends report n.
-            self.metrics.verify_padding_wasted_total.labels(label).inc(
+            metrics.verify_padding_wasted_total.labels(label).inc(
                 max(0, padded - len(sigs))
             )
             accepted = sum(bool(ok) for ok in out)
             if accepted:
-                self.metrics.verified_signatures_total.labels(label, "accepted").inc(accepted)
+                metrics.verified_signatures_total.labels(label, "accepted").inc(accepted)
             if accepted < len(out):
-                self.metrics.verified_signatures_total.labels(label, "rejected").inc(
+                metrics.verified_signatures_total.labels(label, "rejected").inc(
                     len(out) - accepted
                 )
         return out
 
-    async def _flush(self, batch=None) -> None:
+    async def _flush(self, batch=None, arrived: Optional[float] = None) -> None:
+        """Dispatch ``batch`` (default: the pending window); ``arrived`` is
+        the sum of its blocks' ``verify()`` arrival times, for
+        ``verify_collector_wait_seconds_total`` (not counted without it, nor
+        in aggregate mode, whose dispatches hold part of a window)."""
         if batch is None:
             with self._lock:
-                batch = self._pending
-                self._pending = []
+                batch, arrived = self._pending, self._pending_arrived
+                self._pending, self._pending_arrived = [], 0.0
                 if self._flush_task is not None:
                     self._flush_task.cancel()
                     self._flush_task = None
@@ -1402,7 +1492,11 @@ class BatchedSignatureVerifier(BlockVerifier):
                 self._note_endorsements(blocks, results)
             else:
                 self._account(0, len(blocks))
-                results = await self._direct(blocks)
+                token = _FLUSH_ARRIVED.set(arrived)
+                try:
+                    results = await self._direct(blocks)
+                finally:
+                    _FLUSH_ARRIVED.reset(token)
         except asyncio.CancelledError:
             # Cancelled mid-dispatch (node teardown): the window's futures
             # must still resolve, or verify() callers park forever.
@@ -1474,6 +1568,7 @@ class BatchedSignatureVerifier(BlockVerifier):
             with self._lock:
                 # Oldest first: deferred entries re-enter at the head.
                 self._pending[:0] = requeue
+                self._pending_arrived += loop.time() * len(requeue)
                 if self._flush_task is None:
                     self._schedule_flush(loop)
         return results

@@ -18,10 +18,13 @@ already deterministic under the DeterministicLoop.
 from __future__ import annotations
 
 import asyncio
+import itertools
+import time
 from typing import List, Optional, Sequence, Set
 
+from . import spans
 from .syncer import Syncer
-from .tracing import logger
+from .tracing import current_authority, logger
 from .types import AuthoritySet, BlockReference, RoundNumber, StatementBlock
 
 log = logger(__name__)
@@ -256,7 +259,13 @@ class DataPlaneOffload:
     mirroring verify_pipeline's stage gauges:
     ``utilization_timer{proc="offload:<stage>"}`` (busy µs, measured IN the
     worker thread so executor queue wait is excluded) and the
-    ``dataplane_offload_seconds{stage}`` histogram.
+    ``dataplane_offload_seconds{stage}`` histogram.  Beside them the port
+    counts each batch's queue wait from submission to the worker's start
+    (``dataplane_offload_queue_seconds_total{stage}``) and the worker's
+    thread CPU over it (``dataplane_offload_cpu_seconds_total{stage}``),
+    and with a span tracer records ``offload_queue`` and
+    ``offload_<stage>`` spans carrying the frame's id and block count (the
+    length of the first argument, the frame's serialized blocks).
 
     Determinism: ``active()`` is False under ``runtime.is_simulated()`` —
     seeded sims take the caller's inline path and stay byte-identical
@@ -274,6 +283,7 @@ class DataPlaneOffload:
         self.metrics = metrics
         self._executor = None
         self._active: Optional[bool] = None
+        self._frame_ids = itertools.count(1)
 
     def active(self) -> bool:
         if self._active is None:
@@ -304,20 +314,35 @@ class DataPlaneOffload:
         """Run ``fn(*args)`` on the offload worker; awaitable result."""
         loop = asyncio.get_running_loop()
         metrics = self.metrics
+        tracer = spans.active()
+        authority = current_authority.get()  # the worker sees no context
+        # The runtime clock off the simulator (the only place the offload
+        # runs): the worker's readings sit on the loop's timeline.
+        submitted = time.monotonic()
 
         def work():
-            if metrics is None:
+            if metrics is None and tracer is None:
                 return fn(*args)
-            from time import perf_counter
-
-            t0 = perf_counter()
+            t0, cpu0 = time.monotonic(), time.thread_time()
             try:
+                if metrics is None:
+                    return fn(*args)
                 with metrics.utilization_timer(f"offload:{stage}"):
                     return fn(*args)
             finally:
-                metrics.dataplane_offload_seconds.labels(stage).observe(
-                    perf_counter() - t0
-                )
+                t1, cpu = time.monotonic(), time.thread_time() - cpu0
+                if metrics is not None:
+                    metrics.dataplane_offload_seconds.labels(stage).observe(t1 - t0)
+                    metrics.dataplane_offload_queue_seconds_total.labels(stage).inc(
+                        t0 - submitted
+                    )
+                    metrics.dataplane_offload_cpu_seconds_total.labels(stage).inc(cpu)
+                if tracer is not None:
+                    args_ = {"frame": next(self._frame_ids),
+                             "blocks": len(args[0]) if args else 0}
+                    tracer.record_interval("offload_queue", submitted, t0, args_, authority)
+                    tracer.record_interval(f"offload_{stage}", t0, t1, {**args_, "cpu_s": cpu},
+                                           authority)
 
         return await loop.run_in_executor(self._ensure_executor(), work)
 

@@ -26,7 +26,12 @@ recorder's ``flight_recorder_dumps_total``.  Every
 family keeps the JAX package's name, help, labels and buckets, except the
 JAX compile and compile-cache families, which become the kernels' build
 families (``mysticeti_cuda_build*``, see
-``ops.ed25519.install_device_attribution``).  ``serve_metrics`` serves
+``ops.ed25519.install_device_attribution``); the port's own splits of the
+receive path (``verify_pipeline_stage_cpu_seconds_total``,
+``verify_device_seconds_total``, ``verify_collector_wait_seconds_total``,
+``dataplane_offload_queue_seconds_total``,
+``dataplane_offload_cpu_seconds_total``) have no JAX counterpart.
+``serve_metrics`` serves
 ``/metrics``, ``/healthz``, and with a probe, a recorder or a consensus
 document wired ``/health``, ``/debug/flight-recorder`` and
 ``/debug/consensus``.  ``MetricReporter`` publishes the exact-percentile
@@ -406,6 +411,21 @@ class Metrics:
             "the offload worker thread (queue wait excluded)",
             labels=("stage",),
         )
+        # The port's split of the same offload stages (core_task.py, off the
+        # simulator): the executor's queue wait before each batch starts,
+        # and the worker's thread CPU over the batch.
+        self.dataplane_offload_queue_seconds_total = counter(
+            "dataplane_offload_queue_seconds_total",
+            "seconds data-plane offload batches waited from submission to "
+            "their start in the dataplane-offload worker, by stage",
+            labels=("stage",),
+        )
+        self.dataplane_offload_cpu_seconds_total = counter(
+            "dataplane_offload_cpu_seconds_total",
+            "thread CPU seconds of the dataplane-offload worker over its "
+            "batches, by stage (beside dataplane_offload_seconds' wall time)",
+            labels=("stage",),
+        )
         # Signature verifier: the collector (block_validator.py); aggregate
         # mode counts its skipped and direct signatures under
         # backend="aggregate".
@@ -597,6 +617,30 @@ class Metrics:
             "verify_pipeline_stage_seconds",
             "per-dispatch time in each verify pipeline stage",
             labels=("stage",),
+        )
+        # The port's splits of a collector dispatch (block_validator.py, off
+        # the simulator): thread CPU beside the stage seconds, the kernels'
+        # device time (traced dispatches only), and the blocks' wait in the
+        # collector.
+        self.verify_pipeline_stage_cpu_seconds_total = counter(
+            "verify_pipeline_stage_cpu_seconds_total",
+            "thread CPU seconds of the verify pipeline's stages: pack on the "
+            "loop thread, device (the submit call) and fetch (the result "
+            "call) in the executor thread that runs them",
+            labels=("stage",),
+        )
+        self.verify_device_seconds_total = counter(
+            "verify_device_seconds_total",
+            "device seconds of the verify kernels a traced collector "
+            "dispatch launched on a CUDA device, from CUDA event pairs around "
+            "each launch, read once its result is fetched",
+        )
+        self.verify_collector_wait_seconds_total = counter(
+            "verify_collector_wait_seconds_total",
+            "seconds blocks waited in the collector, from verify() to their "
+            "flush's submission to the executor (collection window plus "
+            "pipeline slot), summed over blocks; its count is "
+            "verify_batch_size_sum",
         )
         self.mysticeti_verify_occupancy_fraction = gauge(
             "mysticeti_verify_occupancy_fraction",

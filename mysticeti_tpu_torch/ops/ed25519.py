@@ -105,7 +105,10 @@ def install_device_attribution(metrics) -> bool:
     (one that must be built), ``mysticeti_cuda_builds_total`` (nvcc runs that
     succeeded) and ``mysticeti_cuda_build_seconds_total`` (their seconds,
     each from the start of its parallel build).  Transfers go to
-    ``mysticeti_device_transfer_bytes_total`` (``_note_transfer``).
+    ``mysticeti_device_transfer_bytes_total`` (``_note_transfer``), and
+    the kernels' device seconds of each dispatch given a phase recorder on
+    a CUDA device to ``verify_device_seconds_total`` (timed launches, read
+    at ``result()``).
     Attribution never changes a verdict, and a build failure still raises
     ``CudaBuildError``.  Returns True (the listener is in place)."""
     global _attr_metrics, _attr_listener_installed
@@ -126,6 +129,33 @@ def _note_transfer(direction: str, nbytes: int) -> None:
     m = _attr_metrics
     if m is not None and nbytes > 0:
         m.mysticeti_device_transfer_bytes_total.labels(direction).inc(nbytes)
+
+
+def _launch_timing(phases) -> Optional[list]:
+    """A list for the timed launches of a dispatch given a phase recorder
+    while the attribution counts device seconds, else None (nothing timed)."""
+    return [] if phases is not None and _attr_metrics is not None else None
+
+
+def _note_device_seconds(pairs) -> None:
+    """Add the timed launches' device seconds to the attribution."""
+    from . import ed25519_cuda as K
+
+    seconds = K.launch_seconds(pairs)
+    m = _attr_metrics
+    if m is not None:
+        m.verify_device_seconds_total.inc(seconds)
+
+
+class _Unrecorded:
+    """The phase recorder of a dispatch whose phases nobody records."""
+
+    @staticmethod
+    def mark(phase: str) -> None:
+        pass
+
+
+_UNRECORDED = _Unrecorded()
 
 
 def _recover_x(y: int, sign: int) -> Optional[int]:
@@ -853,19 +883,41 @@ class VerifyDispatch:
     ``result()`` pays ONE copy back to the host per device (``fetch_handles``).
     ``patches`` carries straggler sub-dispatches (unknown-key items through
     the generic kernel): ``(row indices, VerifyDispatch)`` pairs whose
-    results overwrite those rows."""
+    results overwrite those rows.  ``events`` are the timed launches'
+    CUDA event pairs, added to the attribution's device seconds once
+    ``result()`` has fetched, and released by a fetch that fails or by
+    ``abandon()``."""
 
-    __slots__ = ("_entries", "_patches")
+    __slots__ = ("_entries", "_patches", "_events")
 
-    def __init__(self, entries, patches=()) -> None:
+    def __init__(self, entries, patches=(), events=None) -> None:
         self._entries = list(entries)
         self._patches = tuple(patches)
+        self._events = events
 
     def result(self) -> np.ndarray:
-        out = fetch_handles(self._entries)
+        try:
+            out = fetch_handles(self._entries)
+        except BaseException:
+            self.abandon()
+            raise
+        events, self._events = self._events, None
+        if events:
+            _note_device_seconds(events)
         for rows, handle in self._patches:
             out[rows] = handle.result()
         return out
+
+    def abandon(self) -> None:
+        """Release what a dispatch that is never fetched holds: its timed
+        launches' events, and its patches' (the kernels run to their end)."""
+        events, self._events = self._events, None
+        if events:
+            from . import ed25519_cuda as K
+
+            K.drop_pairs(events)
+        for _, handle in self._patches:
+            handle.abandon()
 
 
 def _to_host(parts: Sequence[torch.Tensor]) -> np.ndarray:
@@ -900,15 +952,18 @@ def fetch_handles(handles) -> np.ndarray:
     return out
 
 
-def dispatch_blob_chunks(blob: np.ndarray, device) -> list:
+def dispatch_blob_chunks(blob: np.ndarray, device, phases=_UNRECORDED) -> list:
     """Slice a raw (n, 33) blob into bucket chunks, pad each, and queue the
-    prologue and generic kernels for all of them.  Returns [(count, out)]."""
+    prologue and generic kernels for all of them.  Returns [(count, out)].
+    Each chunk marks ``upload`` and ``launch`` on ``phases``."""
     from . import ed25519_cuda as K
 
     out = []
     for start, count, b in iter_buckets(blob.shape[0]):
         padded = to_device_words(_pad_to(blob[start : start + count], b), device)
+        phases.mark("upload")
         out.append((count, K.verify_generic(*K.prologue(padded))))
+        phases.mark("launch")
     return out
 
 
@@ -917,25 +972,40 @@ def dispatch_batch(
     messages: Sequence[bytes],
     signatures: Sequence[bytes],
     device=None,
+    phases=None,
 ) -> VerifyDispatch:
     """Non-blocking batched dispatch for an unknown signer set: pack on the
     host, queue every bucket chunk; the handle fetches on demand.  32-byte
-    messages take the prologue kernel; other lengths hash on the host."""
+    messages take the prologue kernel; other lengths hash on the host.
+    ``phases``, where the caller records the dispatch's host phases, is its
+    recorder: the dispatch calls its ``mark(phase)`` as the pack to the wire
+    layout (``"wire"``) and each chunk's upload (``"upload"``) and launches
+    (``"launch"``) end, and on a CUDA device with the attribution on it times
+    every launch (``verify_device_seconds_total``)."""
+    from . import ed25519_cuda as K
+
     device = resolve_device(device)
     if not signatures:
         return VerifyDispatch([])
-    if all(len(m) == 32 for m in messages):
-        return VerifyDispatch(dispatch_blob_chunks(pack_blob(public_keys, messages, signatures), device))
-    from . import ed25519_cuda as K
-
-    arrays = pack_batch(public_keys, messages, signatures)
-    handles = []
-    for start, count, b in iter_buckets(len(signatures)):
-        padded = [_pad_to(x[start : start + count], b) for x in arrays]
-        _note_transfer("to_device", sum(x.nbytes for x in padded))
-        padded = [torch.as_tensor(x, device=device) for x in padded]
-        handles.append((count, K.verify_generic(*padded)))
-    return VerifyDispatch(handles)
+    events = _launch_timing(phases)
+    marks = phases if phases is not None else _UNRECORDED
+    with K.timed_launches(events):
+        if all(len(m) == 32 for m in messages):
+            blob = pack_blob(public_keys, messages, signatures)
+            marks.mark("wire")
+            handles = dispatch_blob_chunks(blob, device, marks)
+        else:
+            arrays = pack_batch(public_keys, messages, signatures)
+            marks.mark("wire")
+            handles = []
+            for start, count, b in iter_buckets(len(signatures)):
+                padded = [_pad_to(x[start : start + count], b) for x in arrays]
+                _note_transfer("to_device", sum(x.nbytes for x in padded))
+                padded = [torch.as_tensor(x, device=device) for x in padded]
+                marks.mark("upload")
+                handles.append((count, K.verify_generic(*padded)))
+                marks.mark("launch")
+    return VerifyDispatch(handles, events=events)
 
 
 def keyed_chunk_on_device(padded: torch.Tensor, table: KeyTable) -> torch.Tensor:
@@ -950,11 +1020,12 @@ def keyed_chunk_on_device(padded: torch.Tensor, table: KeyTable) -> torch.Tensor
     return K.verify_keyed_lanes(keys, table.neg_combs51(), r_y, r_sign, s_w, k_w, ok)
 
 
-def dispatch_indexed_chunks(blob: np.ndarray, table: KeyTable) -> list:
+def dispatch_indexed_chunks(blob: np.ndarray, table: KeyTable, phases=_UNRECORDED) -> list:
     """Bucket-shaped dispatch of an indexed blob (pack_blob_indexed layout);
     returns fetch_handles entries.  Every chunk takes the prologue and the
     keyed kernel with one key per lane (the blob's key column, no grouping);
-    MYSTICETI_KEYED=0 sends them to the generic kernel instead."""
+    MYSTICETI_KEYED=0 sends them to the generic kernel instead.  Each chunk
+    marks ``upload`` and ``launch`` on ``phases``."""
     from . import ed25519_cuda as K
 
     keyed = os.environ.get("MYSTICETI_KEYED") != "0"
@@ -968,10 +1039,12 @@ def dispatch_indexed_chunks(blob: np.ndarray, table: KeyTable) -> list:
             chunk = chunk.copy()
             chunk[:, 25] &= valid[np.clip(chunk[:, 24].astype(np.int64), 0, len(valid) - 1)]
         padded = to_device_words(_pad_to(chunk, b), table.device)
+        phases.mark("upload")
         if keyed:
             handles.append((count, keyed_chunk_on_device(padded, table)))
         else:
             handles.append((count, K.verify_generic(*K.prologue(padded, table.words))))
+        phases.mark("launch")
     return handles
 
 
@@ -980,27 +1053,36 @@ def dispatch_batch_table(
     public_keys: Sequence[bytes],
     messages: Sequence[bytes],
     signatures: Sequence[bytes],
+    phases=None,
 ) -> VerifyDispatch:
     """Non-blocking committee-indexed dispatch on the table's device.  Items
-    whose pk is not in the table ride a generic-path patch."""
+    whose pk is not in the table ride a generic-path patch.  ``phases`` is
+    the caller's phase recorder, or None, as in ``dispatch_batch``."""
+    from . import ed25519_cuda as K
+
     if not signatures:
         return VerifyDispatch([])
     if not all(len(m) == 32 for m in messages):
-        return dispatch_batch(public_keys, messages, signatures, table.device)
+        return dispatch_batch(public_keys, messages, signatures, table.device, phases)
+    events = _launch_timing(phases)
+    marks = phases if phases is not None else _UNRECORDED
     idx = table.indices_for(public_keys)
     known = idx >= 0
     blob = pack_blob_indexed(idx, messages, signatures, num_keys=len(table))
-    handles = dispatch_indexed_chunks(blob, table)
+    marks.mark("wire")
+    with K.timed_launches(events):
+        handles = dispatch_indexed_chunks(blob, table, marks)
     if known.all():
-        return VerifyDispatch(handles)
+        return VerifyDispatch(handles, events=events)
     stragglers = np.flatnonzero(~known)
     generic = dispatch_batch(
         [public_keys[i] for i in stragglers],
         [messages[i] for i in stragglers],
         [signatures[i] for i in stragglers],
         table.device,
+        phases,
     )
-    return VerifyDispatch(handles, [(stragglers, generic)])
+    return VerifyDispatch(handles, [(stragglers, generic)], events=events)
 
 
 def verify_batch(public_keys, messages, signatures, device=None) -> np.ndarray:

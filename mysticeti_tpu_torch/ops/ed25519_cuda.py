@@ -27,12 +27,25 @@ to that device's current stream, allocates nothing inside the kernel
 (outputs come from ``torch.empty`` here), is checked with
 ``cudaGetLastError`` (a non-zero code raises), and adds one to its kernel's
 ``launches`` count (and to ``warmup_launches`` as well inside ``warming``).
+
+Inside ``timed_launches`` (a traced dispatch; see ``ed25519.dispatch_batch``)
+a launch outside ``warming`` is timed on the device: a CUDA event pair
+recorded right before and right after it on its stream, through libcuda's
+event calls with the GIL held from the first record to the second, so no other
+Python thread runs between them (an event recorded from Python through
+``torch.cuda.Event`` releases the GIL, and the wait to take it back would
+sit inside the pair as idle stream time).  On an idle stream the pair still
+holds the launch's own host latency besides the kernel, so it reads above
+the kernel's time in a profiler.  Untimed launches go through the one
+GIL-releasing launcher.  ``launch_seconds`` reads the pairs once their
+stream has passed them; ``drop_pairs`` releases pairs that will not be read.
 """
 from __future__ import annotations
 
 import contextlib
 import ctypes
 import threading
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -48,6 +61,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 
 # The calling thread's depth of ``warming`` blocks.
 _WARMING = threading.local()
+# The calling thread's list of timed launches (``timed_launches``).
+_TIMED = threading.local()
 
 
 @contextlib.contextmanager
@@ -61,6 +76,73 @@ def warming():
         yield
     finally:
         _WARMING.depth = depth
+
+
+@contextlib.contextmanager
+def timed_launches(into: Optional[list]):
+    """Launches made on this thread inside the block append their CUDA event
+    pair (libcuda handles) to ``into``; None times nothing.  Read them with
+    ``launch_seconds`` once the launches' results are on the host."""
+    previous = getattr(_TIMED, "into", None)
+    _TIMED.into = into
+    try:
+        yield
+    finally:
+        _TIMED.into = previous
+
+
+_libcuda_lib = None
+
+
+def _libcuda():
+    """libcuda's event calls, made with the GIL held (``PyDLL``)."""
+    global _libcuda_lib
+    if _libcuda_lib is None:
+        lib = ctypes.PyDLL("libcuda.so.1")
+        for name, argtypes in (
+            ("cuEventCreate", [ctypes.POINTER(ctypes.c_void_p), ctypes.c_uint]),
+            ("cuEventRecord", [_P, _P]),
+            ("cuEventElapsedTime", [ctypes.POINTER(ctypes.c_float), _P, _P]),
+            ("cuEventDestroy_v2", [_P]),
+        ):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = argtypes, ctypes.c_int
+        _libcuda_lib = lib
+    return _libcuda_lib
+
+
+def launch_seconds(pairs) -> float:
+    """Device seconds between each pair's events, summed, for pairs whose
+    stream has passed them (the caller fetched the launches' results); the
+    events are destroyed.  A pair that cannot be read adds nothing and is
+    reported with a ``RuntimeWarning`` (shown once by the default filter)."""
+    if not pairs:
+        return 0.0
+    drv, ms, total, unread, error = _libcuda(), ctypes.c_float(), 0.0, 0, 0
+    for start, end in pairs:
+        err = drv.cuEventElapsedTime(ctypes.byref(ms), start, end)
+        if err == 0:
+            total += ms.value
+        else:
+            unread, error = unread + 1, error or err
+        drv.cuEventDestroy_v2(start)
+        drv.cuEventDestroy_v2(end)
+    if unread:
+        warnings.warn(f"{unread} of {len(pairs)} timed launches could not be read "
+                      f"(CUDA error {error}); their device seconds are not counted",
+                      RuntimeWarning)
+    return total * 1e-3
+
+
+def drop_pairs(pairs) -> None:
+    """Destroy timed launches' events without reading them (the device
+    releases an event still pending once its stream passes it)."""
+    if not pairs:
+        return
+    drv = _libcuda()
+    for start, end in pairs:
+        drv.cuEventDestroy_v2(start)
+        drv.cuEventDestroy_v2(end)
 
 
 class Kernel:
@@ -77,32 +159,63 @@ class Kernel:
         self.warmup_launches = 0
         self._argtypes = argtypes
         self._fn = None
+        self._gil_fn = None
         self._count_lock = threading.Lock()  # collector threads launch concurrently
 
-    def _function(self):
-        if self._fn is None:
-            fn = getattr(cuda_build.load(self.unit), f"{self.name}_launch")
+    def _function(self, hold_gil: bool = False):
+        """The C launcher; with ``hold_gil`` the same symbol called without
+        releasing the GIL (a ``PyDLL`` view of the same library)."""
+        fn = self._gil_fn if hold_gil else self._fn
+        if fn is None:
+            lib = cuda_build.load(self.unit)
+            if hold_gil:
+                lib = ctypes.PyDLL(lib._name)
+            fn = getattr(lib, f"{self.name}_launch")
             fn.argtypes = self._argtypes
             fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            if hold_gil:
+                self._gil_fn = fn
+            else:
+                self._fn = fn
+        return fn
 
     def launch(self, device: torch.device, lanes: int, *args) -> None:
         """Launch on ``device``'s current stream with ``device`` made the
         current device (the C launcher uses the calling thread's current
         device); raise if the launch failed.  An empty batch launches
-        nothing (a zero-block grid is an error)."""
+        nothing (a zero-block grid is an error).  Inside ``timed_launches``
+        (and outside ``warming``) the launch is timed."""
         if lanes == 0:
             return
-        fn = self._function()
+        into = getattr(_TIMED, "into", None)
+        if getattr(_WARMING, "depth", 0):
+            into = None
         with torch.cuda.device(device):
-            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = self._function()(*args, stream) if into is None else self._timed(into, args, stream)
         if err != 0:
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA error {err}")
         with self._count_lock:
             self.launches += 1
             if getattr(_WARMING, "depth", 0):
                 self.warmup_launches += 1
+
+    def _timed(self, into: list, args, stream) -> int:
+        """The launch between a pair of libcuda events, GIL held throughout;
+        untimed if the events cannot be made."""
+        drv = _libcuda()
+        start, end = ctypes.c_void_p(), ctypes.c_void_p()
+        if drv.cuEventCreate(ctypes.byref(start), 0) != 0:
+            return self._function()(*args, stream)
+        if drv.cuEventCreate(ctypes.byref(end), 0) != 0:
+            drv.cuEventDestroy_v2(start)
+            return self._function()(*args, stream)
+        fn = self._function(hold_gil=True)
+        drv.cuEventRecord(start, stream)
+        err = fn(*args, stream)
+        drv.cuEventRecord(end, stream)
+        into.append((start.value, end.value))
+        return err
 
     def reset_counts(self) -> None:
         with self._count_lock:

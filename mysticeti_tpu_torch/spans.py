@@ -11,6 +11,12 @@ sub-stages:
     verify_fetch     the result fetch (waits for the kernels)
     verify_dispatch  the whole dispatch
 
+as one record a dispatch (:meth:`SpanTracer.begin_flush`), expanded into
+those per-block events when read.  Off the simulator the collector also
+records spans that belong to a dispatch ("flush") or to an offloaded frame
+rather than to a block (:meth:`SpanTracer.record_interval`, the names in
+``PORT_STAGES``), each carrying the flush's or frame's id.
+
 The node's modules record the per-block pipeline proper (``receive`` and
 ``verify`` in net_sync.py, ``dag_add`` in net_sync.py and core.py,
 ``proposal_wait`` in core.py and commit_observer.py, ``commit`` in
@@ -34,7 +40,7 @@ import json
 import os
 import threading
 from contextlib import contextmanager
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 from .runtime import now as runtime_now
 from .tracing import current_authority
@@ -59,6 +65,24 @@ STAGES = (
 # The stages the port's batching collector records for every dispatched block.
 VERIFY_STAGES = ("verify_pack", "verify_device", "verify_fetch", "verify_dispatch")
 
+# The port's own span names (the JAX package has none of them): spans of one
+# collector dispatch ("flush", args ``flush`` and ``lanes``) or of one
+# offloaded frame (args ``frame`` and ``blocks``), recorded off the simulator
+# through :meth:`SpanTracer.record_interval`.  The span-names lint accepts
+# them beside ``STAGES``.
+PORT_STAGES = (
+    "flush_queue",  # the loop hands the submit to the executor -> it starts
+    "flush_wire",  # KeyTable.indices_for + pack_blob_indexed
+    "flush_upload",  # to_device_words
+    "flush_launch",  # the prologue and keyed (or generic) launches
+    "flush_fetch_queue",  # the loop hands the fetch to the executor -> it starts
+    "flush_fetch",  # result(): the kernels' end and the copy back
+    "offload_queue",  # DataPlaneOffload.run -> the worker starts the frame
+    "offload_decode",  # the frame's decode on the offload worker
+)
+# The flush spans a dispatch through the CUDA backend records.
+FLUSH_STAGES = PORT_STAGES[:6]
+
 # The per-block pipeline proper: the stages every committed block crosses.
 PIPELINE_STAGES = (
     "receive",
@@ -80,6 +104,69 @@ def format_ref(ref) -> str:
     return f"A{ref.authority}R{ref.round}#{ref.digest[:4].hex()}"
 
 
+class BlockFlush:
+    """The per-block ``verify_*`` spans of one collector dispatch, held as
+    one record (:meth:`SpanTracer.begin_flush`): ``verify_pack`` from the
+    pack's start to the record's creation, then ``verify_device`` (off the
+    simulator), ``verify_fetch`` and ``verify_dispatch`` as the dispatch
+    reports them.  Each stage notifies the tracer's sinks once a block, as
+    ``record_span`` would; reads expand the record into the same per-block
+    events, labels formatted once."""
+
+    __slots__ = ("_tracer", "refs", "authority", "kept", "pack", "device",
+                 "final", "_labels")
+
+    def __init__(self, tracer: "SpanTracer", refs: Sequence, authority: Optional[int],
+                 t_pack: float, kept: bool) -> None:
+        self._tracer = tracer
+        self.refs = refs
+        self.authority = authority
+        self.kept = kept
+        self.pack = (t_pack, runtime_now())
+        # Set once each, as whole tuples, so a concurrent read sees a stage
+        # either complete or absent.
+        self.device: Optional[Tuple[float, float]] = None
+        self.final: Optional[Tuple[float, float, float, Optional[dict]]] = None
+        self._labels: Optional[List[str]] = None
+
+    def device_done(self, t0: float, t1: float) -> None:
+        """``verify_device``: from the pipeline slot to the submit's return."""
+        self.device = (t0, t1)
+        self._tracer._notify_all("verify_device", self.refs, self.authority, t0, t1)
+        if not self.kept:
+            self._tracer._count_dropped(len(self.refs))
+
+    def done(self, t_fetch: float, t_dispatch: float, t1: float,
+             dispatch_extra: Optional[dict] = None) -> None:
+        """``verify_fetch`` from ``t_fetch`` and ``verify_dispatch`` from
+        ``t_dispatch``, both to ``t1``; ``dispatch_extra`` lands in each
+        ``verify_dispatch`` event's args."""
+        self.final = (t_fetch, t_dispatch, t1, dispatch_extra)
+        tracer = self._tracer
+        if tracer._sinks:
+            for ref in self.refs:
+                tracer._notify("verify_fetch", ref, self.authority, t_fetch, t1)
+                tracer._notify("verify_dispatch", ref, self.authority, t_dispatch, t1)
+        if not self.kept:
+            tracer._count_dropped(2 * len(self.refs))
+
+    def expand(self) -> List[Tuple[str, str, Optional[int], float, float, Optional[dict]]]:
+        """The per-block events of the stages completed so far."""
+        if self._labels is None:
+            self._labels = [format_ref(ref) for ref in self.refs]
+        labels, a = self._labels, self.authority
+        device, final = self.device, self.final
+        out = [("verify_pack", label, a, *self.pack, None) for label in labels]
+        if device is not None:
+            out.extend(("verify_device", label, a, *device, None) for label in labels)
+        if final is not None:
+            t_fetch, t_dispatch, t1, extra = final
+            for label in labels:
+                out.append(("verify_fetch", label, a, t_fetch, t1, None))
+                out.append(("verify_dispatch", label, a, t_dispatch, t1, extra))
+        return out
+
+
 class SpanTracer:
     """Collects per-block stage spans; exports Chrome trace-event JSON.
 
@@ -97,9 +184,12 @@ class SpanTracer:
         flush_path: Optional[str] = None,
         flush_every_s: float = 5.0,
     ) -> None:
-        # Completed spans: (stage, ref label, authority, t0, t1, extra args).
-        self._events: List[Tuple[str, str, Optional[int], float, float,
-                                 Optional[dict]]] = []
+        # Completed spans: (stage, ref label, authority, t0, t1, extra args);
+        # the label is None for a flush's or a frame's span, and a
+        # BlockFlush stands for its dispatch's per-block spans.
+        self._events: List = []
+        # Events held, a BlockFlush counted as its four spans a block.
+        self._n_events = 0
         # Clock anchor for cross-node trace merging: one (runtime, wall)
         # pair captured at the FIRST recorded span.
         self._anchor: Optional[Tuple[float, float]] = None
@@ -127,10 +217,20 @@ class SpanTracer:
         return runtime_now()
 
     @property
-    def events(self) -> List[Tuple[str, str, Optional[int], float, float, Optional[dict]]]:
-        """A snapshot of the completed spans, in recording order."""
+    def events(self) -> List[Tuple[str, Optional[str], Optional[int], float, float, Optional[dict]]]:
+        """A snapshot of the completed spans, in recording order (a
+        dispatch's per-block spans where its record was begun)."""
         with self._lock:
-            return list(self._events)
+            return self._expanded()
+
+    def _expanded(self) -> list:  # lint: holds[_lock]
+        out: list = []
+        for event in self._events:
+            if isinstance(event, BlockFlush):
+                out.extend(event.expand())
+            else:
+                out.append(event)
+        return out
 
     # -- live span stream --
 
@@ -142,6 +242,22 @@ class SpanTracer:
     def _notify(self, stage, ref, authority, t0, t1) -> None:
         for sink in self._sinks:
             sink(stage, ref, authority, t0, t1)
+
+    def _notify_all(self, stage, refs, authority, t0, t1) -> None:
+        if self._sinks:
+            for ref in refs:
+                self._notify(stage, ref, authority, t0, t1)
+
+    def _count_dropped(self, n: int) -> None:
+        with self._lock:
+            self.dropped += n
+
+    def _admit(self, n: int) -> bool:  # lint: holds[_lock]
+        """Room for ``n`` more events under the cap (counted as held)."""
+        if self._n_events + n > self.MAX_EVENTS:
+            return False
+        self._n_events += n
+        return True
 
     def _anchor_once(self) -> None:  # lint: holds[_lock]
         if self._anchor is None:
@@ -169,12 +285,46 @@ class SpanTracer:
         self._notify(stage, ref, authority, t0, t1)
         with self._lock:
             self._anchor_once()
-            if len(self._events) >= self.MAX_EVENTS:
+            if not self._admit(1):
                 self.dropped += 1
                 return
             self._events.append(
                 (stage, format_ref(ref), authority, t0, t1, extra)
             )
+
+    def begin_flush(self, refs: Sequence, t_pack: float,
+                    authority: Optional[int] = None) -> BlockFlush:
+        """The per-block ``verify_*`` spans of one collector dispatch as ONE
+        record (one locked append a dispatch instead of four a block):
+        ``verify_pack`` from ``t_pack`` to now for each of ``refs``; the
+        returned record takes the later stages.  A record the event cap
+        refuses still notifies the sinks, and counts its spans as dropped."""
+        if authority is None:
+            authority = current_authority.get()
+        with self._lock:
+            self._anchor_once()
+            kept = self._admit(4 * len(refs))
+            flush = BlockFlush(self, refs, authority, t_pack, kept)
+            if kept:
+                self._events.append(flush)
+            else:
+                self.dropped += len(refs)
+        self._notify_all("verify_pack", refs, authority, *flush.pack)
+        return flush
+
+    def record_interval(self, stage: str, t0: float, t1: float, args: dict,
+                        authority: Optional[int] = None) -> None:
+        """A completed span of a flush or a frame rather than of a block
+        (a name from ``PORT_STAGES``): exported in the same Chrome trace,
+        with ``args`` as its args and no block label; no sink sees it."""
+        if authority is None:
+            authority = current_authority.get()
+        with self._lock:
+            self._anchor_once()
+            if not self._admit(1):
+                self.dropped += 1
+                return
+            self._events.append((stage, None, authority, t0, t1, args))
 
     def begin_span(
         self,
@@ -217,7 +367,7 @@ class SpanTracer:
             if t0 is None:
                 return
             self._anchor_once()
-            if len(self._events) >= self.MAX_EVENTS:
+            if not self._admit(1):
                 self.dropped += 1
             else:
                 self._events.append(
@@ -246,7 +396,7 @@ class SpanTracer:
         """
         pid = os.getpid()
         with self._lock:
-            events = list(self._events)
+            events = self._expanded()
             anchor = self._anchor
 
         def tid_of(authority: Optional[int]) -> int:
@@ -277,7 +427,9 @@ class SpanTracer:
         spans = [
             {
                 "args": (
-                    {"block": label}
+                    dict(extra)
+                    if label is None
+                    else {"block": label}
                     if not extra
                     else {"block": label, **extra}
                 ),
@@ -291,7 +443,7 @@ class SpanTracer:
             }
             for stage, label, authority, t0, t1, extra in events
         ]
-        spans.sort(key=lambda e: (e["ts"], e["tid"], e["name"], e["args"]["block"], e["dur"]))
+        spans.sort(key=lambda e: (e["ts"], e["tid"], e["name"], e["args"].get("block", ""), e["dur"]))
         trace_events.extend(spans)
         trace = {"displayTimeUnit": "ms", "traceEvents": trace_events}
         if anchor is not None:

@@ -26,9 +26,18 @@ This module is the engine for that shape:
   async dispatch, or behind a socket.
 
 Stage accounting: ``verify_pipeline_inflight`` / ``verify_pipeline_depth``
-gauges and the ``verify_pipeline_stage_seconds{stage=pack|device|fetch}``
-histogram (metrics.py), plus per-block ``verify_pack`` / ``verify_device`` /
-``verify_fetch`` spans (spans.py) when tracing is on.
+gauges and the ``verify_pipeline_stage_seconds{stage}`` histogram
+(metrics.py): ``pack`` on the loop thread; ``device`` (pack-to-wire plus the
+non-blocking submission) and ``fetch`` (the result call) timed inside the
+executor thread that runs them; ``queue``, the executor's queue waits before
+the submit and before the fetch, one sample a dispatch.  Under the simulator
+the dispatch runs inline: ``device`` is an explicit zero, ``fetch`` the whole
+dispatch, and ``queue`` is not observed.  Occupancy
+(``mysticeti_verify_occupancy_fraction``) splits pack, device and fetch only.
+``verify_pipeline_stage_cpu_seconds_total{stage}`` holds the thread CPU of
+pack, device and fetch.  With tracing on, per-block ``verify_pack`` /
+``verify_device`` / ``verify_fetch`` spans, and off the simulator a
+dispatch's ``flush_*`` spans (spans.py).
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from typing import Callable, List, Optional, Sequence
 STAGE_PACK = "pack"
 STAGE_DEVICE = "device"
 STAGE_FETCH = "fetch"
+STAGE_QUEUE = "queue"
 
 
 class CompletedDispatch:
@@ -204,4 +214,5 @@ __all__ = [
     "STAGE_PACK",
     "STAGE_DEVICE",
     "STAGE_FETCH",
+    "STAGE_QUEUE",
 ]

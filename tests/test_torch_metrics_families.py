@@ -20,11 +20,15 @@ PACKAGES = ("mysticeti_tpu", "mysticeti_tpu_torch")
 # The port's kernel-build families stand where the JAX package counts its
 # compiles and compile-cache hits (ops.ed25519.install_device_attribution);
 # the generator's submitted count is the client side of overload_bench's
-# offered = admitted + shed.
+# offered = admitted + shed; the receive path's splits (thread CPU, device
+# seconds, collector and offload waits) are the port's own.
 PORT_ONLY = {
     "mysticeti_cuda_builds_total", "mysticeti_cuda_build_seconds_total",
     "mysticeti_cuda_build_cache_hits_total", "mysticeti_cuda_build_cache_misses_total",
     "mysticeti_client_submitted_total",
+    "verify_pipeline_stage_cpu_seconds_total", "verify_device_seconds_total",
+    "verify_collector_wait_seconds_total", "dataplane_offload_queue_seconds_total",
+    "dataplane_offload_cpu_seconds_total",
 }
 
 

@@ -367,9 +367,15 @@ def test_one_flush_observes_each_stage_and_the_verdicts():
     assert r.get_sample_value("verified_signatures_total", {**label, "outcome": "rejected"}) == 1.0
     assert r.get_sample_value("verify_padding_wasted_total", label) == 0.0
     assert r.get_sample_value("verify_collector_window_seconds") > 0
-    assert r.get_sample_value("utilization_timer_total", {"proc": "verify:dispatch"}) >= 0
+    # The submit and fetch calls are timed in their executor threads: wall
+    # (stage seconds), thread CPU, and the executor's queue waits before them.
+    for stage in ("pack", "device", "fetch"):
+        assert r.get_sample_value("verify_pipeline_stage_cpu_seconds_total", {"stage": stage}) >= 0.0
+    assert r.get_sample_value("verify_pipeline_stage_seconds_count", {"stage": "queue"}) == 1.0
+    assert r.get_sample_value("verify_pipeline_stage_seconds_sum", {"stage": "queue"}) >= 0.0
     names = {e["name"] for e in PS.complete_spans(tracer.chrome_trace()["traceEvents"])}
-    assert names == set(PS.VERIFY_STAGES)
+    # The CPU oracle has no wire, upload or launch of its own.
+    assert names == set(PS.VERIFY_STAGES) | {"flush_queue", "flush_fetch_queue", "flush_fetch"}
 
 
 def test_in_process_make_verifier_wires_attribution_and_stage_timers():
