@@ -30,7 +30,8 @@ families (``mysticeti_cuda_build*``, see
 receive path (``verify_pipeline_stage_cpu_seconds_total``,
 ``verify_device_seconds_total``, ``verify_collector_wait_seconds_total``,
 ``dataplane_offload_queue_seconds_total``,
-``dataplane_offload_cpu_seconds_total``) have no JAX counterpart.
+``dataplane_offload_cpu_seconds_total``, ``dataplane_digest_frames_total``)
+have no JAX counterpart.
 ``serve_metrics`` serves
 ``/metrics``, ``/healthz``, and with a probe, a recorder or a consensus
 document wired ``/health``, ``/debug/flight-recorder`` and
@@ -51,6 +52,7 @@ from prometheus_client import (
     Histogram,
     generate_latest,
 )
+from prometheus_client.core import CounterMetricFamily
 
 from .tracing import logger
 from .utils.tasks import spawn_logged
@@ -173,6 +175,29 @@ class PreciseHistogram:
     def clear(self) -> None:
         self.samples.clear()
         self._window_count = 0
+
+
+class _DigestFramesCollector:
+    """``dataplane_digest_frames_total{threads}``, read at each collect from
+    the extension's process-wide counts (``native._digest_frame_counts``):
+    every ``Metrics`` of a process reports all of the process's frames."""
+
+    @staticmethod
+    def collect():
+        from .native import native
+
+        family = CounterMetricFamily(
+            "dataplane_digest_frames_total",
+            "frames the native block_digests hashed in this process, by the "
+            "number of threads that hashed them (1 = the serial loop)",
+            labels=("threads",),
+        )
+        if native is not None:  # the pure-Python fallback hashes no frame
+            for threads, frames in sorted(native._digest_frame_counts().items()):
+                family.add_metric((str(threads),), frames)
+        yield family
+
+    describe = collect
 
 
 class Metrics:
@@ -426,6 +451,9 @@ class Metrics:
             "batches, by stage (beside dataplane_offload_seconds' wall time)",
             labels=("stage",),
         )
+        # Frames native.block_digests hashed, by the threads that hashed
+        # them: counted in the extension, read at each collect.
+        r.register(_DigestFramesCollector())
         # Signature verifier: the collector (block_validator.py); aggregate
         # mode counts its skipped and direct signatures under
         # backend="aggregate".

@@ -11,8 +11,10 @@ is an acceleration, never a hard dependency), and every call site branches on
 measurement on the card can refuse to time the fallback unannounced.
 
 The extension is built on first import with ``g++ -O2 -std=c++17 -shared
--fPIC ... -lz`` into this directory; set ``MYSTICETI_NO_NATIVE=1`` to disable
-both the build and the import (pins tests to the fallback path).
+-fPIC -pthread ... -lz`` into this directory (``block_digests`` hashes a
+large frame on several threads, all joined within the call); set
+``MYSTICETI_NO_NATIVE=1`` to disable both the build and the import (pins
+tests to the fallback path).
 
 A failed build is remembered: a marker file keyed by the source sha256 is
 written next to ``_native.so`` so a fleet of processes doesn't re-run the
@@ -81,7 +83,7 @@ def _build(fingerprint: str = "") -> bool:
     except OSError:  # read-only install dir: fall back to pure Python
         return False
     cmd = [
-        gxx, "-O2", "-std=c++17", "-shared", "-fPIC",
+        gxx, "-O2", "-std=c++17", "-shared", "-fPIC", "-pthread",
         f"-I{include}", _SRC, "-o", tmp, "-lz",
     ]
     try:

@@ -3,9 +3,11 @@
 Every function of the port's extension (``mysticeti_tpu_torch/native``, built
 with g++ at first import from the port's own copy of the C++ source) is held
 to the JAX package's ``_native`` on the same seeded inputs: ``wal_scan`` on
-torn and corrupt buffers, ``frame_entry``, ``block_digests``,
-``encode_blocks_frame``, ``split_frames``, ``parse_blocks_spans`` (with the
-error text of torn frames), a ``va_*`` vote sequence and ``decode_block``.
+torn and corrupt buffers, ``frame_entry``, ``block_digests`` (also to
+``hashlib``, on frames that fan out over several threads and frames that do
+not, with the frame counts it keeps), ``encode_blocks_frame``,
+``split_frames``, ``parse_blocks_spans`` (with the error text of torn
+frames), a ``va_*`` vote sequence and ``decode_block``.
 Then ``StatementBlock.from_bytes_many`` of the port (native, forced onto the
 per-raw fallback in process, and with ``MYSTICETI_NO_NATIVE=1`` in a child)
 against the JAX package's on a corpus with malformed entries, and the
@@ -14,6 +16,7 @@ frames.  Last, the loader: the build-failure marker, the no-toolchain and
 ``MYSTICETI_NO_NATIVE`` cases and ``active_functions()``.  Every comparison
 is exact: the outputs are bytes, integers and error strings.
 """
+import hashlib
 import json
 import os
 import pathlib
@@ -21,6 +24,7 @@ import random
 import struct
 import subprocess
 import sys
+import threading
 import zlib
 
 import pytest
@@ -95,6 +99,137 @@ def test_block_digests_equal_the_jax_package():
     assert native.block_digests(parts) == jnative.block_digests(parts)
     assert native.block_digests([memoryview(p) for p in parts]) == jnative.block_digests(parts)
     assert native.block_digests([]) == []
+
+
+KIB = 1024
+MIB = 1024 * KIB
+# Part sizes of one block_digests call: frames under the fan-out threshold
+# (1 MiB a thread) and frames over it, uneven sizes in one frame, one block,
+# two, and more blocks than threads.
+DIGEST_FRAMES = {
+    "small-serial": [0, 1, 63, 64, 65, 127, 128, 129, 4000, 10 * KIB],
+    "uneven-serial": [0, 63, 64, 129, 300 * KIB, MIB + 1],
+    "uneven-fanned": [0, 63, 64, 129, 300 * KIB, MIB + 1, 3 * MIB],
+    "one-large-block": [4 * MIB],
+    "two-blocks": [MIB + 300 * KIB, MIB + 600 * KIB],
+    "more-blocks-than-threads": [300 * KIB + i for i in range(15)],
+    "large-then-tiny": [2 * MIB] + [64 * i for i in range(20)],
+}
+BALANCED_FRAMES = {"two-blocks", "more-blocks-than-threads"}
+
+
+def _hashlib_digests(part):
+    part = bytes(part)
+    return (hashlib.blake2b(part, digest_size=32).digest(),
+            hashlib.blake2b(part[:-64], digest_size=32).digest())
+
+
+def _expected_threads(sizes):
+    """The fan-out rule: min(half the affinity mask's CPUs, at most 4;
+    bytes / 1 MiB; blocks), at least 1."""
+    cap = max(1, min(4, len(os.sched_getaffinity(0)) // 2))
+    return max(1, min(cap, sum(sizes) // MIB, len(sizes)))
+
+
+def _digest_frames(metrics):
+    get = metrics.registry.get_sample_value
+    return {t: get("dataplane_digest_frames_total", {"threads": str(t)}) or 0.0
+            for t in range(1, 5)}
+
+
+@pytest.mark.parametrize("kind", ["bytes", "memoryview"])
+@pytest.mark.parametrize("frame", sorted(DIGEST_FRAMES))
+def test_block_digests_equal_hashlib_and_the_jax_package(frame, kind):
+    """Each part's digest and signed pre-hash, in the parts' order, equal
+    ``hashlib``'s blake2b-256 of the whole part and of ``part[:-64]``, and
+    the JAX package's serial ``block_digests``, however many threads hashed
+    the frame; the frame counts once, under the thread count the rule gives
+    where no block outweighs a thread's share of the bytes."""
+    rng = random.Random(zlib.crc32(frame.encode()))
+    sizes = DIGEST_FRAMES[frame]
+    raws = [rng.randbytes(n) for n in sizes]
+    parts = raws if kind == "bytes" else [memoryview(r) for r in raws]
+    metrics = Metrics()
+    before = _digest_frames(metrics)
+    got = native.block_digests(parts)
+    after = _digest_frames(metrics)
+    assert got == [_hashlib_digests(r) for r in raws]
+    assert got == jnative.block_digests(raws)
+    counted = [t for t in after if after[t] != before[t]]
+    assert len(counted) == 1 and after[counted[0]] - before[counted[0]] == 1
+    # The ranges split the bytes, so a block larger than a thread's share
+    # leaves fewer ranges, and threads, than the rule allows.
+    threads = _expected_threads(sizes)
+    if threads == 1 or frame in BALANCED_FRAMES:
+        assert counted == [threads]
+    else:
+        assert 1 < counted[0] <= threads
+
+
+def test_block_digests_type_error_mid_frame_releases_every_buffer():
+    """A non-buffer item in the middle of a frame large enough to fan out
+    raises TypeError, and every buffer taken before it is released: the
+    bytearray parts of the same call, first and right before the bad item,
+    can still be resized."""
+    rng = random.Random(3)
+    first, last = bytearray(rng.randbytes(600 * KIB)), bytearray(rng.randbytes(KIB))
+    parts = [first, bytes(MIB), last, 12345, bytes(MIB)]
+    with pytest.raises(TypeError):
+        native.block_digests(parts)
+    for grown, size in ((first, 600 * KIB), (last, KIB)):
+        grown.extend(b"more")  # raises BufferError if an export leaked
+        del grown[:10]
+        assert len(grown) == size - 6
+
+
+def test_digest_frame_counter_counts_fanned_and_serial_frames():
+    """``dataplane_digest_frames_total``: a 4-MiB frame of eight blocks
+    counts under the fan-out's thread count (more than one wherever the
+    process may run on four CPUs or more), a 10-KiB frame under
+    ``threads="1"``, an empty call nowhere."""
+    metrics = Metrics()
+    large = [bytes(512 * KIB)] * 8
+    threads = _expected_threads([len(p) for p in large])
+    assert threads > 1 or len(os.sched_getaffinity(0)) < 4
+    before = _digest_frames(metrics)
+    native.block_digests(large)
+    mid = _digest_frames(metrics)
+    native.block_digests([bytes(10 * KIB)])
+    native.block_digests([])
+    after = _digest_frames(metrics)
+    assert {t: mid[t] - before[t] for t in mid} == {t: float(t == threads) for t in mid}
+    assert {t: after[t] - mid[t] for t in mid} == {t: float(t == 1) for t in mid}
+
+
+def test_block_digests_from_many_threads_at_once():
+    """Eight Python threads call ``block_digests`` on fanned frames at once
+    under a short switch interval: every result is hashlib's, and the frame
+    counts rise by exactly the number of calls (no lost update)."""
+    rng = random.Random(8)
+    frames = [[rng.randbytes(MIB + i) for i in range(4)] for _ in range(8)]
+    want = [[_hashlib_digests(p) for p in frame] for frame in frames]
+    calls = 5
+    metrics = Metrics()
+    before = sum(_digest_frames(metrics).values())
+    results = [[] for _ in frames]
+
+    def work(i):
+        for _ in range(calls):
+            results[i].append(native.block_digests(frames[i]))
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(len(frames))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    assert results == [[w] * calls for w in want]
+    assert sum(_digest_frames(metrics).values()) - before == len(frames) * calls
 
 
 BLOCKS_SHAPES = [
